@@ -1,0 +1,156 @@
+"""Dual-task losses with learned homoscedastic uncertainty weighting
+(forward only).
+
+Port of ``npp_tpu/core/criterion.py:42-242``. Tensors are NCHW. The
+JAX package's TPU workarounds are replaced by their native torch ops:
+the one-hot contractions by ``gather`` / indexing, and the bit-pattern
+bisection for OHEM's k-th smallest probability by an exact
+``torch.sort`` on the device (the host never reads the k-th value).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from npp_tpu_torch.ops.resize import resize_bilinear
+
+# LIP per-class CE weights (npp_tpu/core/criterion.py:34-39).
+LIP_CLASS_WEIGHTS = (
+    0.7602572, 0.94236198, 0.85644457, 1.04346266, 1.10627293, 0.80980162,
+    0.95168713, 0.8403769, 1.05798412, 0.85746254, 1.01274366, 1.05854692,
+    1.03430773, 0.84867818, 0.88027721, 0.87580925, 0.98747462, 0.9876475,
+    1.00016535, 1.00108882,
+)
+
+
+def init_pose_lamda(num_stages: int, device=None) -> torch.Tensor:
+    return torch.full((num_stages,), -2.5, dtype=torch.float32, device=device)
+
+
+def init_par_lamda(num_stages: int, device=None) -> torch.Tensor:
+    return torch.full((num_stages,), 2.3, dtype=torch.float32, device=device)
+
+
+def init_criterion_params(num_stages: int, device=None) -> dict:
+    """The learned stage weights (``npp_tpu/core/train.py:95-99``)."""
+    return {"lamda_pose": init_pose_lamda(num_stages, device),
+            "lamda_par": init_par_lamda(num_stages, device)}
+
+
+def _mse(a, b):
+    return torch.mean(torch.square(a.float() - b.float()))
+
+
+def joint_mse_loss(output: torch.Tensor, target: torch.Tensor,
+                   output_aux: torch.Tensor,
+                   target_aux: torch.Tensor) -> torch.Tensor:
+    """Per-joint heatmap MSE over (B, J, H, W) maps plus the aux head's
+    (the eval path uses no joint target weights)."""
+    th, tw = target.shape[2], target.shape[3]
+
+    def one(out, tgt_):
+        return _mse(resize_bilinear(out, (th, tw), align_corners=False), tgt_)
+
+    return one(output, target) + one(output_aux, target_aux)
+
+
+def pose_loss(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
+              target: torch.Tensor, target_aux: torch.Tensor,
+              lamda: torch.Tensor) -> torch.Tensor:
+    """Deep-supervised pose loss over stages, weighted exp(-lam)*L + lam."""
+    total = 0.0
+    for i, (out, out_aux) in enumerate(outputs):
+        li = joint_mse_loss(out, target, out_aux, target_aux)
+        total = total + li * torch.exp(-lamda[i]) + lamda[i]
+    return total
+
+
+def _gt_log_prob(logits: torch.Tensor, target: torch.Tensor,
+                 ignore_index: int):
+    """log p(gt class) per pixel of (B, C, H, W) logits, the valid mask
+    and the gt labels with ignored pixels set to class 0."""
+    valid = target != ignore_index
+    tgt = torch.where(valid, target, 0).long()
+    logp = F.log_softmax(logits.float(), dim=1)
+    return logp.gather(1, tgt[:, None])[:, 0], valid, tgt
+
+
+def ohem_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                       class_weights: Sequence[float],
+                       ignore_index: int = 255, thres: float = 0.9,
+                       min_kept: int = 131072) -> torch.Tensor:
+    """Online hard-example-mining CE. ``logits``: (B, C, H, W) at target
+    resolution; ``target``: (B, H, W) labels. Keeps the valid pixels whose
+    gt probability is strictly below max(thres, k-th smallest gt
+    probability among valid pixels), k = min(min_kept + 1, n_valid); the
+    loss is the plain mean of the kept weighted pixel losses."""
+    gt_logp, valid, tgt = _gt_log_prob(logits, target, ignore_index)
+    cw = torch.as_tensor(class_weights, dtype=torch.float32,
+                         device=logits.device)
+    pixel_losses = -gt_logp * cw[tgt]
+    gt_prob = torch.exp(gt_logp)
+
+    flat_valid = valid.reshape(-1)
+    flat_prob = gt_prob.reshape(-1)
+    # Ignored pixels sort after every probability; k <= n_valid (or k = 1
+    # with nothing valid) so the k-th value is exact and valid-only.
+    ranked = torch.sort(torch.where(flat_valid, flat_prob, 3.0)).values
+    n_valid = flat_valid.sum()
+    k = torch.clamp(n_valid, min=1).clamp(max=min_kept + 1)
+    min_value = ranked.index_select(0, (k - 1).reshape(1)).squeeze(0)
+    threshold = torch.clamp(min_value, min=thres)
+
+    keep = flat_valid & (flat_prob < threshold)
+    kept = torch.where(keep, pixel_losses.reshape(-1), 0.0)
+    return kept.sum() / torch.clamp(keep.float().sum(), min=1.0)
+
+
+def weighted_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                           weights: torch.Tensor,
+                           ignore_index: int = 255) -> torch.Tensor:
+    """``F.cross_entropy(weight=..., ignore_index=...)``: sum(w_t * nll_t) /
+    sum(w_t) over non-ignored pixels, with the sum of weights floored at
+    1e-12 as in the JAX package."""
+    gt_logp, valid, tgt = _gt_log_prob(logits, target, ignore_index)
+    w = weights.float()[tgt] * valid.float()
+    return torch.sum(-gt_logp * w) / torch.clamp(w.sum(), min=1e-12)
+
+
+def single_parsing_loss(par_logits: torch.Tensor, edge_logits: torch.Tensor,
+                        target_par: torch.Tensor, target_edge: torch.Tensor,
+                        class_weights: Sequence[float],
+                        ignore_index: int = 255, thres: float = 0.9,
+                        min_kept: int = 131072) -> torch.Tensor:
+    """One refinement stage's parsing (OHEM) + edge loss; the edge class
+    weights are the batch's edge / non-edge balance."""
+    h, w = target_par.shape[1], target_par.shape[2]
+    par_logits = resize_bilinear(par_logits.float(), (h, w),
+                                 align_corners=True)
+    edge_logits = resize_bilinear(edge_logits.float(), (h, w),
+                                  align_corners=True)
+    loss = ohem_cross_entropy(par_logits, target_par, class_weights,
+                              ignore_index, thres, min_kept)
+    pos = (target_edge == 1).float().sum()
+    neg = (target_edge == 0).float().sum()
+    tot = pos + neg
+    edge_w = torch.stack([pos / tot, neg / tot])  # by class id 0, 1
+    return loss + weighted_cross_entropy(edge_logits, target_edge, edge_w,
+                                         ignore_index)
+
+
+def parsing_loss(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                 target_par: torch.Tensor, target_edge: torch.Tensor,
+                 lamda: torch.Tensor,
+                 class_weights: Sequence[float] = LIP_CLASS_WEIGHTS,
+                 ignore_index: int = 255, thres: float = 0.9,
+                 min_kept: int = 131072) -> torch.Tensor:
+    """Deep-supervised parsing loss over stages."""
+    total = 0.0
+    for i, (par_logits, edge_logits) in enumerate(outputs):
+        li = single_parsing_loss(par_logits, edge_logits, target_par,
+                                 target_edge, class_weights, ignore_index,
+                                 thres, min_kept)
+        total = total + li * torch.exp(-lamda[i]) + lamda[i]
+    return total

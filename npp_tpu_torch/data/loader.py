@@ -1,0 +1,150 @@
+"""Prefetching batcher with on-device target completion.
+
+Port of ``npp_tpu/data/loader.py:25-240`` for one process and one device:
+a thread pool assembles fixed-shape numpy batches, a producer thread keeps
+``prefetch`` of them ready, each batch is pinned (on a CUDA device) and
+copied with ``non_blocking=True``, and the renderer completes the targets
+on the device. No sharding and no multi-process path are ported.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from npp_tpu_torch.data import targets as tgt
+from npp_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
+
+
+def collate(samples: list[dict]) -> dict:
+    """Stack sample dicts into fixed-shape numpy arrays (+ name list)."""
+    batch = {}
+    for key in ("image", "par", "joints", "visibility", "scale",
+                "crop_param"):
+        batch[key] = np.stack([s[key] for s in samples])
+    batch["names"] = [s["name"] for s in samples]
+    return batch
+
+
+def make_target_renderer(*, stride: int = 4, sigma: float = 3,
+                         num_joints: int = 16, edge_width: int = 3,
+                         ignore: int = 255, normalize_images: bool = False):
+    """On-device target completion: joints -> heatmaps (+aux), parsing
+    labels -> edge map, and with ``normalize_images=True`` uint8 NHWC
+    images -> ImageNet-normalised float images.
+
+    The returned ``render(image, par, joints, visibility)`` gives ``pose``
+    and ``pose_aux`` (B, num_joints, H/stride, W/stride) without the
+    background channel, ``edge`` (B, H, W) int64 (``ignore`` where the
+    label is ignored), ``pose_weight`` and, when normalising, ``image``
+    as NCHW float32 in ``channels_last`` memory format."""
+    def render(image, par, joints, visibility):
+        h, w = image.shape[1], image.shape[2]
+        pose, pose_aux = tgt.gen_pose_target_device(
+            joints, visibility, stride=stride, grid_x=w // stride,
+            grid_y=h // stride, sigma=sigma)
+        edge = tgt.generate_edge_device(par, edge_width=edge_width,
+                                        ignore=ignore)
+        edge = torch.where(par == ignore, ignore, edge.long())
+        out = {"pose": pose[:, :num_joints],
+               "pose_aux": pose_aux[:, :num_joints],
+               "edge": edge, "pose_weight": visibility}
+        if normalize_images:
+            mean = torch.as_tensor(IMAGENET_MEAN, device=image.device)
+            std = torch.as_tensor(IMAGENET_STD, device=image.device)
+            img = (image.to(torch.float32) / 255.0 - mean) / std
+            out["image"] = img.permute(0, 3, 1, 2)  # NHWC -> NCHW view
+        elif image.dtype == torch.uint8:
+            raise ValueError(
+                "loader received uint8 images but the renderer was built "
+                "with normalize_images=False")
+        return out
+
+    return render
+
+
+class DataLoader:
+    """Iterates device-ready batches in dataset order (no shuffle: the eval
+    path needs none): thread-pool sample loading, a
+    ``prefetch``-deep queue, pinned host memory and non-blocking copies to
+    ``device``, then on-device target rendering. Batches keep their
+    dataset ``index`` (host side) beside the device tensors."""
+
+    prefetch = 2  # host batches kept ready ahead of the consumer
+
+    def __init__(self, dataset, batch_size: int, *, device,
+                 num_workers: int = 8, renderer=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self.num_workers = max(1, num_workers)
+        self.renderer = renderer
+
+    def __len__(self):
+        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+
+    def _indices(self):
+        """Dataset order in batches; the last one may be short."""
+        idx = np.arange(len(self.dataset))
+        return [idx[i:i + self.batch_size]
+                for i in range(0, len(idx), self.batch_size)]
+
+    def _to_device(self, batch: dict) -> dict:
+        names = batch.pop("names")
+        index = batch.pop("index")
+        pin = self.device.type == "cuda"
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if pin:
+                t = t.pin_memory()
+            out[k] = t.to(self.device, non_blocking=pin)
+        if self.renderer is not None:
+            out.update(self.renderer(out["image"], out["par"],
+                                     out["joints"], out["visibility"]))
+        out["names"] = names
+        out["index"] = index
+        return out
+
+    def __iter__(self) -> Iterator[dict]:
+        batches = self._indices()
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def produce():
+            try:
+                for group in batches:
+                    if stop.is_set():
+                        return
+                    samples = list(pool.map(self.dataset.__getitem__, group))
+                    c = collate(samples)
+                    c["index"] = np.asarray(group, np.int64)
+                    q.put(c)
+                q.put(None)
+            except BaseException as exc:  # handed to the consumer
+                q.put(exc)
+
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield self._to_device(item)
+        finally:
+            stop.set()
+            while producer.is_alive():  # unblock a producer stuck on put
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                producer.join(timeout=0.05)
+            pool.shutdown(wait=True)
