@@ -10,7 +10,8 @@ port's loader -> heatmap kernel -> eval step -> validate, in fp32 and in
 bf16 + channels_last. Any failure raises, so the exit code is non-zero;
 without CUDA it exits non-zero before printing any result.
 
-Phases: 1 device, 2 build, 3 kernel vs plain version (two shapes),
+Phases: 1 device, 2 build, 3 kernel vs plain version (four shapes) and
+the device time of both by many launches, beside the kernel's bound,
 4 the slice in fp32, 5 the slice in bf16 + channels_last (timed).
 Output: one line per phase, then a JSON line of the kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -18,6 +19,7 @@ Output: one line per phase, then a JSON line of the kernels, the
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -32,13 +34,22 @@ from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.ops import heatmaps
 from npp_tpu_torch.tools import eval_lip
 
-KERNEL_SHAPES = (  # (B, J, gy, gx, sigma): the slice's, then a ragged one
-    (8, 16, 96, 96, 3.0),
-    (3, 14, 96, 72, 2.0),
+KERNEL_SHAPES = (  # (B, J, gy, gx, sigma); the first is timed
+    (8, 16, 96, 96, 3.0),    # the eval slice's
+    (3, 14, 96, 72, 2.0),    # a ragged one
+    (1, 13, 25, 23, 2.5),    # its last tile holds 3,528 B, not a multiple of 16
+    (16, 16, 96, 96, 3.0),   # the train slice's
 )
 KERNEL_ATOL = 1e-6  # the kernel and its plain version round alike
 BF16_RTOL = 2e-2    # bf16 vs fp32 eval loss
 N_IMAGES, BATCH, SEED = 16, 8, 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+TIMED_CALLS = 200          # calls per timed run
+COLD_RING = 8              # calls whose outputs stay referenced: 8 x 10 MB > 50 MB L2
+TIMING = (f"CUDA events around {TIMED_CALLS} calls queued behind a "
+          f"torch.cuda._sleep, over the count; the outputs of the last "
+          f"{COLD_RING} calls kept referenced (cold L2)")
 
 
 def nvidia_smi() -> str:
@@ -49,24 +60,68 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_median_ms(fn, runs: int = 50, warmup: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def device_us(fn) -> tuple[float, bool]:
+    """Device time of one call of ``fn``, in us: a sleep kernel holds the
+    stream while the host queues ``TIMED_CALLS`` calls behind it, and CUDA
+    events around those calls give their time over the count. The outputs
+    of the last ``COLD_RING`` calls stay referenced, so the caching
+    allocator hands each call memory that is not hot in the L2. Also
+    returns whether every call was queued before the device reached the
+    first: a call that synchronises the host cannot be, and then the time
+    holds host time too."""
+    ring = collections.deque(maxlen=COLD_RING)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_CALLS):  # warm-up, and the host's enqueue time
+        ring.append(fn())
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 10**6)  # > 2x that at <= 2 GHz
+    start.record()
+    for _ in range(TIMED_CALLS):
+        ring.append(fn())
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / TIMED_CALLS, queued
+
+
+def bound_us(b: int, j: int, gy: int, gx: int) -> tuple[float, str]:
+    """The least time the card could take to render one batch: the bytes
+    (inputs read once, two outputs written once) over the memory rate,
+    or the float32 operations over their peak rate, whichever is longer.
+    Per (pixel, joint, sigma): 2 sub, 2 mul, add, div, exp, mul by the
+    visibility and the max; per (pixel, sigma) the background's sub."""
+    nbytes = 4 * (b * j * 3 + 2 * b * gy * gx * (j + 1))
+    ops = 2 * b * gy * gx * (9 * j + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    t_ops = ops / FP32_OPS_PER_S * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profiled_kernel_us(fn, calls: int = 20):
+    """Device time per launch that ``torch.profiler`` lists for the
+    kernel, or None if its ``key_averages()`` has no row for it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if "render_heatmaps_kernel" in e.key]
+    if not rows:
+        return None
+    total = sum(getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) for e in rows)
+    return total / sum(e.count for e in rows)
 
 
 def check_kernel(tag: str) -> dict:
-    """Phase 3: kernel vs plain version at the slice's and a ragged shape;
-    timed at the slice's shape."""
+    """Phase 3: kernel vs plain version at every shape of KERNEL_SHAPES;
+    device time of both, and the bound, at the first."""
     rng = np.random.default_rng(SEED)
     worst, timed = 0.0, None
     for b, j, gy, gx, sigma in KERNEL_SHAPES:
@@ -89,14 +144,39 @@ def check_kernel(tag: str) -> dict:
                                  "version")
         worst = max(worst, err_m, err_a)
         if timed is None:
-            k_ms = cuda_median_ms(
-                lambda: heatmaps.render_heatmaps(joints, vis, **kw))
-            p_ms = cuda_median_ms(
-                lambda: heatmaps.render_heatmaps_reference(joints, vis, **kw))
-            timed = (k_ms, p_ms)
-            print(f"phase 3: median of 50 at B={b} J={j} {gy}x{gx}: "
-                  f"kernel {k_ms:.4f} ms, plain version {p_ms:.4f} ms {tag}")
-    return {"max_abs_err": worst, "ms": timed[0], "plain_ms": timed[1]}
+            kernel = lambda: heatmaps.render_heatmaps(joints, vis, **kw)
+            plain = lambda: heatmaps.render_heatmaps_reference(joints, vis,
+                                                               **kw)
+            k_us, k_queued = device_us(kernel)
+            p_us, p_queued = device_us(plain)
+            if not k_queued:
+                raise AssertionError("the timed kernel calls were not all "
+                                     "queued behind the sleep")
+            b_us, b_by = bound_us(b, j, gy, gx)
+            prof_us = profiled_kernel_us(kernel)
+            # Yardsticks by the same method: an empty launch, and a fill
+            # of as many bytes as the kernel writes.
+            empty_us, _ = device_us(lambda: torch.cuda._sleep(0))
+            fill_us, _ = device_us(lambda: torch.zeros(
+                2 * b * gy * gx * (j + 1), device="cuda"))
+            timed = dict(device_us=k_us, plain_us=p_us, bound_us=b_us,
+                         bound_by=b_by, share_of_bound=b_us / k_us,
+                         plain_queued=p_queued, profiler_us=prof_us,
+                         empty_launch_us=empty_us, fill_us=fill_us)
+            print(f"phase 3: device time at B={b} J={j} {gy}x{gx}: kernel "
+                  f"{k_us:.4f} us, plain version {p_us:.4f} us"
+                  f"{'' if p_queued else ' (it synchronises: host time included)'}"
+                  f"; bound {b_us:.4f} us ({b_by}); kernel at "
+                  f"{b_us / k_us:.4f} of the bound; an empty launch "
+                  f"{empty_us:.4f} us, a fill of the same bytes "
+                  f"{fill_us:.4f} us; torch.profiler lists "
+                  + ("no row for the kernel" if prof_us is None else
+                     f"the kernel at {prof_us:.4f} us per launch")
+                  + f" {tag}")
+    return {"max_abs_err": worst, "ms": timed["device_us"] / 1e3,
+            "plain_ms": timed["plain_us"] / 1e3,
+            "bound_ms": timed["bound_us"] / 1e3, **timed,
+            "timing": TIMING, "library_ms": None, "library": "none"}
 
 
 def valid_pixels() -> int:

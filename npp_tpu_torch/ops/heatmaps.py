@@ -10,19 +10,22 @@ wrapper does.
 ``render_heatmaps`` chooses by the tensors' device: on a CUDA tensor it
 launches the kernel of ``csrc/render_heatmaps.cu`` (built with ``nvcc``
 for ``sm_90a`` at its first launch, into ``npp_tpu_torch/_build/``, and
-called through ctypes), and a failed build or launch raises; on a CPU
-tensor it returns the plain version, ``render_heatmaps_reference``.
+called through ctypes) with the tiles and grid of ``launch_geometry``,
+and a failed build or launch raises; on a CPU tensor it returns the
+plain version, ``render_heatmaps_reference``.
 Importing this module builds nothing.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 TRUNC = 4.6052  # exponent cut-off (npp_tpu/data/targets.py:25)
@@ -32,6 +35,15 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 _LIBRARY: dict = {}  # the loaded ctypes library, once built
+
+# Launch geometry of the kernel (see launch_geometry).
+THREADS = 256                # threads per block (kThreads in the source)
+TILE_PIXELS = 128            # pixels per tile, at most; a multiple of 4
+TILE_BUFFER_BYTES = 48 * 1024  # a block's four output tile buffers, at most
+SMEM_BLOCK_LIMIT = 232_448   # shared memory one block may use on Hopper
+SMEM_PER_SM = 233_472        # shared memory of one SM (228 KB)
+SMEM_RESERVED = 1024         # shared memory CUDA reserves for each block
+THREADS_PER_SM = 2048        # threads resident on one SM, at most
 
 
 def render_heatmaps_reference(joints: torch.Tensor, visibility: torch.Tensor,
@@ -62,6 +74,63 @@ def render_heatmaps_reference(joints: torch.Tensor, visibility: torch.Tensor,
         return m.permute(0, 2, 3, 1).contiguous()  # NHWC
 
     return render(float(sigma)), render(2.0 * float(sigma))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchGeometry:
+    tile_pixels: int  # P: pixels per tile, a multiple of 4
+    num_tiles: int    # ceil(B*gy*gx / P)
+    span: int         # rows of the joint table: batch elements a tile spans
+    grid: int         # persistent blocks
+    smem_bytes: int   # dynamic shared memory per block
+    tail_bytes: int   # bytes of the last tile, in each output
+
+
+def launch_geometry(batch: int, num_joints: int, grid_y: int, grid_x: int,
+                    num_sms: int) -> LaunchGeometry:
+    """Tiles, grid and shared memory of one launch on a card with
+    ``num_sms`` SMs. P starts at ``TILE_PIXELS`` and halves (staying a
+    multiple of 4) until a block's two buffers of both outputs,
+    4 * P * (J+1) floats, fit ``TILE_BUFFER_BYTES``. A tile spans at most
+    (P-1) // (gy*gx) + 2 batch elements, whose joints it keeps. The grid
+    is as many blocks as fit on the card at once (by threads and by
+    shared memory), and no more than there are tiles. Raises ValueError
+    if one block would need more shared memory than Hopper gives it."""
+    nc = num_joints + 1
+    p = TILE_PIXELS
+    while p > 4 and 4 * p * nc * 4 > TILE_BUFFER_BYTES:
+        p //= 2
+    hw = grid_y * grid_x
+    n_pix = batch * hw
+    num_tiles = -(-n_pix // p)
+    span = min(batch, (p - 1) // hw + 2)
+    # four tile buffers, cx/cy/v of span*J joints, xs/ys/row of P pixels
+    smem = 4 * (4 * p * nc + 3 * span * num_joints + 3 * p)
+    if smem > SMEM_BLOCK_LIMIT:
+        raise ValueError(f"render_heatmaps: J={num_joints} needs {smem} B of "
+                         f"shared memory per block, over Hopper's "
+                         f"{SMEM_BLOCK_LIMIT}")
+    per_sm = min(THREADS_PER_SM // THREADS,
+                 SMEM_PER_SM // (smem + SMEM_RESERVED))
+    return LaunchGeometry(
+        tile_pixels=p, num_tiles=num_tiles, span=span,
+        grid=min(num_tiles, num_sms * per_sm), smem_bytes=smem,
+        tail_bytes=(n_pix - (num_tiles - 1) * p) * nc * 4)
+
+
+def cut_threshold(two_sig2: float) -> float:
+    """The kernel's early-out bound on d2 for the divisor float(2 sigma^2):
+    the least float32 at or above c+ * float(2 sigma^2), where c+ is the
+    float32 after 4 * float32(TRUNC). A pair with d2 above it has
+    RN(d2 / 2 sigma^2) >= c+, so both its exponent and the aux one (a
+    quarter of it, exactly) are over the cut: the kernel renders 0 there
+    without dividing."""
+    c_up = np.nextafter(np.float32(4) * np.float32(TRUNC), np.float32(np.inf))
+    t = float(c_up) * float(np.float32(two_sig2))  # exact in double
+    t_f = np.float32(t)
+    if float(t_f) < t:
+        t_f = np.nextafter(t_f, np.float32(np.inf))
+    return float(t_f)
 
 
 def _nvcc() -> str:
@@ -102,7 +171,7 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         fn = lib.npp_render_heatmaps
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIBRARY["lib"] = lib
     return _LIBRARY["lib"]
@@ -128,8 +197,11 @@ def render_heatmaps(joints: torch.Tensor, visibility: torch.Tensor, *,
     if tuple(visibility.shape) != (b, j):
         raise ValueError(f"visibility must be ({b}, {j}), got "
                          f"{tuple(visibility.shape)}")
-    if min(grid_x, grid_y, stride) <= 0:
-        raise ValueError("grid_x, grid_y and stride must be positive")
+    if min(j, grid_x, grid_y, stride) <= 0:
+        raise ValueError("J, grid_x, grid_y and stride must be positive")
+    if b * grid_y * grid_x >= 2**31:
+        raise ValueError("render_heatmaps: B * grid_y * grid_x must be "
+                         "under 2^31")
     joints = joints.to(torch.float32).contiguous()
     visibility = visibility.to(torch.float32).contiguous()
     main = torch.empty((b, grid_y, grid_x, j + 1), dtype=torch.float32,
@@ -137,13 +209,22 @@ def render_heatmaps(joints: torch.Tensor, visibility: torch.Tensor, *,
     aux = torch.empty_like(main)
     if b == 0:
         return main, aux
+    if main.data_ptr() % 16 or aux.data_ptr() % 16:
+        raise RuntimeError("render_heatmaps: the kernel's bulk stores need "
+                           "16-byte aligned outputs")
+    sms = torch.cuda.get_device_properties(joints.device).multi_processor_count
+    geo = launch_geometry(b, j, grid_y, grid_x, sms)
+    # 2 sigma^2 in double, as the plain version's divisor; float32 in C
+    two_sig2 = 2.0 * float(sigma) * float(sigma)
     lib = _library()
     with torch.cuda.device(joints.device):
         stream = torch.cuda.current_stream(joints.device).cuda_stream
         err = lib.npp_render_heatmaps(
             joints.data_ptr(), visibility.data_ptr(), main.data_ptr(),
-            aux.data_ptr(), b, j, grid_y, grid_x, int(stride), float(sigma),
-            stream)
+            aux.data_ptr(), b, j, grid_y, grid_x, int(stride), two_sig2,
+            cut_threshold(two_sig2), geo.tile_pixels,
+            geo.num_tiles, geo.span, geo.grid, geo.smem_bytes,
+            geo.tail_bytes, stream)
     if err != 0:
         raise RuntimeError(f"render_heatmaps kernel launch failed: "
                            f"cudaError_t {err}")

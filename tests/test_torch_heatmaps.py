@@ -159,3 +159,87 @@ def test_loader_yields_rendered_batches_in_order():
     assert batches[2]["names"] == ["synthetic_000004"]
     assert batches[0]["pose"].shape == (2, 16, 8, 8)
     assert batches[0]["image"].dtype == torch.float32
+
+
+# The kernel's arithmetic, in float32 numpy (each op rounds to nearest).
+SIGMAS = [1.5, 2.0, 2.5, 3.0, 6.0]
+
+
+def _d2(seed, sigma):
+    """Squared distances of seeded joints to a 96x96 stride-4 grid, and a
+    band of values around the cut at 2 sigma."""
+    rng = np.random.default_rng(seed)
+    centres = np.float32(1.5) + np.arange(96, dtype=np.float32) * np.float32(4)
+    joints = rng.uniform(-20, 404, (40, 2)).astype(np.float32)
+    dx = centres[None, None, :] - joints[:, 0, None, None]
+    dy = centres[None, :, None] - joints[:, 1, None, None]
+    d2 = (dx * dx + dy * dy).ravel()
+    edge = np.float32(4 * 2 * sigma * sigma * heatmaps.TRUNC)
+    band = edge * rng.uniform(0.999, 1.001, 20000).astype(np.float32)
+    return np.concatenate([d2, band, edge[None]])
+
+
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_aux_exponent_is_a_quarter_of_the_main_one(sigma):
+    two = np.float32(2.0 * sigma * sigma)
+    eight = np.float32(2.0 * (2.0 * sigma) * (2.0 * sigma))
+    assert eight == np.float32(4) * two
+    d2 = _d2(int(sigma * 10), sigma)
+    quarter = (d2 / two) * np.float32(0.25)
+    aux = d2 / eight
+    np.testing.assert_array_equal(quarter.view(np.uint32), aux.view(np.uint32))
+    trunc = np.float32(heatmaps.TRUNC)
+
+    def cut_exp(e):
+        return np.where(e > trunc, np.float32(0), np.exp(-e))
+
+    assert (aux > trunc).any() and (aux <= trunc).any()
+    np.testing.assert_array_equal(cut_exp(quarter).view(np.uint32),
+                                  cut_exp(aux).view(np.uint32))
+
+
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_cut_threshold_only_skips_pairs_over_the_cut(sigma):
+    two_sig2 = 2.0 * sigma * sigma
+    t = np.float32(heatmaps.cut_threshold(two_sig2))
+    two = np.float32(two_sig2)
+    eight = np.float32(4) * two
+    trunc = np.float32(heatmaps.TRUNC)
+    # every float32 within 4096 ulps of the threshold, and seeded ones
+    near = (t.view(np.uint32) + np.arange(-4096, 4097)).astype(np.uint32)
+    d2 = np.concatenate([near.view(np.float32), _d2(3, sigma)])
+    skipped = d2 > t
+    assert skipped.any() and (~skipped).any()
+    assert (d2[skipped] / two > trunc).all()
+    assert (d2[skipped] / eight > trunc).all()
+    # and it is tight: a few ulps above 4 * TRUNC * 2 sigma^2
+    assert float(t) <= 4 * float(trunc) * float(two) * (1 + 2**-20)
+
+
+@pytest.mark.parametrize("shape,sms,expect", [
+    # (B, J, gy, gx), SMs -> (P, tiles, span, grid, smem bytes, tail bytes)
+    # P = 128 while 4 buffers * P * (J+1) * 4 B <= 48 KiB, else halved;
+    # smem = 4 B * (4 P (J+1) + 3 span J + 3 P); grid = min(tiles,
+    # SMs * min(2048 / 256, 233472 // (smem + 1024))).
+    ((8, 16, 96, 96), 132, (128, 576, 2, 576, 36736, 8704)),     # eval slice
+    ((16, 16, 96, 96), 132, (128, 1152, 2, 792, 36736, 8704)),   # train slice
+    ((16, 16, 96, 96), 10, (128, 1152, 2, 60, 36736, 8704)),
+    ((3, 14, 96, 72), 132, (128, 162, 2, 162, 32592, 7680)),     # ragged
+    ((1, 13, 25, 23), 132, (128, 5, 1, 5, 30364, 3528)),         # tail % 16 = 8
+    ((2, 30, 96, 96), 132, (64, 288, 2, 288, 33232, 7936)),      # P halved
+    ((2, 200, 96, 96), 132, (8, 2304, 2, 924, 30624, 6432)),     # P = 8
+    ((4, 16, 1, 1), 132, (128, 1, 4, 1, 37120, 272)),            # spans 4
+])
+def test_launch_geometry(shape, sms, expect):
+    g = heatmaps.launch_geometry(*shape, sms)
+    assert (g.tile_pixels, g.num_tiles, g.span, g.grid, g.smem_bytes,
+            g.tail_bytes) == expect
+    assert g.tile_pixels % 4 == 0 and g.smem_bytes <= heatmaps.SMEM_BLOCK_LIMIT
+    b, j, gy, gx = shape
+    assert (g.num_tiles - 1) * g.tile_pixels * (j + 1) * 4 + g.tail_bytes \
+        == b * gy * gx * (j + 1) * 4
+
+
+def test_launch_geometry_refuses_what_shared_memory_cannot_hold():
+    with pytest.raises(ValueError, match="shared memory"):
+        heatmaps.launch_geometry(2, 3000, 96, 96, 132)
