@@ -1,11 +1,14 @@
-"""Dual-task losses with learned homoscedastic uncertainty weighting
-(forward only).
+"""Dual-task losses with learned homoscedastic uncertainty weighting.
 
-Port of ``npp_tpu/core/criterion.py:42-242``. Tensors are NCHW. The
+Port of ``npp_tpu/core/criterion.py:30-242``. Tensors are NCHW. The
 JAX package's TPU workarounds are replaced by their native torch ops:
 the one-hot contractions by ``gather`` / indexing, and the bit-pattern
 bisection for OHEM's k-th smallest probability by an exact
 ``torch.sort`` on the device (the host never reads the k-th value).
+Gradients come from autograd. The k-th value is taken from detached
+probabilities: the JAX bisection carries no gradient either, and a sort
+that autograd records would keep its indices (one int64 per pixel and
+stage) alive until the backward.
 """
 from __future__ import annotations
 
@@ -16,7 +19,11 @@ import torch.nn.functional as F
 
 from npp_tpu_torch.ops.resize import resize_bilinear
 
-# LIP per-class CE weights (npp_tpu/core/criterion.py:34-39).
+# Per-class CE weights (npp_tpu/core/criterion.py:30-39).
+PASCAL_CLASS_WEIGHTS = (
+    0.82877791, 0.95688253, 0.94921949, 1.00538108, 1.0201687, 1.01665831,
+    1.05470914,
+)
 LIP_CLASS_WEIGHTS = (
     0.7602572, 0.94236198, 0.85644457, 1.04346266, 1.10627293, 0.80980162,
     0.95168713, 0.8403769, 1.05798412, 0.85746254, 1.01274366, 1.05854692,
@@ -44,25 +51,31 @@ def _mse(a, b):
 
 
 def joint_mse_loss(output: torch.Tensor, target: torch.Tensor,
-                   output_aux: torch.Tensor,
-                   target_aux: torch.Tensor) -> torch.Tensor:
-    """Per-joint heatmap MSE over (B, J, H, W) maps plus the aux head's
-    (the eval path uses no joint target weights)."""
+                   output_aux: torch.Tensor, target_aux: torch.Tensor,
+                   target_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-joint heatmap MSE over (B, J, H, W) maps plus the aux head's.
+    An optional ``target_weight`` (B, J) masks joints before the MSE."""
     th, tw = target.shape[2], target.shape[3]
+    w = (None if target_weight is None
+         else target_weight.float()[:, :, None, None])
 
     def one(out, tgt_):
-        return _mse(resize_bilinear(out, (th, tw), align_corners=False), tgt_)
+        out = resize_bilinear(out, (th, tw), align_corners=False)
+        if w is None:
+            return _mse(out, tgt_)
+        return _mse(out.float() * w, tgt_.float() * w)
 
     return one(output, target) + one(output_aux, target_aux)
 
 
 def pose_loss(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
               target: torch.Tensor, target_aux: torch.Tensor,
-              lamda: torch.Tensor) -> torch.Tensor:
+              lamda: torch.Tensor,
+              target_weight: torch.Tensor | None = None) -> torch.Tensor:
     """Deep-supervised pose loss over stages, weighted exp(-lam)*L + lam."""
     total = 0.0
     for i, (out, out_aux) in enumerate(outputs):
-        li = joint_mse_loss(out, target, out_aux, target_aux)
+        li = joint_mse_loss(out, target, out_aux, target_aux, target_weight)
         total = total + li * torch.exp(-lamda[i]) + lamda[i]
     return total
 
@@ -90,7 +103,7 @@ def ohem_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     cw = torch.as_tensor(class_weights, dtype=torch.float32,
                          device=logits.device)
     pixel_losses = -gt_logp * cw[tgt]
-    gt_prob = torch.exp(gt_logp)
+    gt_prob = torch.exp(gt_logp.detach())  # selects pixels; no gradient
 
     flat_valid = valid.reshape(-1)
     flat_prob = gt_prob.reshape(-1)

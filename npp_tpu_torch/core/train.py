@@ -1,0 +1,181 @@
+"""Augment-phase training: the optimizer and its schedule, the train state
+and the train step.
+
+Port of ``npp_tpu/core/train.py:33-176, 218-247, 281-293``:
+
+- Adam (optax's defaults: betas 0.9 / 0.999, eps 1e-8, no weight decay)
+  over three parameter groups with the labels of ``_label_params``:
+  ``backbone`` (the stems and both encoder cell stacks, at 0.2x the
+  learning rate), ``weights`` (every other model parameter) and
+  ``criterion`` (the two learned loss lambdas, at a constant 1e-4);
+- the torch ``MultiStepLR`` of the reference as a per-iteration
+  ``LambdaLR``: update t (counted from 0) runs at lr * factor^n, n the
+  number of boundaries (epoch * steps_per_epoch) at or below t, as optax's
+  ``piecewise_constant_schedule``;
+- the reference's lambda-gradient accumulation (``TrainState.crit_accum``
+  in the JAX package): each step zeroes the model's gradients only, so
+  autograd adds each step's lambda gradient to ``.grad`` and Adam sees
+  their running sum.
+
+The step runs eagerly and mutates the state in place; its metrics stay
+device tensors (the host reads nothing inside a step). Not ported: the
+scanned multi-step dispatch and the batch-tiling warning, both TPU
+workarounds.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import torch
+import torch.nn as nn
+from torch.optim.lr_scheduler import LambdaLR
+
+from npp_tpu_torch.core import criterion
+from npp_tpu_torch.models.augment import build_nppnet
+
+BACKBONE_LR_SCALE = 0.2     # augment_lip_sync.py:193-202 in the reference
+CRITERION_LR = 1e-4         # search_lip_sync.py:277-278
+_BACKBONE_MODULES = ("cells1", "cells2", "stem")
+TASKS = ("both", "pose", "par")
+
+
+def multistep_lr(lr_step: Sequence[int], lr_factor: float,
+                 steps_per_epoch: int) -> Callable[[int], float]:
+    """The learning-rate factor of update t (``LambdaLR``'s lambda)."""
+    boundaries = sorted({int(e) * steps_per_epoch for e in lr_step})
+
+    def factor(t: int) -> float:
+        return lr_factor ** sum(t >= b for b in boundaries)
+
+    return factor
+
+
+def _constant(t: int) -> float:
+    return 1.0
+
+
+def param_group(name: str) -> str:
+    """The optimizer group of model parameter ``name`` (a state_dict key):
+    the JAX package's label of the same leaf (``_label_params``)."""
+    top = name.split(".", 1)[0]
+    return "backbone" if top.startswith(_BACKBONE_MODULES) else "weights"
+
+
+def make_train_optimizer(model: nn.Module, lamdas: dict, *, base_lr: float,
+                         lr_step: Sequence[int], lr_factor: float,
+                         steps_per_epoch: int):
+    """Adam over the ``weights``, ``backbone`` and ``criterion`` groups, and
+    its per-iteration schedule. Returns (optimizer, scheduler)."""
+    groups: dict[str, list] = {"weights": [], "backbone": []}
+    for name, p in model.named_parameters():
+        groups[param_group(name)].append(p)
+    optimizer = torch.optim.Adam(
+        [{"params": groups["weights"], "lr": base_lr, "name": "weights"},
+         {"params": groups["backbone"], "lr": BACKBONE_LR_SCALE * base_lr,
+          "name": "backbone"},
+         {"params": list(lamdas.values()), "lr": CRITERION_LR,
+          "name": "criterion"}],
+        betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    factor = multistep_lr(lr_step, lr_factor, steps_per_epoch)
+    scheduler = LambdaLR(optimizer, [factor, factor, _constant])
+    return optimizer, scheduler
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, the learned loss lambdas (``lamda_pose``, ``lamda_par``
+    as ``nn.Parameter``s), Adam, its schedule and the count of updates.
+    With ``criterion_grad_accum`` the lambdas' ``.grad`` is the running
+    sum of their gradients, as the reference's (module docstring)."""
+    model: nn.Module
+    lamdas: dict
+    optimizer: torch.optim.Optimizer
+    scheduler: LambdaLR
+    step: int = 0
+    criterion_grad_accum: bool = True
+
+    def zero_grad(self) -> None:
+        self.model.zero_grad(set_to_none=True)
+        if not self.criterion_grad_accum:
+            for p in self.lamdas.values():
+                p.grad = None
+
+    def apply_update(self) -> None:
+        self.optimizer.step()
+        self.scheduler.step()
+        self.step += 1
+
+
+def init_train_state(*, generator: torch.Generator, device, base_lr: float,
+                     lr_step: Sequence[int], lr_factor: float,
+                     steps_per_epoch: int, criterion_grad_accum: bool = True,
+                     **model_kw) -> TrainState:
+    """A fresh train state: NPPNet in train mode with weights drawn from
+    ``generator`` (``build_nppnet``; channels_last on a card), the lambdas
+    at their reference inits, and the optimizer over both."""
+    model = build_nppnet(device=device, generator=generator, train=True,
+                         **model_kw)
+    if torch.device(device).type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    init = criterion.init_criterion_params(model.refine_layers + 1, device)
+    lamdas = {k: nn.Parameter(v) for k, v in init.items()}
+    optimizer, scheduler = make_train_optimizer(
+        model, lamdas, base_lr=base_lr, lr_step=lr_step, lr_factor=lr_factor,
+        steps_per_epoch=steps_per_epoch)
+    return TrainState(model=model, lamdas=lamdas, optimizer=optimizer,
+                      scheduler=scheduler,
+                      criterion_grad_accum=criterion_grad_accum)
+
+
+def compute_losses(model: nn.Module, lamdas: dict, batch: dict, *,
+                   class_weights, ignore_index: int = 255,
+                   ohem_thres: float = 0.9, ohem_keep: int = 131072,
+                   use_target_weight: bool = False, task: str = "both"):
+    """Forward (in the model's current mode) + dual-task loss.
+
+    ``task`` is ``both`` (the joint loss), ``pose`` or ``par`` (the
+    single-task variants). Returns (loss, metrics, (pose_list,
+    par_list)); the metrics are detached device tensors."""
+    if task not in TASKS:
+        raise ValueError(f"task must be one of {TASKS}, got {task!r}")
+    pose_list, par_list = model(batch["image"])
+    tw = batch["pose_weight"] if use_target_weight else None
+    loss_pose = criterion.pose_loss(pose_list, batch["pose"],
+                                    batch["pose_aux"], lamdas["lamda_pose"],
+                                    target_weight=tw)
+    loss_par = criterion.parsing_loss(par_list, batch["par"], batch["edge"],
+                                      lamdas["lamda_par"],
+                                      class_weights=class_weights,
+                                      ignore_index=ignore_index,
+                                      thres=ohem_thres, min_kept=ohem_keep)
+    loss = {"pose": loss_pose, "par": loss_par}.get(task,
+                                                     loss_pose + loss_par)
+    metrics = {"loss": loss.detach(), "loss_pose": loss_pose.detach(),
+               "loss_par": loss_par.detach()}
+    return loss, metrics, (pose_list, par_list)
+
+
+def make_train_step(*, class_weights, ignore_index: int = 255,
+                    ohem_thres: float = 0.9, ohem_keep: int = 131072,
+                    use_target_weight: bool = False, task: str = "both"):
+    """Returns ``step(state, batch) -> metrics``: the model in train mode,
+    the gradients zeroed (the model's; the lambdas' too without
+    accumulation), forward, loss, backward, one Adam update and one
+    schedule step. ``batch`` is a rendered device batch
+    (``data/loader.py``). ``use_target_weight`` masks the pose loss by
+    ``pose_weight``; both released CLIs leave it off."""
+    loss_kw = dict(class_weights=class_weights, ignore_index=ignore_index,
+                   ohem_thres=ohem_thres, ohem_keep=ohem_keep,
+                   use_target_weight=use_target_weight, task=task)
+
+    def step(state: TrainState, batch: dict) -> dict:
+        state.model.train()
+        state.zero_grad()
+        loss, metrics, _ = compute_losses(state.model, state.lamdas, batch,
+                                          **loss_kw)
+        loss.backward()
+        state.apply_update()
+        return metrics
+
+    return step

@@ -1,10 +1,11 @@
 """Prefetching batcher with on-device target completion.
 
 Port of ``npp_tpu/data/loader.py:25-240`` for one process and one device:
-a thread pool assembles fixed-shape numpy batches, a producer thread keeps
-``prefetch`` of them ready, each batch is pinned (on a CUDA device) and
-copied with ``non_blocking=True``, and the renderer completes the targets
-on the device. No sharding and no multi-process path are ported.
+an optional shuffle per epoch, a thread pool that assembles fixed-shape
+numpy batches, a producer thread that keeps ``prefetch`` of them ready,
+pinned host memory (on a CUDA device) and ``non_blocking=True`` copies,
+and the renderer, which completes the targets on the device. Sharding,
+multi-process striding and the batch caches are not ported.
 """
 from __future__ import annotations
 
@@ -68,28 +69,48 @@ def make_target_renderer(*, stride: int = 4, sigma: float = 3,
 
 
 class DataLoader:
-    """Iterates device-ready batches in dataset order (no shuffle: the eval
-    path needs none): thread-pool sample loading, a
-    ``prefetch``-deep queue, pinned host memory and non-blocking copies to
-    ``device``, then on-device target rendering. Batches keep their
-    dataset ``index`` (host side) beside the device tensors."""
+    """Iterates device-ready batches: per epoch an optional shuffle
+    (``np.random.default_rng(seed + epoch)``, reseeded by ``set_epoch``,
+    as the JAX loader's), thread-pool sample loading, a ``prefetch``-deep
+    queue, pinned host memory and non-blocking copies to ``device``, then
+    on-device target rendering. ``drop_last`` drops a short last batch.
+    The defaults are the eval loader's (dataset order, every sample); the
+    train loader passes ``shuffle=True, drop_last=True``, the JAX loader's
+    defaults. Batches keep their dataset ``index`` (host side) beside the
+    device tensors."""
 
     prefetch = 2  # host batches kept ready ahead of the consumer
 
     def __init__(self, dataset, batch_size: int, *, device,
-                 num_workers: int = 8, renderer=None):
+                 shuffle: bool = False, drop_last: bool = False,
+                 seed: int = 0, num_workers: int = 8, renderer=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
         self.num_workers = max(1, num_workers)
         self.renderer = renderer
 
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def _indices(self):
-        """Dataset order in batches; the last one may be short."""
+        """This epoch's sample order in batches (``npp_tpu/data/loader.py:
+        148-164`` for one process)."""
         idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        if self.drop_last:
+            idx = idx[:len(idx) // self.batch_size * self.batch_size]
         return [idx[i:i + self.batch_size]
                 for i in range(0, len(idx), self.batch_size)]
 

@@ -23,16 +23,21 @@ class SyntheticDataset:
     renderer normalises it on the device."""
 
     def __init__(self, *, length=64, crop_size=(384, 384), num_joints=16,
-                 num_classes=20, seed=0, device_normalize=False):
+                 num_classes=20, seed=0, is_train=True,
+                 device_normalize=False):
         self.length = length
         self.crop_size = crop_size
         self.num_joints = num_joints
         self.num_classes = num_classes
         self.seed = seed
+        self.is_train = is_train  # the LIP reader's flag; samples ignore it
         self.device_normalize = device_normalize
 
     def __len__(self):
         return self.length
+
+    def image_names(self):
+        return [f"synthetic_{i:06d}.jpg" for i in range(self.length)]
 
     def __getitem__(self, index):
         rng = np.random.default_rng(self.seed * 100003 + index)

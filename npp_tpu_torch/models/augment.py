@@ -57,7 +57,7 @@ class _Neck(nn.Module):
 
 class _Head(nn.Module):
     """ReLU - conv - BN - ReLU - conv output head; the last conv runs in
-    float32 with autocast off."""
+    its weights' dtype (float32 under bf16 compute) with autocast off."""
 
     def __init__(self, c_in: int, mid_features: int, out_features: int,
                  mid_kernel: int = 1, mid_bias: bool = True):
@@ -70,7 +70,7 @@ class _Head(nn.Module):
     def forward(self, x):
         x = F.relu(self.BatchNorm_0(self.Conv_0(F.relu(x))))
         with torch.autocast(device_type=x.device.type, enabled=False):
-            return self.Conv_1(x.float())
+            return self.Conv_1(x.to(self.Conv_1.weight.dtype))
 
 
 class NPPNet(nn.Module):
@@ -283,13 +283,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_nppnet(*, device, generator: torch.Generator, **kw) -> NPPNet:
-    """NPPNet in eval mode on ``device``, with weights drawn on the CPU
-    from the CPU ``generator`` (so a seed gives the same weights on every
-    device). The modules are built on the meta device first, so
-    construction draws nothing from the global RNG."""
+def build_nppnet(*, device, generator: torch.Generator, train: bool = False,
+                 **kw) -> NPPNet:
+    """NPPNet on ``device``, in eval mode or, with ``train=True``, in train
+    mode (BN normalises with the biased batch variance and updates its
+    running stats with the unbiased one, momentum 0.1, as the JAX BN; the
+    network has no dropout, so train mode is deterministic). Weights are
+    drawn on the CPU from the CPU ``generator`` (so a seed gives the same
+    weights on every device). The modules are built on the meta device
+    first, so construction draws nothing from the global RNG."""
     with torch.device("meta"):
         model = NPPNet(**kw)
     model.to_empty(device="cpu")
     init_weights(model, generator)
-    return model.to(device).eval()
+    return model.to(device).train(train)

@@ -1,0 +1,217 @@
+"""Training CLI (augment phase): the fixed NPPNet on synthetic data.
+
+Port of ``tools/augment_lip.py`` for synthetic data (the LIP and PPP
+readers are not ported yet). The flagship configuration is built in, so
+no YAML is read: the model of ``eval_lip.FLAGSHIP`` (L=16, C=64, one
+refinement stage, 20 classes, 16 joints), 384x384 crops at batch 16,
+bf16 compute with the last head conv in fp32 (channels_last on the
+card), and ``experiments/lip/384_384.yaml``'s ``TRAIN`` / ``LOSS``: Adam
+at lr 0.0015 (0.2x for the backbone, 1e-4 for the loss lambdas), LR_STEP
+(150, 170) with factor 0.2 per iteration, 190 epochs, OHEM 0.9 / 131072,
+sigma 3, ignore 255, no joint target weights. ``--tiny`` is the small
+test configuration (L=8, C=8, 128x128, batch 4). Weights are random,
+drawn from ``--seed``.
+
+Each epoch: ``engine.train_epoch`` over the shuffled synthetic train set
+(the loader renders each batch's targets on the device: the heatmap
+kernel once per step on a card), the flip-TTA ``validate`` over a
+synthetic val set (2 x batch images, seed 7), and a checkpoint under
+``<out>/lip/augment/<config>/checkpoints``.
+
+Examples:
+  python -m npp_tpu_torch.tools.augment_lip --synthetic --steps 20 \\
+      --epochs 1
+  python -m npp_tpu_torch.tools.augment_lip --synthetic --tiny \\
+      --device cpu --dtype float32 --steps 2 --epochs 1
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import os
+
+import torch
+
+from npp_tpu_torch import engine
+from npp_tpu_torch.core import evaluate as E
+from npp_tpu_torch.core import train as T
+from npp_tpu_torch.core.checkpoint import CheckpointManager
+from npp_tpu_torch.core.criterion import LIP_CLASS_WEIGHTS
+from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
+from npp_tpu_torch.data.synthetic import SyntheticDataset
+from npp_tpu_torch.tools.eval_lip import (FLAGSHIP, IGNORE, NUM_CLASSES,
+                                          NUM_JOINTS, SIGMA, TINY)
+from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
+                                               create_logger)
+
+# experiments/lip/384_384.yaml TRAIN / LOSS / PRINT_FREQ / WORKERS and
+# npp_tpu/config.py:56-65.
+FLAGSHIP_TRAIN = dict(crop=(384, 384), batch_size=16, lr=0.0015,
+                      lr_step=(150, 170), lr_factor=0.2, epochs=190,
+                      ohem_thres=0.9, ohem_keep=131072,
+                      use_target_weight=False, print_freq=100, workers=8)
+TINY_TRAIN = dict(FLAGSHIP_TRAIN, crop=(128, 128), batch_size=4)
+
+
+def build_loaders(hp: dict, device):
+    """(train loader, val loader) over synthetic data; both render their
+    targets on ``device`` and normalise the uint8 images there."""
+    renderer = make_target_renderer(stride=4, sigma=SIGMA,
+                                    num_joints=NUM_JOINTS, ignore=IGNORE,
+                                    normalize_images=True)
+    bs, crop = hp["batch_size"], hp["crop"]
+    common = dict(crop_size=crop, num_joints=NUM_JOINTS,
+                  num_classes=NUM_CLASSES, device_normalize=True)
+    train_ds = SyntheticDataset(length=max(4 * bs, 32), **common)
+    val_ds = SyntheticDataset(length=2 * bs, is_train=False, seed=7,
+                              **common)
+    train = DataLoader(train_ds, bs, device=device, shuffle=True,
+                       drop_last=True, num_workers=hp["workers"],
+                       renderer=renderer)
+    val = DataLoader(val_ds, bs, device=device, num_workers=hp["workers"],
+                     renderer=renderer)
+    return train, val
+
+
+class LimitedLoader:
+    """The first ``limit`` batches of each epoch of ``loader``."""
+
+    def __init__(self, loader, limit: int):
+        self.loader, self.limit = loader, limit
+
+    def __len__(self):
+        return min(len(self.loader), self.limit)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        # islice pulls exactly ``limit`` batches: no extra one is rendered.
+        it = iter(self.loader)
+        try:
+            yield from itertools.islice(it, self.limit)
+        finally:
+            it.close()
+
+
+def init_state(model_kw: dict, hp: dict, *, device, dtype, seed: int,
+               steps_per_epoch: int) -> T.TrainState:
+    return T.init_train_state(
+        generator=torch.Generator().manual_seed(seed), device=device,
+        base_lr=hp["lr"], lr_step=hp["lr_step"], lr_factor=hp["lr_factor"],
+        steps_per_epoch=steps_per_epoch, dtype=dtype, **model_kw)
+
+
+def make_train_step(hp: dict):
+    return T.make_train_step(class_weights=LIP_CLASS_WEIGHTS,
+                             ignore_index=IGNORE,
+                             ohem_thres=hp["ohem_thres"],
+                             ohem_keep=hp["ohem_keep"],
+                             use_target_weight=hp["use_target_weight"])
+
+
+def validate(state: T.TrainState, eval_step, val_loader) -> dict:
+    """Flip-TTA validation of the state's model in eval mode."""
+    state.model.eval()
+    return E.validate(eval_step, state.lamdas, val_loader,
+                      num_classes=NUM_CLASSES)
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic LIP-shaped data (the only source so far)")
+    p.add_argument("--steps", type=int, default=0,
+                   help="limit steps per epoch (0 = full)")
+    p.add_argument("--epochs", type=int, default=0,
+                   help="number of epochs (0 = the flagship's 190)")
+    p.add_argument("--tiny", action="store_true",
+                   help="L=8, C=8, 128x128, batch 4")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=("bfloat16", "float32"),
+                   help="model compute dtype (the flagship's is bfloat16)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest epoch checkpoint")
+    p.add_argument("--out", default="output",
+                   help="root of the run's output and log directories")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    if not args.synthetic:
+        p.error("only --synthetic data is ported so far")
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
+    if device.type == "cuda":
+        # fp32 convs (the last head convs, the decode blur) in full fp32.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    model_kw, hp = (TINY, TINY_TRAIN) if args.tiny else (FLAGSHIP,
+                                                         FLAGSHIP_TRAIN)
+    logger, out_dir, tb_dir = create_logger(
+        args.out, os.path.join(args.out, "log"), "lip",
+        "tiny" if args.tiny else "flagship", "augment")
+    writer = MetricWriter(tb_dir)
+    try:
+        train_loader, val_loader = build_loaders(hp, device)
+        if args.steps:
+            train_loader = LimitedLoader(train_loader, args.steps)
+            val_loader = LimitedLoader(val_loader, max(1, args.steps // 2))
+        state = init_state(model_kw, hp, device=device,
+                           dtype=getattr(torch, args.dtype), seed=args.seed,
+                           steps_per_epoch=max(1, len(train_loader)))
+        logger.info(f"device {device}; state initialised")
+
+        ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"))
+        begin_epoch, best_iou, best_pck = 0, 0.0, 0.0
+        if args.resume:
+            restored, meta = ckpt.restore(state)
+            if restored is not None:
+                begin_epoch = int(meta["epoch"]) + 1
+                best_iou = float(meta.get("best_iou", 0.0))
+                best_pck = float(meta.get("best_pck", 0.0))
+                logger.info(f"resumed from epoch {meta['epoch']}")
+
+        train_step = make_train_step(hp)
+        crop = hp["crop"]
+        eval_step = E.make_eval_step(
+            state.model, num_classes=NUM_CLASSES,
+            class_weights=LIP_CLASS_WEIGHTS, flip_test=True,
+            ignore_index=IGNORE, decode_hw=(crop[1], crop[0]))
+        epochs = args.epochs or hp["epochs"]
+        gstep, train_loss, result = 0, float("nan"), None
+        for epoch in range(begin_epoch, epochs):
+            train_loader.set_epoch(epoch)
+            train_loss, gstep = engine.train_epoch(
+                train_step, state, train_loader, epoch=epoch, logger=logger,
+                writer=writer, print_freq=hp["print_freq"],
+                global_step=gstep)
+            result = validate(state, eval_step, val_loader)
+            miou = result["mean_iou"]
+            pck = 0.0  # synthetic names match no PCKh ground truth
+            logger.info(f"epoch {epoch}: train loss {train_loss:.4f} val "
+                        f"loss {result['loss']:.4f} mIoU {miou:.4f}")
+            writer.scalar("valid_mIoU", miou, epoch)
+            writer.scalar("valid_loss", result["loss"], epoch)
+            is_best = engine.is_best_checkpoint(miou, pck, best_iou,
+                                                best_pck)
+            if is_best:
+                best_iou, best_pck = miou, pck
+            ckpt.save(epoch, state,
+                      metrics={"best_iou": best_iou, "best_pck": best_pck,
+                               "mean_iou": miou, "pck": pck,
+                               "train_loss": train_loss},
+                      is_best=is_best,
+                      tag="final" if epoch == epochs - 1 else None)
+        ckpt.wait()
+        logger.info(f"done: best mIoU {best_iou:.4f}")
+    finally:
+        writer.close()
+        close_logger(logger)
+    return {"state": state, "train_loss": train_loss, "result": result,
+            "out_dir": out_dir, "checkpoints": ckpt.directory}
+
+
+if __name__ == "__main__":
+    main()

@@ -3,6 +3,11 @@
 ``load_jax_variables(model, variables_np)`` takes the flax
 ``{"params": ..., "batch_stats": ...}`` tree of numpy arrays (standard
 layout) and copies every leaf into the port's parameters and buffers.
+It also takes the tree of a JAX ``TrainState``'s parameters,
+``{"params": {"model": ..., "criterion": {"lamda_pose", "lamda_par"}},
+"batch_stats": ...}``: the model part loads as above, and the lambdas
+load into ``lamdas`` (the port's train-state lambdas) when it is given.
+Adam's moments are not carried across.
 The mapping is a fixed rule on the path, because the port's modules
 carry the flax names (``utils/torch_convert.py:62-208`` matched modules
 by ordinal buckets instead):
@@ -80,8 +85,34 @@ def load_npz(path: str) -> dict:
     return tree
 
 
-def load_jax_variables(model: nn.Module, variables_np: dict) -> nn.Module:
-    """Copy a flax NPPNet tree (numpy leaves) into ``model`` in place."""
+def _split_train_tree(variables_np: dict) -> tuple[dict, dict | None]:
+    """(the flax model tree, the criterion lambdas or None) of a plain
+    model tree or of a ``TrainState``-shaped one."""
+    params = variables_np.get("params", {})
+    if "model" not in params:
+        return variables_np, None
+    extra = set(params) - {"model", "criterion"}
+    if extra:
+        raise KeyError(f"unmapped train-state params {sorted(extra)}")
+    return dict(variables_np, params=params["model"]), params.get("criterion")
+
+
+def load_jax_variables(model: nn.Module, variables_np: dict,
+                       lamdas: dict | None = None) -> nn.Module:
+    """Copy a flax NPPNet tree (numpy leaves) into ``model`` in place; with
+    a ``TrainState``-shaped tree and ``lamdas``, copy its lambdas too."""
+    variables_np, crit = _split_train_tree(variables_np)
+    if lamdas is not None and crit is not None:
+        if set(crit) != set(lamdas):
+            raise KeyError(f"criterion lambdas {sorted(crit)} != "
+                           f"{sorted(lamdas)}")
+        with torch.no_grad():
+            for k, p in lamdas.items():
+                arr = np.asarray(crit[k], np.float32)
+                if tuple(arr.shape) != tuple(p.shape):
+                    raise ValueError(f"{k}: flax shape {arr.shape} != "
+                                     f"torch shape {tuple(p.shape)}")
+                p.copy_(torch.from_numpy(arr))
     state = model.state_dict()
     filled = set()
     for collection in variables_np:

@@ -33,5 +33,5 @@ def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.split(" ", 1)
-    assert int(n_mods) >= 20
+    assert int(n_mods) >= 26
     assert bad.strip() == "[]", bad
