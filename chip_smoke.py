@@ -4,22 +4,30 @@
 
 Builds the port's hand-written CUDA kernel from the sources in this
 checkout, checks it against its plain PyTorch version on the card, then
-drives the port's two paths at the flagship's width (L=16, C=64,
-384x384, random weights from a seed, synthetic data): the NPPNet flip-TTA
-evaluation (16 images at batch 8, loader -> heatmap kernel -> eval step
--> validate, in fp32 and in bf16 + channels_last) and the augment-phase
-training (batch 16, bf16 + channels_last: loader -> heatmap kernel ->
-forward, dual-task loss, backward, Adam -> train_epoch -> validate ->
-checkpoint save and restore, then the train CLI itself). Any failure
-raises, so the exit code is non-zero; without CUDA it exits non-zero
-before printing any result.
+drives the port's three paths with random weights from a seed on
+synthetic data: at the flagship's width (L=16, C=64, 384x384) the NPPNet
+flip-TTA evaluation (16 images at batch 8, loader -> heatmap kernel ->
+eval step -> validate, in fp32 and in bf16 + channels_last) and the
+augment-phase training (batch 16, bf16 + channels_last: loader ->
+heatmap kernel -> forward, dual-task loss, backward, Adam -> train_epoch
+-> validate -> checkpoint save and restore, then the train CLI itself);
+at the reference search scale (L=16, C=32, 384x384, batch 7, bf16 +
+channels_last) the bi-level interaction search (loaders -> heatmap
+kernel -> supernet weight and arch steps -> train_epoch warmup and
+search_epoch -> genotype -> a fixed NPPNet built from it -> checkpoint
+save and restore, then the search CLI itself). Any failure raises, so
+the exit code is non-zero; without CUDA it exits non-zero before
+printing any result.
 
-Phases: 1 device, 2 build, 3 kernel vs plain version (four shapes) and
+Phases: 1 device, 2 build, 3 kernel vs plain version (five shapes) and
 the device time of both by many launches, beside the kernel's bound, at
-the eval and the train shapes, 4 the eval slice in fp32, 5 the eval
-slice in bf16 + channels_last (timed), 6 the tiny train step on the card
-against the CPU in fp32, 7 the flagship train slice in bf16 +
-channels_last (checked, timed, profiled).
+the eval, the train and the search shapes, 4 the eval slice in fp32, 5
+the eval slice in bf16 + channels_last (timed), 6 the tiny train step on
+the card against the CPU in fp32, 7 the flagship train slice in bf16 +
+channels_last (checked, timed, profiled), 8 a tiny search pair (weight
+step, arch step) on the card against the CPU in fp32, 9 the search slice
+at the reference scale in bf16 + channels_last (checked, timed,
+profiled).
 Output: one line per phase, then a JSON line of the kernels, the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -30,6 +38,7 @@ import collections
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -42,21 +51,24 @@ import torch
 from npp_tpu_torch import engine
 from npp_tpu_torch.core import checkpoint
 from npp_tpu_torch.core import evaluate as E
+from npp_tpu_torch.core import search as S
 from npp_tpu_torch.core import train as T
 from npp_tpu_torch.core.criterion import LIP_CLASS_WEIGHTS
 from npp_tpu_torch.data import loader as L
 from npp_tpu_torch.data.synthetic import SyntheticDataset
+from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.ops import heatmaps
-from npp_tpu_torch.tools import augment_lip, eval_lip
+from npp_tpu_torch.tools import augment_lip, eval_lip, search_lip
 
 KERNEL_SHAPES = (  # (B, J, gy, gx, sigma)
     (8, 16, 96, 96, 3.0),    # the eval slice's
     (3, 14, 96, 72, 2.0),    # a ragged one
     (1, 13, 25, 23, 2.5),    # its last tile holds 3,528 B, not a multiple of 16
     (16, 16, 96, 96, 3.0),   # the train slice's
+    (7, 16, 96, 96, 3.0),    # the search slice's
 )
-TIMED_SHAPES = {0: "eval", 3: "train"}  # KERNEL_SHAPES index -> path
+TIMED_SHAPES = {0: "eval", 3: "train", 4: "search"}  # index -> path
 KERNEL_ATOL = 1e-6  # the kernel and its plain version round alike
 BF16_RTOL = 2e-2    # bf16 vs fp32 eval loss, and first train-step loss
 N_IMAGES, BATCH, SEED = 16, 8, 0
@@ -79,6 +91,31 @@ TINY_LAMDA_ATOL = 1e-5   # after 3 steps
 TRAIN_REPEAT = 8         # steps on one batch whose loss must fall
 TRAIN_TIMED = 6          # timed steps; the first is dropped as warm-up
 RESUME_RTOL = 1e-2       # second step after a restore (seen: 1.5e-4 to 3e-4)
+# Phase 8, the tiny search pair on the card against the CPU (fp32, TF32
+# off), with phase 6's tolerances where they carry over: the weight step's
+# loss (a forward from equal weights) at TINY_LOSS_RTOL[0], the arch
+# step's (after one Adam update of every weight) at TINY_LOSS_RTOL[1], the
+# running stats after the weight step at TINY_STATS_RTOL x max|ref| plus
+# STATS_ATOL (the extra BN after a pool normalises a BN's output, so its
+# batch mean, and its running mean, is rounding noise near 0: 3.4 x
+# max|ref| apart on the first run of this phase on an NVIDIA H100 80GB
+# HBM3, 700 W). The entropy reads the architecture parameters, which the
+# weight step leaves, so it is equal up to rounding. Adam's first update
+# moves each architecture parameter by lr * g / (|g| + eps), about +-lr,
+# so a gradient that changes sign moves it 2 lr apart. After the weight
+# step the two devices' weights differ (Adam moves every weight by about
+# +-lr whatever its gradient's size), and so do the arch gradients (0.38
+# of max|g| in the worst tensor, 0.18 in norm on that first run): after
+# the pair the architecture parameters are held only to 2 lr. The arch
+# gradients themselves are held where the weights are equal, in an arch
+# step from the seeded state, at TINY_GRAD_TENSOR and TINY_GRAD_NORM, and
+# that step's update agrees (ARCH_ATOL) wherever |g| is at least ARCH_TIE
+# of its tensor's max|g|.
+ENTROPY_RTOL = 1e-6
+STATS_ATOL = 1e-6
+ARCH_TIE = 0.1
+ARCH_ATOL = 1e-6
+SEARCH_TIMED = 6         # timed bi-level pairs; the first is dropped as warm-up
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TIMED_CALLS = 200          # calls per timed run
@@ -215,16 +252,17 @@ def check_kernel(tag: str) -> dict:
         if i in TIMED_SHAPES:
             timed[TIMED_SHAPES[i]] = time_kernel(joints, vis, kw, tag)
     ev = timed["eval"]
-    train_shape = {k: timed["train"][k] for k in (
-        "shape", "device_us", "plain_us", "bound_us", "bound_by",
-        "share_of_bound", "profiler_us")}
-    train_shape.update(ms=train_shape["device_us"] / 1e3,
-                       plain_ms=train_shape["plain_us"] / 1e3,
-                       bound_ms=train_shape["bound_us"] / 1e3)
+    shapes = {}
+    for path in ("train", "search"):
+        sh = {k: timed[path][k] for k in (
+            "shape", "device_us", "plain_us", "bound_us", "bound_by",
+            "share_of_bound", "profiler_us")}
+        sh.update(ms=sh["device_us"] / 1e3, plain_ms=sh["plain_us"] / 1e3,
+                  bound_ms=sh["bound_us"] / 1e3)
+        shapes[f"{path}_shape"] = sh
     return {"max_abs_err": worst, "ms": ev["device_us"] / 1e3,
             "plain_ms": ev["plain_us"] / 1e3,
-            "bound_ms": ev["bound_us"] / 1e3, **ev,
-            "train_shape": train_shape,
+            "bound_ms": ev["bound_us"] / 1e3, **ev, **shapes,
             "timing": TIMING, "library_ms": None, "library": "none"}
 
 
@@ -243,16 +281,15 @@ def run_slice(model) -> dict:
         seed=SEED)
 
 
-def tiny_batch(device) -> dict:
-    """Phase 6's batch: 4 synthetic 128x128 images, one brightness each
-    (noise images alone average out to nearly equal deep features, and a
-    train-mode BN over such a batch amplifies rounding), rendered on
-    ``device``: by the heatmap kernel on the card, by its plain version
-    on the CPU."""
-    hp = augment_lip.TINY_TRAIN
-    n = hp["batch_size"]
-    ds = SyntheticDataset(length=n, crop_size=hp["crop"], seed=SEED,
-                          device_normalize=True)
+def tiny_batch(device, n: int = augment_lip.TINY_TRAIN["batch_size"],
+               seed: int = SEED) -> dict:
+    """Phase 6's batch (and with ``n``, ``seed`` phase 8's): ``n``
+    synthetic 128x128 images, one brightness each (noise images alone
+    average out to nearly equal deep features, and a train-mode BN over
+    such a batch amplifies rounding), rendered on ``device``: by the
+    heatmap kernel on the card, by its plain version on the CPU."""
+    ds = SyntheticDataset(length=n, crop_size=augment_lip.TINY_TRAIN["crop"],
+                          seed=seed, device_normalize=True)
     host = L.collate([ds[i] for i in range(n)])
     gain = np.linspace(0.25, 1.0, n, dtype=np.float32)
     host["image"] = (host["image"] * gain[:, None, None, None]).astype(
@@ -360,13 +397,12 @@ def take(loader, n: int) -> list:
 
 def profile_step(step, state, batch) -> dict:
     """Device operations (kernels, copies, fills) and device busy time of
-    one train step (``torch.profiler``; busy = the union of their
-    spans), with the eight largest by device time."""
+    one step (``torch.profiler``, device activity only; busy = the union
+    of their spans), with the eight largest by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(state, batch)
         torch.cuda.synchronize()
     # Kernels and memory operations; not the ranges that user annotations
@@ -386,8 +422,25 @@ def profile_step(step, state, batch) -> dict:
         by_name[e.name][1] += 1
     top = sorted(((t, n, k) for k, (t, n) in by_name.items()),
                  reverse=True)[:8]
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device operation")
     return dict(kernels=len(spans), busy_ms=busy / 1e3,
                 top=[(k[:70], n, round(t / 1e3, 3)) for t, n, k in top])
+
+
+def fp32_loss(state, batch, hp) -> float:
+    """The dual-task loss of a float32 copy of the state's model (train
+    mode, no gradients) on ``batch``; the state stays untouched."""
+    ref = copy.deepcopy(state.model)
+    ref.dtype = torch.float32
+    with torch.no_grad():
+        loss = T.compute_losses(ref, state.lamdas, batch,
+                                class_weights=LIP_CLASS_WEIGHTS,
+                                ignore_index=eval_lip.IGNORE,
+                                ohem_thres=hp["ohem_thres"],
+                                ohem_keep=hp["ohem_keep"])[0].item()
+    del ref
+    return loss
 
 
 def flagship_train(tag: str) -> dict:
@@ -404,17 +457,8 @@ def flagship_train(tag: str) -> dict:
     step = augment_lip.make_train_step(hp)
     batches = take(train_loader, 2)
 
-    # bf16 first-step loss against fp32 on the same weights and batch (a
-    # copy of the model, forward only, so the state stays untouched).
-    ref = copy.deepcopy(state.model)
-    ref.dtype = torch.float32
-    with torch.no_grad():
-        loss32 = T.compute_losses(ref, state.lamdas, batches[0],
-                                  class_weights=LIP_CLASS_WEIGHTS,
-                                  ignore_index=eval_lip.IGNORE,
-                                  ohem_thres=hp["ohem_thres"],
-                                  ohem_keep=hp["ohem_keep"])[0].item()
-    del ref
+    # bf16 first-step loss against fp32 on the same weights and batch.
+    loss32 = fp32_loss(state, batches[0], hp)
     lam0 = {k: p.detach().clone() for k, p in state.lamdas.items()}
     stats0 = {n: t.clone() for n, t in state.model.state_dict().items()
               if "running" in n}
@@ -521,6 +565,279 @@ def flagship_train(tag: str) -> dict:
                 peak_gib=peak / 2**30, idle_share=idle, **prof)
 
 
+def tiny_search_run(device, batches) -> dict:
+    """On ``device`` in fp32 from the seeded tiny search state: one weight
+    step then one arch step (entropy on), and, from a second seeded state,
+    one arch step alone."""
+    hp = search_lip.TINY_SEARCH
+
+    def fresh():
+        return search_lip.init_state(search_lip.TINY_SEARCH_MODEL, hp,
+                                     device=device, dtype=torch.float32,
+                                     seed=SEED, steps_per_epoch=1)
+
+    weight_step, arch_step = search_lip.make_search_steps(hp)
+    state = fresh()
+    arch = state.model.arch_parameters()
+    rest = {**{n: p for n, p in state.model.named_parameters()
+               if n not in arch}, **state.lamdas}
+    arch0 = {k: p.detach().clone() for k, p in arch.items()}
+    m1 = weight_step(state, batches[0])
+    arch_kept = all(torch.equal(arch[k], arch0[k]) for k in arch)
+    stats = {n: t.detach().double().cpu() for n, t in
+             state.model.state_dict().items() if "running" in n}
+    rest0 = {k: p.detach().clone() for k, p in rest.items()}
+    m2 = arch_step(state, batches[1], 1.0)
+    rest_kept = all(torch.equal(rest[k], rest0[k]) for k in rest)
+    pair_arch = {k: p.detach().double().cpu() for k, p in arch.items()}
+
+    alone = fresh()
+    arch_step(alone, batches[1], 1.0)
+    grads = {k: (p.grad + S.ALPHA_WEIGHT_DECAY * arch0[k]).double().cpu()
+             for k, p in alone.model.arch_parameters().items()}
+    return dict(losses=[m1["loss"].item(), m2["loss"].item()],
+                entropy=m2["entropy"].item(), stats=stats,
+                pair_arch=pair_arch, grads=grads,
+                arch={k: p.detach().double().cpu()
+                      for k, p in alone.model.arch_parameters().items()},
+                kept=(arch_kept, rest_kept), lr=hp["alpha_lr"])
+
+
+def check_tiny_search(tag: str) -> dict:
+    """Phase 8: the tiny search pair on the card against the CPU."""
+    n = search_lip.TINY_SEARCH["batch_size"]
+    on_card = [tiny_batch("cuda", n, SEED + i) for i in range(2)]
+    on_cpu = [tiny_batch("cpu", n, SEED + i) for i in range(2)]
+    card, cpu = (tiny_search_run("cuda", on_card),
+                 tiny_search_run("cpu", on_cpu))
+    two_lr = 2 * cpu["lr"] + ARCH_ATOL
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"])]
+    ent = abs(card["entropy"] - cpu["entropy"]) / abs(cpu["entropy"])
+    s_err = max((card["stats"][k] - r).abs().max().item()
+                / (TINY_STATS_RTOL * r.abs().max().item() + STATS_ATOL)
+                for k, r in cpu["stats"].items())
+    pair_err = max((card["pair_arch"][k] - r).abs().max().item()
+                   for k, r in cpu["pair_arch"].items())
+    pair_apart = sum(int(((card["pair_arch"][k] - r).abs() > ARCH_ATOL).sum())
+                     for k, r in cpu["pair_arch"].items())
+    g_max = max(g.abs().max().item() for g in cpu["grads"].values())
+    worst_g, sq_d, sq_r = 0.0, 0.0, 0.0
+    a_err, a_tie_err, ties, flips = 0.0, 0.0, 0, 0
+    for k, ref in cpu["grads"].items():
+        d = card["grads"][k] - ref
+        worst_g = max(worst_g, d.abs().max().item()
+                      / (ref.abs().max().item() + 1e-4 * g_max))
+        sq_d += float((d * d).sum())
+        sq_r += float((ref * ref).sum())
+        tie = ref.abs() < ARCH_TIE * ref.abs().max()
+        dp = (card["arch"][k] - cpu["arch"][k]).abs()
+        ties += int(tie.sum())
+        flips += int((tie & (dp > ARCH_ATOL)).sum())
+        if (~tie).any():
+            a_err = max(a_err, dp[~tie].max().item())
+        if tie.any():
+            a_tie_err = max(a_tie_err, dp[tie].max().item())
+    g_norm = (sq_d / sq_r) ** 0.5
+    n_arch = sum(r.numel() for r in cpu["grads"].values())
+    print(f"phase 8: tiny search pair (L=8, C=8, 128x128, bs{n}, fp32, "
+          f"TF32 off), card vs CPU: losses (weight step, arch step) "
+          f"{['%.6f' % x for x in card['losses']]} vs "
+          f"{['%.6f' % x for x in cpu['losses']]}, relative "
+          f"{['%.3g' % x for x in rel]} (<= {TINY_LOSS_RTOL[:2]}); entropy "
+          f"{card['entropy']:.8f} vs {cpu['entropy']:.8f}, relative "
+          f"{ent:.3g} (<= {ENTROPY_RTOL}); running stats after the weight "
+          f"step {s_err:.3g} of ({TINY_STATS_RTOL} max|ref| + {STATS_ATOL}) "
+          f"(<= 1); arch parameters after the pair {pair_err:.3g} apart at "
+          f"most (<= 2 lr), {pair_apart} of {n_arch} elements apart; weight "
+          f"step kept the arch parameters, arch step kept the weights and "
+          f"lambdas: card {card['kept']}, CPU {cpu['kept']}. Arch step from "
+          f"the seeded state: gradients (+ weight decay) worst tensor "
+          f"{worst_g:.3g} of (max|g| + 1e-4 max) (<= {TINY_GRAD_TENSOR}), "
+          f"norm {g_norm:.3g} (<= {TINY_GRAD_NORM}); updated parameters "
+          f"{a_err:.3g} apart where |g| >= {ARCH_TIE} max|g| (<= "
+          f"{ARCH_ATOL}), {flips} of {ties} nearer-tie elements apart, by "
+          f"{a_tie_err:.3g} at most (<= 2 lr) {tag}")
+    if not (rel[0] <= TINY_LOSS_RTOL[0] and rel[1] <= TINY_LOSS_RTOL[1]
+            and ent <= ENTROPY_RTOL):
+        raise AssertionError(f"phase 8: losses {card['losses']} vs "
+                             f"{cpu['losses']} or entropy disagree")
+    if not (s_err <= 1.0 and pair_err <= two_lr):
+        raise AssertionError("phase 8: running stats or arch parameters "
+                             "after the pair disagree")
+    if not (worst_g <= TINY_GRAD_TENSOR and g_norm <= TINY_GRAD_NORM
+            and a_err <= ARCH_ATOL and a_tie_err <= two_lr):
+        raise AssertionError("phase 8: arch gradients or the arch update "
+                             "from equal weights disagree")
+    if not all(card["kept"] + cpu["kept"]):
+        raise AssertionError("phase 8: a step changed what it must keep")
+    return dict(loss_rel=rel, entropy_rel=ent, stats_share=s_err,
+                pair_arch_abs=pair_err, pair_arch_apart=pair_apart,
+                arch_grad_worst=worst_g, arch_grad_norm=g_norm,
+                arch_abs=a_err, near_ties=ties, near_ties_apart=flips)
+
+
+def flagship_search(tag: str) -> dict:
+    """Phase 9: the search slice at the reference scale (L=16, C=32, batch
+    7, 384x384, bf16 + channels_last) through the search CLI's functions;
+    then the CLI."""
+    hp = search_lip.FLAGSHIP_SEARCH
+    bs = hp["batch_size"]
+    train_loader, mini_loader, _ = search_lip.build_loaders(hp, "cuda")
+    state = search_lip.init_state(search_lip.FLAGSHIP_SEARCH_MODEL, hp,
+                                  device="cuda", dtype=torch.bfloat16,
+                                  seed=SEED,
+                                  steps_per_epoch=len(train_loader))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    weight_step, arch_step = search_lip.make_search_steps(hp)
+    tb, mb = take(train_loader, 2), take(mini_loader, 2)
+    arch = state.model.arch_parameters()
+    rest = {**{n: p for n, p in state.model.named_parameters()
+               if n not in arch}, **state.lamdas}
+
+    # The first pair, each step's bf16 loss against fp32 on the same
+    # weights and batch, with the steps' invariants.
+    loss32 = [fp32_loss(state, tb[0], hp)]
+    arch0 = {k: p.detach().clone() for k, p in arch.items()}
+    m1 = weight_step(state, tb[0])
+    arch_kept = all(torch.equal(arch[k], arch0[k]) for k in arch)
+    loss32.append(fp32_loss(state, mb[0], hp))
+    rest0 = {k: p.detach().clone() for k, p in rest.items()}
+    m2 = arch_step(state, mb[0], 1.0)
+    rest_kept = all(torch.equal(rest[k], rest0[k]) for k in rest)
+    n_moved = sum(not torch.equal(arch[k], arch0[k]) for k in arch)
+    losses = [m1["loss"].item(), m2["loss"].item()]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, loss32)]
+    del rest0
+    print(f"phase 9: search pair (L=16, C=32, bs{bs}, 384x384, bf16, "
+          f"channels_last, {n_params:,} parameters): losses (weight step, "
+          f"arch step) {['%.6f' % x for x in losses]} vs fp32 "
+          f"{['%.6f' % x for x in loss32]}, relative "
+          f"{['%.3g' % x for x in rel]} (<= {BF16_RTOL}); entropy "
+          f"{m2['entropy'].item():.6f}; weight step kept the arch "
+          f"parameters {arch_kept}, arch step kept the weights and lambdas "
+          f"{rest_kept}; {n_moved} of {len(arch)} arch tensors moved {tag}")
+    if not all(math.isfinite(x) for x in losses + loss32):
+        raise AssertionError(f"phase 9: non-finite loss {losses} {loss32}")
+    if not all(r <= BF16_RTOL for r in rel):
+        raise AssertionError(f"phase 9: bf16 losses {losses} vs fp32 "
+                             f"{loss32}")
+    if not (arch_kept and rest_kept and n_moved == len(arch)):
+        raise AssertionError("phase 9: a step changed what it must keep, "
+                             "or an arch tensor did not move")
+
+    # Warmup weight steps, then bi-level pairs through the engine.
+    train_loader.set_epoch(0)
+    avg_w, _ = engine.train_epoch(
+        weight_step, state, augment_lip.LimitedLoader(train_loader, 2),
+        epoch=0, print_freq=hp["print_freq"])
+    train_loader.set_epoch(1)
+    mini_loader.set_epoch(1)
+    avg_s, _ = engine.search_epoch(
+        weight_step, arch_step, state,
+        augment_lip.LimitedLoader(train_loader, 2),
+        augment_lip.LimitedLoader(mini_loader, 2), epoch=1,
+        entropy_epoch=hp["entropy_epoch"], print_freq=hp["print_freq"])
+    print(f"phase 9: train_epoch warmup (2 weight steps) mean loss "
+          f"{avg_w:.6f}; search_epoch (2 pairs) mean weight-step loss "
+          f"{avg_s:.6f} {tag}")
+    if not (math.isfinite(avg_w) and math.isfinite(avg_s)):
+        raise AssertionError("phase 9: non-finite epoch loss")
+
+    # Timed pairs (host clock after synchronize), peak memory, a profile.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_w, t_a = [], []
+    for i in range(SEARCH_TIMED):
+        t0 = time.perf_counter()
+        weight_step(state, tb[i % 2])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        arch_step(state, mb[i % 2], 1.0)
+        torch.cuda.synchronize()
+        t_w.append(t1 - t0)
+        t_a.append(time.perf_counter() - t1)
+    w_s, a_s = statistics.median(t_w[1:]), statistics.median(t_a[1:])
+    pair_s = statistics.median([a + b for a, b in zip(t_w, t_a)][1:])
+    peak = torch.cuda.max_memory_allocated()
+
+    def pair(st, batches):
+        weight_step(st, batches[0])
+        arch_step(st, batches[1], 1.0)
+
+    prof = profile_step(pair, state, (tb[0], mb[0]))
+    idle = 1.0 - prof["busy_ms"] / (pair_s * 1e3)
+    print(f"phase 9: bi-level pair bs{bs}: median {pair_s * 1e3:.3f} ms "
+          f"(weight step {w_s * 1e3:.3f} ms, arch step {a_s * 1e3:.3f} ms) "
+          f"over {SEARCH_TIMED - 1} warm pairs "
+          f"({['%.1f+%.1f' % (a * 1e3, b * 1e3) for a, b in zip(t_w, t_a)]}"
+          f" ms) = {bs / pair_s:.3f} train img/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; one profiled pair: {prof['kernels']} "
+          f"device operations, device busy {prof['busy_ms']:.3f} ms, idle "
+          f"share of the median pair {idle:.3f}; top by device time "
+          f"{prof['top']} {tag}")
+
+    # The genotype, and a fixed NPPNet built from it at the flagship width.
+    inter, fuse = GP.extract_genotype(S.get_arch_params(state))
+    net = build_nppnet(device="cuda", generator=torch.Generator()
+                       .manual_seed(SEED), dtype=torch.bfloat16, inter=inter,
+                       fusion=fuse, **eval_lip.FLAGSHIP)
+    net = net.to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        pose_list, par_list = net(tb[0]["image"])
+    heads = [t for stage in (*pose_list, *par_list) for t in stage]
+    shapes = [tuple(t.shape) for t in heads]
+    finite = all(bool(torch.isfinite(t).all()) for t in heads)
+    del net, pose_list, par_list, heads
+    print(f"phase 9: genotype {inter} {fuse}; NPPNet built from it (C=64, "
+          f"L=16) forward on the batch: output shapes {shapes}, finite "
+          f"{finite} {tag}")
+    if not (finite and shapes[0] == (bs, 16, 96, 96)
+            and shapes[4] == (bs, 20, 96, 96)):
+        raise AssertionError("phase 9: the searched NPPNet's forward failed")
+
+    # Checkpoint save and restore: every saved value identical, and the
+    # next weight step's loss (a forward from equal weights) equal.
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = checkpoint.CheckpointManager(tmp)
+        mgr.save(0, state, metrics={"best_iou": 0.0})
+        resumed = search_lip.init_state(
+            search_lip.FLAGSHIP_SEARCH_MODEL, hp, device="cuda",
+            dtype=torch.bfloat16, seed=SEED + 1,
+            steps_per_epoch=len(train_loader))
+        mgr.restore(resumed)
+        same = same_values(checkpoint.state_dict(state),
+                           checkpoint.state_dict(resumed))
+        a = weight_step(state, tb[0])["loss"].item()
+        b = weight_step(resumed, tb[0])["loss"].item()
+        del resumed
+    print(f"phase 9: search checkpoint restore: every saved value identical "
+          f"{same}; next weight-step loss uninterrupted {a} vs restored {b} "
+          f"{tag}")
+    if not (same and a == b):
+        raise AssertionError("phase 9: the restored search state does not "
+                             "resume the run")
+    del state, tb, mb
+    torch.cuda.empty_cache()
+
+    # The search CLI itself: a warmup epoch and a search epoch of 2 steps.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = search_lip.main(["--synthetic", "--steps", "2", "--epochs",
+                               "2", "--warmup-epochs", "1", "--out", tmp])
+        wrote = os.path.isfile(os.path.join(out["out_dir"],
+                                            "best_genotype.json"))
+    print(f"phase 9: python -m npp_tpu_torch.tools.search_lip --synthetic "
+          f"--steps 2 --epochs 2 --warmup-epochs 1: train loss "
+          f"{out['train_loss']:.6f}, {eval_lip.result_line(out['result'])}, "
+          f"best_genotype.json written {wrote} {tag}")
+    if not (wrote and math.isfinite(out["train_loss"])):
+        raise AssertionError("phase 9: the search CLI wrote no "
+                             "best_genotype.json or its loss is not finite")
+    return dict(pair_ms=pair_s * 1e3, weight_step_ms=w_s * 1e3,
+                arch_step_ms=a_s * 1e3, img_per_s=bs / pair_s,
+                peak_gib=peak / 2**30, idle_share=idle, params=n_params,
+                loss_rel_bf16=rel, **prof)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -596,8 +913,16 @@ def main() -> int:
     heatmaps.render_heatmaps.launches = 0  # the train path's count
     train = flagship_train(tag)
     launches["train"] = heatmaps.render_heatmaps.launches
-    print(f"phase 7: heatmap kernel launches on the main path: {launches}; "
-          f"summary {json.dumps({'tiny_train': tiny, 'train_step': train})}")
+
+    # Phase 8: the tiny search pair, card against CPU (fp32, TF32 off).
+    tiny_search = check_tiny_search(tag)
+
+    # Phase 9: the search slice at the reference scale.
+    heatmaps.render_heatmaps.launches = 0  # the search path's count
+    search = flagship_search(tag)
+    launches["search"] = heatmaps.render_heatmaps.launches
+    print(f"phase 9: heatmap kernel launches on the main paths: {launches}; "
+          f"summary {json.dumps({'tiny_train': tiny, 'train_step': train, 'tiny_search': tiny_search, 'search_pair': search})}")
     for path, n in launches.items():
         if n == 0:
             raise AssertionError(f"the {path} path never launched the "

@@ -9,6 +9,10 @@ The package imports torch and numpy only, never jax. Importing it builds
 nothing: the one hand-written CUDA kernel (``ops/csrc/``) is compiled
 with ``nvcc`` at its first launch on a CUDA tensor.
 
-The slice ported so far is the flagship NPPNet flip-TTA evaluation:
-``python -m npp_tpu_torch.tools.eval_lip --synthetic --device cuda``.
+The slices ported so far: the flagship NPPNet flip-TTA evaluation
+(``python -m npp_tpu_torch.tools.eval_lip --synthetic``), the
+augment-phase training (``python -m npp_tpu_torch.tools.augment_lip
+--synthetic``) and the bi-level interaction search
+(``python -m npp_tpu_torch.tools.search_lip --synthetic``), each on the
+card by default.
 """

@@ -1,11 +1,13 @@
-"""Checkpoints of the train state.
+"""Checkpoints of the train state and of the search state.
 
 Port of ``npp_tpu/core/checkpoint.py:24-110``: one manager per run
 directory, an epoch checkpoint each epoch (the ``max_to_keep`` newest
 kept) and named mirrors (``best``, ``warmed``, ``final``), with the
 free-form metrics in JSON beside them. Storage is ``torch.save`` of the
-model's state_dict, the lambdas and their accumulated gradients, the
-optimizer's and the scheduler's state_dicts and the update count:
+model's state_dict (the supernet's holds its architecture parameters),
+the lambdas, the optimizers' and the scheduler's state_dicts and the
+update count; a train state adds the lambdas' accumulated gradients, a
+search state the arch optimizer's state_dict:
 ``<dir>/<epoch>/state.pt`` with ``<dir>/meta_<epoch>.json``, and
 ``<dir>/<name>/state.pt`` with ``<dir>/<name>/meta.json``. Saves are
 synchronous, so ``wait`` has nothing to wait for.
@@ -19,14 +21,24 @@ from typing import Optional
 
 import torch
 
+from npp_tpu_torch.core.search import SearchState
 from npp_tpu_torch.core.train import TrainState
 
 _STATE_FILE = "state.pt"
 _NAMED = ("best", "warmed", "final")
 
 
-def state_dict(state: TrainState) -> dict:
+def state_dict(state: TrainState | SearchState) -> dict:
     """Everything a resumed run needs, as tensors and plain values."""
+    if isinstance(state, SearchState):
+        return {
+            "model": state.model.state_dict(),
+            "lamdas": {k: p.detach() for k, p in state.lamdas.items()},
+            "w_optimizer": state.w_optimizer.state_dict(),
+            "w_scheduler": state.w_scheduler.state_dict(),
+            "a_optimizer": state.a_optimizer.state_dict(),
+            "step": state.step,
+        }
     return {
         "model": state.model.state_dict(),
         "lamdas": {k: p.detach() for k, p in state.lamdas.items()},
@@ -39,9 +51,18 @@ def state_dict(state: TrainState) -> dict:
     }
 
 
-def load_state_dict(state: TrainState, blob: dict) -> TrainState:
+def load_state_dict(state: TrainState | SearchState, blob: dict):
     """Load ``blob`` (from ``state_dict``) into ``state`` in place."""
     state.model.load_state_dict(blob["model"])
+    if isinstance(state, SearchState):
+        with torch.no_grad():
+            for k, p in state.lamdas.items():
+                p.copy_(blob["lamdas"][k])
+        state.w_optimizer.load_state_dict(blob["w_optimizer"])
+        state.w_scheduler.load_state_dict(blob["w_scheduler"])
+        state.a_optimizer.load_state_dict(blob["a_optimizer"])
+        state.step = int(blob["step"])
+        return state
     with torch.no_grad():
         for k, p in state.lamdas.items():
             p.copy_(blob["lamdas"][k])
@@ -52,7 +73,7 @@ def load_state_dict(state: TrainState, blob: dict) -> TrainState:
     return state
 
 
-def _write(path: str, state: TrainState, meta: dict, meta_path: str) -> None:
+def _write(path: str, state, meta: dict, meta_path: str) -> None:
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, _STATE_FILE)
     tmp = f"{target}.{os.getpid()}.tmp"
@@ -62,7 +83,7 @@ def _write(path: str, state: TrainState, meta: dict, meta_path: str) -> None:
         json.dump(meta, f)
 
 
-def _read(path: str, state: TrainState) -> TrainState:
+def _read(path: str, state):
     # Loaded on the CPU: each load_state_dict moves what it takes to its
     # parameters' device, and Adam keeps its step counts on the CPU (a
     # count on the card would make every update read it back).
@@ -95,7 +116,7 @@ class CheckpointManager:
                       if d.isdigit() and os.path.isfile(
                           os.path.join(self.directory, d, _STATE_FILE)))
 
-    def save(self, epoch: int, state: TrainState,
+    def save(self, epoch: int, state,
              metrics: Optional[dict] = None, is_best: bool = False,
              tag: Optional[str] = None) -> None:
         """Save the epoch checkpoint, drop the ones beyond ``max_to_keep``,
@@ -120,7 +141,7 @@ class CheckpointManager:
         epochs = self._epochs()
         return epochs[-1] if epochs else None
 
-    def restore(self, state: TrainState, epoch: Optional[int] = None):
+    def restore(self, state, epoch: Optional[int] = None):
         """Load the epoch checkpoint (the latest by default) into ``state``;
         returns (state, meta), or (None, None) when there is none."""
         epoch = self.latest_epoch() if epoch is None else int(epoch)
@@ -129,7 +150,7 @@ class CheckpointManager:
         _read(self._epoch_dir(epoch), state)
         return state, _read_meta(self._meta_file(epoch), {"epoch": epoch})
 
-    def restore_named(self, state: TrainState, name: str = "best"):
+    def restore_named(self, state, name: str = "best"):
         path = os.path.join(self.directory, name)
         if not os.path.isfile(os.path.join(path, _STATE_FILE)):
             return None, None

@@ -1,14 +1,17 @@
-"""Genotype schema and the released NPPNet architecture genotypes.
+"""Genotype schema, the search's candidate sets, the released NPPNet
+architecture genotypes and their JSON form.
 
-A jax-free copy of ``npp_tpu/genotypes.py:17-176`` (the schema and the
-released genotypes only), so that nothing on the port's path imports the
-JAX package. ``tests/test_torch_model.py`` holds the two copies equal.
+A jax-free copy of ``npp_tpu/genotypes.py:17-215``, so that nothing on
+the port's path imports the JAX package. ``tests/test_torch_model.py``
+holds the two copies equal, and ``tests/test_torch_search.py`` the JSON
+byte for byte.
 
 An edge is ``(op_name, input_index)``; ``input_index`` addresses the
 cell's running state list (DARTS convention).
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -65,6 +68,27 @@ class GenotypeFuse:
     par: tuple[Edge, ...]
     par_concat: tuple[int, ...]
 
+
+# Candidate primitive sets of the search.
+PRIMITIVES_PC = (
+    "std_conv_3x3",
+    "se_connect",
+    "dil_conv_3x3_4",
+    "dil_conv_3x3_2",
+    "std_conv_1x1",
+    "max_pool_3x3",
+    "skip_connect",
+)
+
+PRIMITIVES_INTER = (
+    "std_conv_3x3",
+    "dil_conv_3x3_4",
+    "se_connect",
+    "max_pool_3x3",
+    "dil_conv_3x3_2",
+    "std_conv_1x1",
+    "poled_conv_x1",
+)
 
 ENCODER = Genotype(
     normal=_edges([
@@ -143,3 +167,35 @@ FUSION = GenotypeFuse(
     ]),
     par_concat=tuple(range(3, 7)),
 )
+
+
+def save_genotypes(path: str, inter: GenotypeInter, fuse: GenotypeFuse,
+                   meta: dict | None = None) -> None:
+    """Write a searched (inter, fuse) pair as JSON, the form the augment
+    phase reads back with ``load_genotypes``."""
+    payload = {
+        "inter": {k: [[list(e) for e in g] for g in getattr(inter, k)]
+                  for k in ("task1", "task2", "task3", "task4")},
+        "fuse": {
+            "pose": [list(e) for e in fuse.pose],
+            "pose_concat": list(fuse.pose_concat),
+            "par": [list(e) for e in fuse.par],
+            "par_concat": list(fuse.par_concat),
+        },
+        "meta": meta or {},
+    }
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=1)
+
+
+def load_genotypes(path: str) -> tuple[GenotypeInter, GenotypeFuse]:
+    with open(path) as f:
+        payload = json.load(f)
+    inter = GenotypeInter(**{k: _groups(v)
+                             for k, v in payload["inter"].items()})
+    f_ = payload["fuse"]
+    fuse = GenotypeFuse(pose=_edges(f_["pose"]),
+                        pose_concat=tuple(f_["pose_concat"]),
+                        par=_edges(f_["par"]),
+                        par_concat=tuple(f_["par_concat"]))
+    return inter, fuse

@@ -73,6 +73,34 @@ class _Head(nn.Module):
             return self.Conv_1(x.to(self.Conv_1.weight.dtype))
 
 
+def encoder_plan(layers: int, init_channels: int, encoder: gt.Genotype,
+                 multiplier: int = 4):
+    """The encoder's channel schedule, with the L=4 fix: the width recorded
+    at a boundary is the one after that cell's reduction doubling
+    (npp_tpu/models/augment.py:139-148). Returns (the ``Cell`` arguments
+    of each layer, the sorted boundary layers, the widths of the four
+    boundary features shallow first)."""
+    L, c = layers, init_channels
+    boundaries = {L // 4 - 1, 2 * L // 4 - 1, 3 * L // 4 - 1, L - 1}
+    reductions = {L // 4, 2 * L // 4, 3 * L // 4}
+    c_curr, c_pp, c_p = c // 2, 2 * c, 2 * c
+    cell_args, num_inchannels = [], []
+    reduction_prev = False
+    for i in range(L):
+        reduction = i in reductions
+        if reduction:
+            c_curr *= 2
+        cell_args.append((
+            encoder.reduce if reduction else encoder.normal,
+            encoder.reduce_concat if reduction else encoder.normal_concat,
+            c_pp, c_p, c_curr, reduction, reduction_prev))
+        reduction_prev = reduction
+        c_pp, c_p = c_p, multiplier * c_curr
+        if i in boundaries:
+            num_inchannels.append(c_curr * multiplier)
+    return cell_args, tuple(sorted(boundaries)), tuple(num_inchannels)
+
+
 class NPPNet(nn.Module):
     """Fixed dual-task network compiled from the released genotypes."""
 
@@ -84,30 +112,11 @@ class NPPNet(nn.Module):
                  fusion: gt.GenotypeFuse = gt.FUSION, multiplier: int = 4,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        c, L = init_channels, layers
-        self.layers, self.refine_layers, self.dtype = L, refine_layers, dtype
-
-        # Encoder cell channel schedule, with the L=4 fix: the width
-        # recorded at a boundary is the one after that cell's reduction
-        # doubling (npp_tpu/models/augment.py:139-148).
-        boundaries = {L // 4 - 1, 2 * L // 4 - 1, 3 * L // 4 - 1, L - 1}
-        reductions = {L // 4, 2 * L // 4, 3 * L // 4}
-        self._boundaries = tuple(sorted(boundaries))
-        c_curr, c_pp, c_p = c // 2, 2 * c, 2 * c
-        cell_args, num_inchannels = [], []
-        reduction_prev = False
-        for i in range(L):
-            reduction = i in reductions
-            if reduction:
-                c_curr *= 2
-            cell_args.append((
-                encoder.reduce if reduction else encoder.normal,
-                encoder.reduce_concat if reduction else encoder.normal_concat,
-                c_pp, c_p, c_curr, reduction, reduction_prev))
-            reduction_prev = reduction
-            c_pp, c_p = c_p, multiplier * c_curr
-            if i in boundaries:
-                num_inchannels.append(c_curr * multiplier)
+        c = init_channels
+        self.layers, self.refine_layers, self.dtype = (layers, refine_layers,
+                                                       dtype)
+        cell_args, self._boundaries, shallow_first = encoder_plan(
+            layers, c, encoder, multiplier)
 
         self.stem0 = _Stem(3, c, 2)
         self.stem1 = _Stem(c, 2 * c, 2)
@@ -118,8 +127,7 @@ class NPPNet(nn.Module):
         self.cells1 = nn.ModuleList(Cell(*a) for a in cell_args)
         self.cells2 = nn.ModuleList(Cell(*a) for a in cell_args)
         # Deep-to-shallow widths [16C, 8C, 4C, 2C].
-        nc = tuple(num_inchannels[::-1])
-        shallow_first = tuple(num_inchannels)
+        nc = shallow_first[::-1]
 
         ops1, self.inj_idx1 = compile_encoder_injections(inter.task1,
                                                          shallow_first)

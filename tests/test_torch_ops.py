@@ -106,8 +106,11 @@ def test_factorized_reduce_train_mode_matches_flax():
 
 
 def test_unported_op_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tprim.make_op("sep_conv_3x3", C, 1)
+    """Every op of the reference table is ported; a name outside it
+    raises."""
+    assert set(tprim.OPS) == set(jprim.OPS)
+    with pytest.raises(KeyError, match="unknown op"):
+        tprim.make_op("sep_conv_9x9", C, 1)
 
 
 @pytest.mark.parametrize("align_corners", [True, False])
