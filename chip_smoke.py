@@ -15,9 +15,13 @@ at the reference search scale (L=16, C=32, 384x384, batch 7, bf16 +
 channels_last) the bi-level interaction search (loaders -> heatmap
 kernel -> supernet weight and arch steps -> train_epoch warmup and
 search_epoch -> genotype -> a fixed NPPNet built from it -> checkpoint
-save and restore, then the search CLI itself). Any failure raises, so
-the exit code is non-zero; without CUDA it exits non-zero before
-printing any result.
+save and restore, then the search CLI itself); and at the flagship's
+width the serving slice (raw images of 200-1280 px -> host preprocess in
+the prefetch thread -> Predictor: two forwards, fusion, decode ->
+postprocess; its latency at batch 1; the multi-scale parsing test; the
+predict CLI serving the train CLI's checkpoint and the search CLI's
+genotype, and the test CLI). Any failure raises, so the exit code is
+non-zero; without CUDA it exits non-zero before printing any result.
 
 Phases: 1 device, 2 build, 3 kernel vs plain version (five shapes) and
 the device time of both by many launches, beside the kernel's bound, at
@@ -27,7 +31,10 @@ the card against the CPU in fp32, 7 the flagship train slice in bf16 +
 channels_last (checked, timed, profiled), 8 a tiny search pair (weight
 step, arch step) on the card against the CPU in fp32, 9 the search slice
 at the reference scale in bf16 + channels_last (checked, timed,
-profiled).
+profiled), 10 the tiny Predictor on the card against the CPU in fp32
+(single scale, pose scales, DARK), 11 the serving slice at the flagship
+width in bf16 + channels_last (stream at batch 8, latency at batch 1,
+profiled; bf16 vs fp32 maps; multi-scale testval; the CLIs).
 Output: one line per phase, then a JSON line of the kernels, the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -51,15 +58,20 @@ import torch
 from npp_tpu_torch import engine
 from npp_tpu_torch.core import checkpoint
 from npp_tpu_torch.core import evaluate as E
+from npp_tpu_torch.core import inference as I
+from npp_tpu_torch.core import test_seg
 from npp_tpu_torch.core import search as S
 from npp_tpu_torch.core import train as T
 from npp_tpu_torch.core.criterion import LIP_CLASS_WEIGHTS
+from npp_tpu_torch.core.predictor import Predictor
 from npp_tpu_torch.data import loader as L
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.ops import heatmaps
-from npp_tpu_torch.tools import augment_lip, eval_lip, search_lip
+from npp_tpu_torch.tools import (augment_lip, eval_lip, predict, search_lip,
+                                 test_lip)
+from npp_tpu_torch.utils import vis
 
 KERNEL_SHAPES = (  # (B, J, gy, gx, sigma)
     (8, 16, 96, 96, 3.0),    # the eval slice's
@@ -116,6 +128,20 @@ STATS_ATOL = 1e-6
 ARCH_TIE = 0.1
 ARCH_ATOL = 1e-6
 SEARCH_TIMED = 6         # timed bi-level pairs; the first is dropped as warm-up
+# Phase 10, the tiny Predictor on the card against the CPU (fp32, TF32
+# off): labels agree on LABEL_SHARE of the pixels (an argmax whose top two
+# logits are within rounding may part), keypoints to KP_ATOL px wherever
+# the blurred heatmap's peak is unique (its top two values more than
+# UNIQUE_GAP x the peak apart).
+LABEL_SHARE = 0.999
+KP_ATOL = 1e-3
+UNIQUE_GAP = 1e-4
+SERVE_SIZES = ((200, 160), (150, 300), (128, 128), (97, 61), (400, 250),
+               (90, 333))
+# Phase 11, the serving slice at the flagship width.
+SERVE_IMAGES, SERVE_BATCH = 64, 8
+LATENCY_CALLS = 20
+BF16_MAP_RTOL = 5e-2   # ||bf16 - fp32|| / ||fp32|| of the fused logits / heatmaps
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TIMED_CALLS = 200          # calls per timed run
@@ -443,9 +469,10 @@ def fp32_loss(state, batch, hp) -> float:
     return loss
 
 
-def flagship_train(tag: str) -> dict:
+def flagship_train(tag: str, out_root: str) -> dict:
     """Phase 7: the flagship train slice at batch 16, bf16 +
-    channels_last, through the train CLI's functions; then the CLI."""
+    channels_last, through the train CLI's functions; then the CLI, whose
+    run directory goes under ``out_root``."""
     hp = augment_lip.FLAGSHIP_TRAIN
     bs = hp["batch_size"]
     train_loader, val_loader = augment_lip.build_loaders(hp, "cuda")
@@ -553,16 +580,16 @@ def flagship_train(tag: str) -> dict:
                              "the run")
 
     # The train CLI itself, two steps and one epoch.
-    with tempfile.TemporaryDirectory() as tmp:
-        out = augment_lip.main(["--synthetic", "--steps", "2", "--epochs",
-                                "1", "--out", tmp])
-        if not math.isfinite(out["train_loss"]):
-            raise AssertionError("phase 7: the CLI's loss is not finite")
+    out = augment_lip.main(["--synthetic", "--steps", "2", "--epochs", "1",
+                            "--out", out_root])
+    if not math.isfinite(out["train_loss"]):
+        raise AssertionError("phase 7: the CLI's loss is not finite")
     print(f"phase 7: python -m npp_tpu_torch.tools.augment_lip --synthetic "
           f"--steps 2 --epochs 1: train loss {out['train_loss']:.6f}, "
           f"{eval_lip.result_line(out['result'])} {tag}")
     return dict(step_ms=step_s * 1e3, img_per_s=bs / step_s,
-                peak_gib=peak / 2**30, idle_share=idle, **prof)
+                peak_gib=peak / 2**30, idle_share=idle,
+                checkpoints=out["checkpoints"], **prof)
 
 
 def tiny_search_run(device, batches) -> dict:
@@ -676,10 +703,10 @@ def check_tiny_search(tag: str) -> dict:
                 arch_abs=a_err, near_ties=ties, near_ties_apart=flips)
 
 
-def flagship_search(tag: str) -> dict:
+def flagship_search(tag: str, out_root: str) -> dict:
     """Phase 9: the search slice at the reference scale (L=16, C=32, batch
     7, 384x384, bf16 + channels_last) through the search CLI's functions;
-    then the CLI."""
+    then the CLI, whose run directory goes under ``out_root``."""
     hp = search_lip.FLAGSHIP_SEARCH
     bs = hp["batch_size"]
     train_loader, mini_loader, _ = search_lip.build_loaders(hp, "cuda")
@@ -820,11 +847,10 @@ def flagship_search(tag: str) -> dict:
     torch.cuda.empty_cache()
 
     # The search CLI itself: a warmup epoch and a search epoch of 2 steps.
-    with tempfile.TemporaryDirectory() as tmp:
-        out = search_lip.main(["--synthetic", "--steps", "2", "--epochs",
-                               "2", "--warmup-epochs", "1", "--out", tmp])
-        wrote = os.path.isfile(os.path.join(out["out_dir"],
-                                            "best_genotype.json"))
+    out = search_lip.main(["--synthetic", "--steps", "2", "--epochs", "2",
+                           "--warmup-epochs", "1", "--out", out_root])
+    genotype = os.path.join(out["out_dir"], "best_genotype.json")
+    wrote = os.path.isfile(genotype)
     print(f"phase 9: python -m npp_tpu_torch.tools.search_lip --synthetic "
           f"--steps 2 --epochs 2 --warmup-epochs 1: train loss "
           f"{out['train_loss']:.6f}, {eval_lip.result_line(out['result'])}, "
@@ -835,7 +861,231 @@ def flagship_search(tag: str) -> dict:
     return dict(pair_ms=pair_s * 1e3, weight_step_ms=w_s * 1e3,
                 arch_step_ms=a_s * 1e3, img_per_s=bs / pair_s,
                 peak_gib=peak / 2**30, idle_share=idle, params=n_params,
-                loss_rel_bf16=rel, **prof)
+                loss_rel_bf16=rel, genotype=genotype, **prof)
+
+
+def serve_images(n: int, sizes=None, seed: int = SEED) -> list:
+    """``n`` uint8 RGB images: random noise under a bright blob; sizes
+    from ``sizes`` or drawn from 200-1280 px per side (both
+    orientations)."""
+    rng = np.random.default_rng(seed)
+    ims = []
+    for i in range(n):
+        h, w = sizes[i % len(sizes)] if sizes else rng.integers(200, 1281, 2)
+        im = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        cy, cx, r = h * rng.uniform(0.3, 0.7), w * rng.uniform(0.3, 0.7), \
+            0.2 * min(h, w)
+        im[max(int(cy - r), 0):int(cy + r), max(int(cx - r), 0):int(cx + r)] \
+            //= 4
+        ims.append(im)
+    return ims
+
+
+def peak_is_unique(pred: Predictor, ims) -> np.ndarray:
+    """(B, J) bool on the CPU predictor: whether each blurred fused
+    heatmap's maximum exceeds its second value by more than UNIQUE_GAP x
+    the maximum."""
+    pres = [[pred.preprocess(im, m) for im in ims] for m in pred.pose_scales]
+    flat = np.stack([[p[0] for p in row] for row in pres], 1)
+    flat = torch.from_numpy(flat.reshape((-1,) + flat.shape[2:]))
+    cps = torch.from_numpy(np.stack([[p[1] for p in row] for row in pres]))
+    _, hm = pred.fuse(flat, cps)
+    hm = I.gaussian_blur(hm, pred.blur_sigma)
+    top = hm.flatten(2).topk(2, dim=2).values
+    return ((top[..., 0] - top[..., 1])
+            > UNIQUE_GAP * top[..., 0].abs()).numpy()
+
+
+def check_tiny_serve(tag: str) -> dict:
+    """Phase 10: the tiny fp32 Predictor (L=8, C=8, 128x128) on the card
+    against the CPU, same weights and images: single-scale flip TTA,
+    scale-list pose TTA and the DARK decode."""
+    cpu_model = build_nppnet(device="cpu", generator=torch.Generator()
+                             .manual_seed(SEED), dtype=torch.float32,
+                             **eval_lip.TINY)
+    card_model = copy.deepcopy(cpu_model).to("cuda").to(
+        memory_format=torch.channels_last)
+    ims = serve_images(len(SERVE_SIZES), SERVE_SIZES)
+    out = {}
+    for variant, kw in (("single", {}),
+                        ("pose_scales", dict(pose_scales=(0.8, 1.0, 1.2))),
+                        ("dark", dict(dark_decode=True))):
+        card = Predictor(card_model, crop_size=(128, 128), **kw)
+        cpu = Predictor(cpu_model, crop_size=(128, 128), **kw)
+        a, b = card.predict_batch(ims), cpu.predict_batch(ims)
+        crop_share = np.mean([np.mean(x["parsing_crop"] == y["parsing_crop"])
+                              for x, y in zip(a, b)])
+        full_share = (sum(int((x["parsing"] == y["parsing"]).sum())
+                          for x, y in zip(a, b))
+                      / sum(x["parsing"].size for x in b))
+        unique = peak_is_unique(cpu, ims)
+        kp_err = np.stack([np.abs(x["keypoints"][:, :2] - y["keypoints"][:, :2])
+                           .max(axis=1) for x, y in zip(a, b)])
+        worst = float(kp_err[unique].max())
+        score = max(float(np.abs(x["keypoints"][:, 2] - y["keypoints"][:, 2])
+                          .max()) for x, y in zip(a, b))
+        print(f"phase 10: tiny Predictor ({variant}, L=8, C=8, 128x128, fp32, "
+              f"TF32 off), card vs CPU on {len(ims)} images "
+              f"{[im.shape[:2] for im in ims]}: crop labels agree on "
+              f"{crop_share:.6f}, image labels on {full_share:.6f} (>= "
+              f"{LABEL_SHARE}); keypoints max|diff| {worst:.3g} px over the "
+              f"{int(unique.sum())} of {unique.size} joints with a unique "
+              f"peak (<= {KP_ATOL}); peak scores max|diff| {score:.3g} {tag}")
+        if not (crop_share >= LABEL_SHARE and full_share >= LABEL_SHARE):
+            raise AssertionError(f"phase 10: {variant} labels disagree")
+        if not worst <= KP_ATOL:
+            raise AssertionError(f"phase 10: {variant} keypoints disagree")
+        out[variant] = dict(crop_label_share=crop_share,
+                            label_share=full_share, kp_abs=worst,
+                            unique_peaks=int(unique.sum()), joints=unique.size)
+    return out
+
+
+def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> dict:
+    """Phase 11: the serving slice at the flagship width (L=16, C=64,
+    384x384, bf16 + channels_last, flip TTA): the Predictor's stream at
+    batch 8 and its latency at batch 1, bf16 against fp32, the pose-scale
+    identity, the multi-scale parsing test, and the predict and test_lip
+    CLIs (with the train CLI's checkpoint and the search CLI's genotype)."""
+    model = build_nppnet(device="cuda", generator=torch.Generator()
+                         .manual_seed(SEED), dtype=torch.bfloat16,
+                         **eval_lip.FLAGSHIP)
+    model = model.to(memory_format=torch.channels_last)
+    pred = Predictor(model, crop_size=(384, 384))
+    ims = serve_images(SERVE_IMAGES)
+    pred.predict_batch(ims[:SERVE_BATCH])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = list(pred.predict_stream(iter(ims), batch_size=SERVE_BATCH))
+    stream_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if len(results) != len(ims) or not all(
+            r["parsing"].shape == im.shape[:2]
+            and np.isfinite(r["keypoints"]).all()
+            for r, im in zip(results, ims)):
+        raise AssertionError("phase 11: the stream's results are incomplete")
+    batch_s = stream_s / (len(ims) / SERVE_BATCH)
+    prof = profile_step(lambda _, b: pred.predict_batch(b), None,
+                        ims[:SERVE_BATCH])
+    idle = 1.0 - prof["busy_ms"] / (batch_s * 1e3)
+    # The host's share: the preprocess and the postprocess alone.
+    t0 = time.perf_counter()
+    pres = [pred.preprocess(im) for im in ims]
+    pre_s = (time.perf_counter() - t0) / len(ims)
+    t0 = time.perf_counter()
+    for im, p, r in zip(ims, pres, results):
+        pred._postprocess(im, r["parsing_crop"], p[1], np.float32(p[2]),
+                          r["keypoints"])
+    post_s = (time.perf_counter() - t0) / len(ims)
+    pred(ims[0])  # the first call at batch 1 sets up its shapes
+    lat = []
+    for im in ims[:LATENCY_CALLS]:
+        t0 = time.perf_counter()
+        pred(im)
+        lat.append(time.perf_counter() - t0)
+    sizes = [im.shape[:2] for im in ims]
+    print(f"phase 11: predict_stream bs{SERVE_BATCH} over {len(ims)} images "
+          f"({min(min(s) for s in sizes)}-{max(max(s) for s in sizes)} px a "
+          f"side): {stream_s * 1e3:.3f} ms = {len(ims) / stream_s:.3f} img/s "
+          f"(host preprocess in the prefetch thread, device, postprocess); "
+          f"peak memory {peak / 2**30:.3f} GiB; one profiled batch: "
+          f"{prof['kernels']} device operations, device busy "
+          f"{prof['busy_ms']:.3f} ms, idle share of the stream's mean batch "
+          f"({batch_s * 1e3:.3f} ms) {idle:.3f}; host alone per image: "
+          f"preprocess {pre_s * 1e3:.3f} ms, postprocess {post_s * 1e3:.3f} "
+          f"ms; top by device time {prof['top']} {tag}")
+    print(f"phase 11: __call__ latency at batch 1 over {LATENCY_CALLS} calls: "
+          f"median {statistics.median(lat) * 1e3:.3f} ms, max "
+          f"{max(lat) * 1e3:.3f} ms ({['%.1f' % (t * 1e3) for t in lat]} ms) "
+          f"{tag}")
+
+    # bf16 against fp32 on the same weights and canvases, before the argmax.
+    canv = torch.from_numpy(np.stack([p[0] for p in pres[:SERVE_BATCH]]))
+    cps = torch.from_numpy(np.stack([p[1] for p in pres[:SERVE_BATCH]]))
+    canv, cps = canv.to("cuda"), cps[None].to("cuda")
+    par16, hm16 = pred.fuse(canv, cps)
+    model.dtype = torch.float32
+    par32, hm32 = pred.fuse(canv, cps)
+    model.dtype = torch.bfloat16
+    rel = [((a - b).norm() / b.norm()).item()
+           for a, b in ((par16, par32), (hm16, hm32))]
+    del par16, hm16, par32, hm32
+    # pose_scales=(1.0,) is the single-scale path, bit for bit.
+    one = Predictor(model, crop_size=(384, 384), pose_scales=(1.0,))
+    a, b = one.predict_batch(ims[:SERVE_BATCH]), results[:SERVE_BATCH]
+    same = all(np.array_equal(x["parsing"], y["parsing"])
+               and np.array_equal(x["keypoints"], y["keypoints"])
+               for x, y in zip(a, b))
+    print(f"phase 11: bf16 vs fp32 (same weights, {SERVE_BATCH} canvases): "
+          f"fused parsing logits relative error {rel[0]:.4g}, fused heatmaps "
+          f"{rel[1]:.4g} (<= {BF16_MAP_RTOL}); pose_scales=(1.0,) equals the "
+          f"single-scale results bit for bit: {same} {tag}")
+    if not all(r <= BF16_MAP_RTOL for r in rel):
+        raise AssertionError(f"phase 11: bf16 vs fp32 maps {rel}")
+    if not same:
+        raise AssertionError("phase 11: pose_scales=(1.0,) differs from the "
+                             "single-scale path")
+
+    # Multi-scale sliding-window parsing over 2 synthetic images.
+    ds = SyntheticDataset(length=2, crop_size=(384, 384), is_train=False,
+                          seed=SEED)
+    loader = L.DataLoader(ds, 1, device="cuda", num_workers=2)
+    apply_fn = test_seg.make_parsing_apply_fn(model)
+    test_seg.testval(apply_fn, loader, num_classes=20, crop_size=(384, 384),
+                     scales=(1.0,))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg = test_seg.testval(apply_fn, loader, num_classes=20,
+                           scales=test_lip.TEST_SCALES, flip=True,
+                           crop_size=(384, 384), ignore=eval_lip.IGNORE)
+    per_image = (time.perf_counter() - t0) / len(ds)
+    n_valid = 2 * 384 * 384
+    print(f"phase 11: testval over 2 images at scales "
+          f"{test_lip.TEST_SCALES} with flips: {per_image * 1e3:.3f} ms per "
+          f"image; pixel_acc {seg['pixel_acc']:.4f} mIoU "
+          f"{seg['mean_iou']:.4f}; cm.sum={int(seg['cm'].sum())} == valid "
+          f"pixels {n_valid} {tag}")
+    if int(seg["cm"].sum()) != n_valid:
+        raise AssertionError("phase 11: testval's confusion matrix misses "
+                             "pixels")
+    del model, pred, one
+    torch.cuda.empty_cache()
+
+    # The CLIs: train -> serve, search -> serve, and the test CLI.
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("train_ckpt", ["--ckpt", train_ckpt]),
+                            ("genotype", ["--genotype", genotype])):
+            out_dir = os.path.join(tmp, name)
+            out = predict.main(["--synthetic", "8", "--out", out_dir, *extra])
+            back = [vis.read_png(os.path.join(out_dir, f"{n}.png"))[0]
+                    for n in out["names"]]
+            decoded = len(back) == 8 and all(
+                np.array_equal(x, y) for x, y in zip(back, out["parsings"]))
+            with open(out["csv"]) as f:
+                rows = len(f.read().splitlines())
+            print(f"phase 11: python -m npp_tpu_torch.tools.predict "
+                  f"--synthetic 8 {' '.join(extra)}: {len(back)} PNGs decode "
+                  f"back to the returned labels {decoded}; pose_pred.csv "
+                  f"rows {rows} {tag}")
+            if not (decoded and rows == 8):
+                raise AssertionError(f"phase 11: the predict CLI with "
+                                     f"{name} failed")
+            cli[name] = dict(pngs=len(back), csv_rows=rows)
+    res = test_lip.main(["--synthetic", "--mode", "testval", "--limit", "2"])
+    if int(res["cm"].sum()) != n_valid:
+        raise AssertionError("phase 11: the test_lip CLI missed pixels")
+    print(f"phase 11: python -m npp_tpu_torch.tools.test_lip --synthetic "
+          f"--mode testval --limit 2: mIoU {res['mean_iou']:.4f}, cm.sum "
+          f"{int(res['cm'].sum())} {tag}")
+    return dict(img_per_s=len(ims) / stream_s, stream_ms=stream_s * 1e3,
+                batch_ms=batch_s * 1e3, peak_gib=peak / 2**30,
+                idle_share=idle, preprocess_ms=pre_s * 1e3,
+                postprocess_ms=post_s * 1e3,
+                latency_median_ms=statistics.median(lat)
+                * 1e3, latency_max_ms=max(lat) * 1e3, bf16_rel=rel,
+                testval_ms_per_image=per_image * 1e3, cli=cli, **prof)
 
 
 def main() -> int:
@@ -909,9 +1159,12 @@ def main() -> int:
     # Phase 6: the tiny train step, card against CPU (fp32, TF32 off).
     tiny = check_tiny_train(tag)
 
+    # Phases 7 and 9 leave their CLI runs here for phase 11.
+    runs = tempfile.TemporaryDirectory()
+
     # Phase 7: the flagship train slice in bf16 + channels_last.
     heatmaps.render_heatmaps.launches = 0  # the train path's count
-    train = flagship_train(tag)
+    train = flagship_train(tag, runs.name)
     launches["train"] = heatmaps.render_heatmaps.launches
 
     # Phase 8: the tiny search pair, card against CPU (fp32, TF32 off).
@@ -919,14 +1172,26 @@ def main() -> int:
 
     # Phase 9: the search slice at the reference scale.
     heatmaps.render_heatmaps.launches = 0  # the search path's count
-    search = flagship_search(tag)
+    search = flagship_search(tag, runs.name)
     launches["search"] = heatmaps.render_heatmaps.launches
-    print(f"phase 9: heatmap kernel launches on the main paths: {launches}; "
-          f"summary {json.dumps({'tiny_train': tiny, 'train_step': train, 'tiny_search': tiny_search, 'search_pair': search})}")
-    for path, n in launches.items():
-        if n == 0:
+
+    # Phase 10: the tiny Predictor, card against CPU (fp32, TF32 off).
+    tiny_serve = check_tiny_serve(tag)
+
+    # Phase 11: the serving slice at the flagship width. It renders no
+    # targets, so the heatmap kernel must not run on it.
+    heatmaps.render_heatmaps.launches = 0  # the serving path's count
+    serve = flagship_serve(tag, train["checkpoints"], search["genotype"])
+    launches["serve"] = heatmaps.render_heatmaps.launches
+    runs.cleanup()
+    print(f"phase 11: heatmap kernel launches on the main paths: {launches}; "
+          f"summary {json.dumps({'tiny_train': tiny, 'train_step': train, 'tiny_search': tiny_search, 'search_pair': search, 'tiny_serve': tiny_serve, 'serve': serve})}")
+    for path in ("eval", "train", "search"):
+        if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")
+    if launches["serve"] != 0:
+        raise AssertionError("the serving path launched the heatmap kernel")
 
     print(json.dumps({"kernels": [{
         "name": "render_heatmaps", "route": "cuda",

@@ -150,6 +150,23 @@ class CheckpointManager:
         _read(self._epoch_dir(epoch), state)
         return state, _read_meta(self._meta_file(epoch), {"epoch": epoch})
 
+    def restore_model(self, model):
+        """Load the model weights of the ``best`` checkpoint, else of the
+        latest epoch's, into ``model``; returns the checkpoint's meta, or
+        None when the directory holds no checkpoint."""
+        best = os.path.join(self.directory, "best")
+        if os.path.isfile(os.path.join(best, _STATE_FILE)):
+            path, meta = best, os.path.join(best, "meta.json")
+        else:
+            epoch = self.latest_epoch()
+            if epoch is None:
+                return None
+            path, meta = self._epoch_dir(epoch), self._meta_file(epoch)
+        blob = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
+                          weights_only=True)
+        model.load_state_dict(blob["model"])
+        return _read_meta(meta, {})
+
     def restore_named(self, state, name: str = "best"):
         path = os.path.join(self.directory, name)
         if not os.path.isfile(os.path.join(path, _STATE_FILE)):

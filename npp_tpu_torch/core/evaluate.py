@@ -73,12 +73,15 @@ def make_eval_step(model, *, num_classes: int, class_weights,
     return step
 
 
-def validate(eval_step, criterion_params, loader, *,
-             num_classes: int) -> dict:
+def validate(eval_step, criterion_params, loader, *, num_classes: int,
+             pred_csv: str | None = None, gt_csv: str | None = None,
+             log_fn=print) -> dict:
     """One pass over ``loader``. Returns the mean batch loss, the
     segmentation metrics of the summed confusion matrix (also returned as
     ``cm``), and the pose predictions with their image names in dataset
-    order."""
+    order. ``pred_csv`` writes the predictions as a LIP pose CSV; with
+    ``gt_csv`` too, the PCKh table against it is added as ``pck`` and its
+    average as ``pck_avg``, and logged."""
     cm_dev = None
     losses_dev, all_preds, all_names, all_idx = [], [], [], []
     for batch in loader:
@@ -102,4 +105,11 @@ def validate(eval_step, criterion_params, loader, *,
     result = {"loss": float(losses.mean()) if losses.size else float("nan"),
               **M.seg_metrics(cm)}
     result.update(cm=cm, pose_preds=preds, names=all_names)
+    if pred_csv is not None and all_names:
+        M.save_pose_csv(all_names, preds, pred_csv)
+        if gt_csv is not None:
+            pck = M.calc_pck_lip(gt_csv, pred_csv, eval_num=len(all_names))
+            result["pck"] = pck
+            result["pck_avg"] = float(pck[-1][-1])
+            log_fn(M.pckh_table(pck[-1]))
     return result

@@ -1,0 +1,56 @@
+"""The serving and test CLIs' model loading: built-in configuration,
+optional searched genotype, weights.
+
+After ``npp_tpu/core/loading.py``, with the port's built-in
+configurations in place of the YAML: the flagship NPPNet (L=16, C=64,
+384x384) or, with ``tiny``, the test one (L=8, C=8, 128x128)
+(``tools/eval_lip.FLAGSHIP`` / ``TINY``).
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from npp_tpu_torch.core.checkpoint import CheckpointManager
+from npp_tpu_torch.genotypes import load_genotypes
+from npp_tpu_torch.models.augment import build_nppnet
+from npp_tpu_torch.tools.eval_lip import FLAGSHIP, TINY
+from npp_tpu_torch.utils.convert import load_jax_variables, load_npz
+
+
+def load_eval_model(ckpt: str = "", *, tiny: bool = False,
+                    genotype: str = "", device="cuda",
+                    dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                    log_fn=print):
+    """Returns ``(model, size, config)``: an eval-mode NPPNet on ``device``
+    (channels_last on a card) with compute dtype ``dtype``, the crop
+    ``(width, height)`` and the model's keyword arguments.
+
+    ``genotype`` is a searched-genotype JSON (``best_genotype.json``); the
+    net is built from it instead of the released genotypes. ``ckpt`` is
+    a checkpoint directory of the train CLI (the ``best`` checkpoint,
+    else the latest epoch's) or a flax variable tree saved as ``.npz``;
+    empty gives random weights drawn from ``seed``."""
+    config, size = (TINY, (128, 128)) if tiny else (FLAGSHIP, (384, 384))
+    kw = dict(config)
+    if genotype:
+        kw["inter"], kw["fusion"] = load_genotypes(genotype)
+        log_fn(f"building the model from searched genotypes: {genotype}")
+    model = build_nppnet(device="cpu",
+                         generator=torch.Generator().manual_seed(seed),
+                         dtype=dtype, **kw)
+    if ckpt.endswith(".npz"):
+        load_jax_variables(model, load_npz(ckpt))
+        log_fn(f"loaded flax variables from {ckpt}")
+    elif ckpt:
+        if not os.path.isdir(ckpt):
+            raise FileNotFoundError(f"no checkpoint directory {ckpt}")
+        meta = CheckpointManager(ckpt).restore_model(model)
+        if meta is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt}")
+        log_fn(f"loaded checkpoint meta: {meta}")
+    model = model.to(device)
+    if torch.device(device).type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model, size, kw

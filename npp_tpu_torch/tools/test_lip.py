@@ -1,0 +1,86 @@
+"""Parsing test CLI: multi-scale evaluation or palette PNG export.
+
+Port of ``tools/test_lip.py`` for synthetic data (the LIP reader is not
+ported yet): ``--mode testval`` runs the multi-scale sliding-window
+evaluation with flips at the scales (0.5, 0.75, 1.0, 1.25, 1.5)
+(``experiments/lip/384_384.yaml`` ``TEST``; (0.5, 1.0) under ``--tiny``)
+and prints the parsing metrics; ``--mode test`` writes palette PNGs at
+scale 1.0. The flagship model is built in (bf16 + channels_last on the
+card); ``--tiny`` is the test one.
+
+Examples:
+  python -m npp_tpu_torch.tools.test_lip --synthetic --mode testval --limit 2
+  python -m npp_tpu_torch.tools.test_lip --synthetic --tiny --mode test \\
+      --device cpu --dtype float32 --out preds/
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from npp_tpu_torch.core import test_seg
+from npp_tpu_torch.core.loading import load_eval_model
+from npp_tpu_torch.data.loader import DataLoader
+from npp_tpu_torch.data.synthetic import SyntheticDataset
+from npp_tpu_torch.tools.eval_lip import IGNORE
+
+TEST_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)
+TINY_SCALES = (0.5, 1.0)
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--mode", choices=("testval", "test"), default="testval")
+    p.add_argument("--ckpt", default="",
+                   help="train-CLI checkpoint directory or flax .npz (empty "
+                        "= random weights from --seed, smoke only)")
+    p.add_argument("--out", default="test_results")
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic LIP-shaped data (the only source so far)")
+    p.add_argument("--tiny", action="store_true",
+                   help="the test model (L=8, C=8, 128x128)")
+    p.add_argument("--limit", type=int, default=0,
+                   help="images to run (0 = 4 synthetic ones)")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=("bfloat16", "float32"),
+                   help="model compute dtype (the flagship's is bfloat16)")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    if not args.synthetic:
+        p.error("only --synthetic data is ported so far")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    model, size, config = load_eval_model(
+        args.ckpt, tiny=args.tiny, device=device,
+        dtype=getattr(torch, args.dtype), seed=args.seed)
+    ds = SyntheticDataset(length=args.limit or 4, crop_size=size,
+                          num_joints=config["num_joints"],
+                          num_classes=config["num_classes"], is_train=False)
+    loader = DataLoader(ds, 1, device=device, num_workers=4)
+    apply_fn = test_seg.make_parsing_apply_fn(model)
+    crop_hw = (size[1], size[0])
+    if args.mode == "testval":
+        metrics = test_seg.testval(
+            apply_fn, loader, num_classes=config["num_classes"],
+            scales=TINY_SCALES if args.tiny else TEST_SCALES, flip=True,
+            crop_size=crop_hw, ignore=IGNORE)
+        print(f"pixel_acc {metrics['pixel_acc']:.4f} "
+              f"mean_acc {metrics['mean_acc']:.4f} "
+              f"mIoU {metrics['mean_iou']:.4f} fwIoU {metrics['fw_iou']:.4f}")
+        return metrics
+    paths = test_seg.test(apply_fn, loader, args.out,
+                          num_classes=config["num_classes"], scales=(1.0,),
+                          flip=True, crop_size=crop_hw)
+    print(f"wrote {len(paths)} parsing PNGs to {args.out}")
+    return {"paths": paths}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package.
+"""The port and chip_smoke.py import neither JAX nor the JAX package,
+nor cv2, PIL or yaml, which the card machine lacks.
 
 Checked in a fresh interpreter, because this test process has imported
 jax already (tests/conftest.py). Importing also builds nothing. The
-search slice's modules are also imported each on its own, so that none
-of them leans on another module having been imported first.
+search and serving slices' modules are also imported each on its own, so
+that none of them leans on another module having been imported first.
 """
 import os
 import subprocess
@@ -26,16 +27,23 @@ assert not heatmaps._LIBRARY, "importing built the kernel"
 assert heatmaps.render_heatmaps.launches == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
-                                    "yaml", "npp_tpu"))
+                                    "PIL", "yaml", "npp_tpu"))
 print(len(mods), bad)
 """
 
-BANNED = ("jax", "jaxlib", "flax", "optax", "cv2", "yaml", "npp_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "yaml", "npp_tpu")
 SEARCH_MODULES = ("npp_tpu_torch.models.search",
                   "npp_tpu_torch.models.genotype_parse",
                   "npp_tpu_torch.core.search",
                   "npp_tpu_torch.core.checkpoint",
                   "npp_tpu_torch.tools.search_lip")
+SERVE_MODULES = ("npp_tpu_torch.core.predictor",
+                 "npp_tpu_torch.core.multiscale",
+                 "npp_tpu_torch.core.test_seg",
+                 "npp_tpu_torch.core.loading",
+                 "npp_tpu_torch.utils.vis",
+                 "npp_tpu_torch.tools.predict",
+                 "npp_tpu_torch.tools.test_lip")
 
 
 def _run(code: str) -> str:
@@ -48,11 +56,11 @@ def _run(code: str) -> str:
 
 def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
     n_mods, bad = _run(PROBE).split(" ", 1)
-    assert int(n_mods) >= 30
+    assert int(n_mods) >= 37
     assert bad.strip() == "[]", bad
 
 
-@pytest.mark.parametrize("module", SEARCH_MODULES)
+@pytest.mark.parametrize("module", SEARCH_MODULES + SERVE_MODULES)
 def test_search_module_imports_alone_without_jax(module):
     bad = _run(f"import importlib, sys\n"
                f"importlib.import_module({module!r})\n"
