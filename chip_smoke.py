@@ -20,12 +20,20 @@ width the serving slice (raw images of 200-1280 px -> host preprocess in
 the prefetch thread -> Predictor: two forwards, fusion, decode ->
 postprocess; its latency at batch 1; the multi-scale parsing test; the
 predict CLI serving the train CLI's checkpoint and the search CLI's
-genotype, and the test CLI). Any failure raises, so the exit code is
-non-zero; without CUDA it exits non-zero before printing any result.
+genotype, and the test CLI); the Pascal-Person-Part configuration (7
+classes, 14 joints) at the flagship width (loader -> heatmap kernel ->
+train step at batch 2 -> the PPP eval step and validate_ppp with its
+heatmap PCK; the train and search CLIs with ``--dataset ppp``; the OKS
+mAP CLI on .mat fixtures); and the chain on the port's own artifacts:
+the train CLI builds the search CLI's genotype and merges its checkpoint
+(``--genotype``, ``--pretrained-encoder``), and the eval CLI scores the
+result (``--ckpt``). Any failure raises, so the exit code is non-zero;
+without CUDA it exits non-zero before printing any result.
 
-Phases: 1 device, 2 build, 3 kernel vs plain version (five shapes) and
+Phases: 1 device, 2 build, 3 kernel vs plain version (seven shapes) and
 the device time of both by many launches, beside the kernel's bound, at
-the eval, the train and the search shapes, 4 the eval slice in fp32, 5
+the eval, the train, the search, the PPP train and the PPP search
+shapes, 4 the eval slice in fp32, 5
 the eval slice in bf16 + channels_last (timed), 6 the tiny train step on
 the card against the CPU in fp32, 7 the flagship train slice in bf16 +
 channels_last (checked, timed, profiled), 8 a tiny search pair (weight
@@ -34,8 +42,14 @@ at the reference scale in bf16 + channels_last (checked, timed,
 profiled), 10 the tiny Predictor on the card against the CPU in fp32
 (single scale, pose scales, DARK), 11 the serving slice at the flagship
 width in bf16 + channels_last (stream at batch 8, latency at batch 1,
-profiled; bf16 vs fp32 maps; multi-scale testval; the CLIs).
-Output: one line per phase, then a JSON line of the kernels, the
+profiled; bf16 vs fp32 maps; multi-scale testval; the CLIs), 12 the tiny
+PPP eval and the pretrained merge on the card against the CPU in fp32,
+13 the PPP path at the flagship width in bf16 + channels_last (train
+step checked, timed, profiled; validate_ppp; the PPP train and search
+CLIs; a PPP search pair timed and profiled; eval_ppp_map), 14 the search
+-> train -> eval chain at the LIP flagship width.
+Output: one line per phase and its seconds, then a JSON line of the
+kernels, the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -56,21 +70,25 @@ import numpy as np
 import torch
 
 from npp_tpu_torch import engine
+from npp_tpu_torch.config import LIP, PPP
 from npp_tpu_torch.core import checkpoint
 from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import inference as I
 from npp_tpu_torch.core import test_seg
 from npp_tpu_torch.core import search as S
 from npp_tpu_torch.core import train as T
-from npp_tpu_torch.core.criterion import LIP_CLASS_WEIGHTS
+from npp_tpu_torch.core.criterion import (LIP_CLASS_WEIGHTS,
+                                          init_criterion_params)
 from npp_tpu_torch.core.predictor import Predictor
 from npp_tpu_torch.data import loader as L
 from npp_tpu_torch.data.synthetic import SyntheticDataset
+from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.ops import heatmaps
-from npp_tpu_torch.tools import (augment_lip, eval_lip, predict, search_lip,
-                                 test_lip)
+from npp_tpu_torch.tools import (augment_lip, eval_lip, eval_ppp_map,
+                                 predict, search_lip, test_lip)
+from npp_tpu_torch.utils import metrics as M
 from npp_tpu_torch.utils import vis
 
 KERNEL_SHAPES = (  # (B, J, gy, gx, sigma)
@@ -79,8 +97,11 @@ KERNEL_SHAPES = (  # (B, J, gy, gx, sigma)
     (1, 13, 25, 23, 2.5),    # its last tile holds 3,528 B, not a multiple of 16
     (16, 16, 96, 96, 3.0),   # the train slice's
     (7, 16, 96, 96, 3.0),    # the search slice's
+    (2, 14, 96, 96, 3.0),    # the PPP train slice's
+    (7, 14, 96, 96, 3.0),    # the PPP search slice's
 )
-TIMED_SHAPES = {0: "eval", 3: "train", 4: "search"}  # index -> path
+TIMED_SHAPES = {0: "eval", 3: "train", 4: "search", 5: "ppp_train",
+                6: "ppp_search"}
 KERNEL_ATOL = 1e-6  # the kernel and its plain version round alike
 BF16_RTOL = 2e-2    # bf16 vs fp32 eval loss, and first train-step loss
 N_IMAGES, BATCH, SEED = 16, 8, 0
@@ -140,6 +161,12 @@ SERVE_SIZES = ((200, 160), (150, 300), (128, 128), (97, 61), (400, 250),
                (90, 333))
 # Phase 11, the serving slice at the flagship width.
 SERVE_IMAGES, SERVE_BATCH = 64, 8
+# Phase 12, the tiny PPP eval on the card against the CPU (fp32, TF32 off,
+# the same weights and the same rendered batches): the fused heatmaps to
+# PPP_HM_RTOL x max|ref| (fp32 convs summed in other orders), the losses
+# at TINY_LOSS_RTOL[0]; the confusion matrices, parsing labels and PCK
+# vectors equal.
+PPP_HM_RTOL = 1e-4
 LATENCY_CALLS = 20
 BF16_MAP_RTOL = 5e-2   # ||bf16 - fp32|| / ||fp32|| of the fused logits / heatmaps
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
@@ -279,7 +306,7 @@ def check_kernel(tag: str) -> dict:
             timed[TIMED_SHAPES[i]] = time_kernel(joints, vis, kw, tag)
     ev = timed["eval"]
     shapes = {}
-    for path in ("train", "search"):
+    for path in ("train", "search", "ppp_train", "ppp_search"):
         sh = {k: timed[path][k] for k in (
             "shape", "device_us", "plain_us", "bound_us", "bound_by",
             "share_of_bound", "profiler_us")}
@@ -454,14 +481,14 @@ def profile_step(step, state, batch) -> dict:
                 top=[(k[:70], n, round(t / 1e3, 3)) for t, n, k in top])
 
 
-def fp32_loss(state, batch, hp) -> float:
+def fp32_loss(state, batch, hp, class_weights=LIP_CLASS_WEIGHTS) -> float:
     """The dual-task loss of a float32 copy of the state's model (train
     mode, no gradients) on ``batch``; the state stays untouched."""
     ref = copy.deepcopy(state.model)
     ref.dtype = torch.float32
     with torch.no_grad():
         loss = T.compute_losses(ref, state.lamdas, batch,
-                                class_weights=LIP_CLASS_WEIGHTS,
+                                class_weights=class_weights,
                                 ignore_index=eval_lip.IGNORE,
                                 ohem_thres=hp["ohem_thres"],
                                 ohem_keep=hp["ohem_keep"])[0].item()
@@ -861,7 +888,8 @@ def flagship_search(tag: str, out_root: str) -> dict:
     return dict(pair_ms=pair_s * 1e3, weight_step_ms=w_s * 1e3,
                 arch_step_ms=a_s * 1e3, img_per_s=bs / pair_s,
                 peak_gib=peak / 2**30, idle_share=idle, params=n_params,
-                loss_rel_bf16=rel, genotype=genotype, **prof)
+                loss_rel_bf16=rel, genotype=genotype,
+                search_checkpoints=out["checkpoints"], **prof)
 
 
 def serve_images(n: int, sizes=None, seed: int = SEED) -> list:
@@ -1088,10 +1116,375 @@ def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> dict:
                 testval_ms_per_image=per_image * 1e3, cli=cli, **prof)
 
 
+def ppp_batches(device, n_batches: int = 2) -> list:
+    """Phase 12's batches: synthetic 128x128 PPP samples (7 classes, 14
+    joints) at batch 2, rendered on the card by the heatmap kernel; the
+    CPU run gets copies of the same rendered tensors, so the two devices
+    score the same targets (the kernel's expf and the CPU's exp may round
+    a tied maximum apart)."""
+    ds = SyntheticDataset(length=2 * n_batches, crop_size=(128, 128),
+                          num_joints=PPP.num_joints,
+                          num_classes=PPP.num_classes, seed=SEED,
+                          is_train=False, device_normalize=True)
+    renderer = L.make_target_renderer(stride=4, sigma=3,
+                                      num_joints=PPP.num_joints,
+                                      ignore=eval_lip.IGNORE,
+                                      normalize_images=True)
+    loader = L.DataLoader(ds, 2, device="cuda", num_workers=2,
+                          renderer=renderer)
+    keep = ("image", "par", "edge", "pose", "pose_aux")
+    return [{k: (b[k] if device == "cuda" else b[k].cpu()) for k in keep}
+            for b in take(loader, n_batches)]
+
+
+def check_tiny_ppp(tag: str) -> dict:
+    """Phase 12: the tiny PPP eval (make_ppp_eval_step + validate_ppp over
+    2 batches) and the pretrained merge on the card against the CPU."""
+    model_kw, hp = PPP.train_config(tiny=True)
+    cpu_model = build_nppnet(device="cpu", generator=torch.Generator()
+                             .manual_seed(SEED), dtype=torch.float32,
+                             **model_kw)
+    card_model = copy.deepcopy(cpu_model).to("cuda").to(
+        memory_format=torch.channels_last)
+    runs = {}
+    sides = (("card", "cuda", card_model), ("host", "cpu", cpu_model))
+    for side, dev, model in sides:
+        batches = ppp_batches(dev)
+        step = augment_lip.make_eval_step(model, hp, PPP)
+        crit = init_criterion_params(2, dev)
+        first = step(crit, batches[0])
+        res = E.validate_ppp(step, crit, batches, num_classes=7,
+                             log_fn=lambda _: None)
+        runs[side] = dict(hm=first["pose_hm"].double().cpu(),
+                          par=first["par_pred"].cpu(), res=res)
+    card, cpu = runs["card"], runs["host"]
+    hm_err = ((card["hm"] - cpu["hm"]).abs().max()
+              / cpu["hm"].abs().max()).item()
+    loss_rel = abs(card["res"]["loss"] - cpu["res"]["loss"]) / abs(
+        cpu["res"]["loss"])
+    cm_same = np.array_equal(card["res"]["cm"], cpu["res"]["cm"])
+    par_same = torch.equal(card["par"], cpu["par"])
+    pck_same = np.array_equal(card["res"]["pck"], cpu["res"]["pck"])
+
+    # The pretrained merge of a tiny supernet into the tiny NPPNet.
+    smodel_kw, _ = PPP.search_config(tiny=True)
+    sn = S.build_search_model(device="cpu", generator=torch.Generator()
+                              .manual_seed(SEED + 1), **smodel_kw)
+    weights = {k: v.clone() for k, v in sn.state_dict().items()}
+    merged = {}
+    for side, _, model in sides:
+        loaded, skipped = checkpoint.load_pretrained_params(
+            model, weights, log_fn=lambda _: None)
+        values = all(torch.equal(p.detach().cpu(), weights[n])
+                     for n, p in model.named_parameters() if n in loaded)
+        merged[side] = (len(loaded), len(skipped), values)
+    print(f"phase 12: tiny PPP eval (L=8, C=8, 128x128, 7 classes, 14 "
+          f"joints, bs2, fp32, TF32 off), card vs CPU over 2 batches: "
+          f"confusion matrices equal {cm_same}, parsing labels of batch 1 "
+          f"equal {par_same}; fused heatmaps {hm_err:.3g} of max|ref| (<= "
+          f"{PPP_HM_RTOL}); loss {card['res']['loss']:.6f} vs "
+          f"{cpu['res']['loss']:.6f}, relative {loss_rel:.3g} (<= "
+          f"{TINY_LOSS_RTOL[0]}); PCK vectors equal {pck_same} "
+          f"({np.round(card['res']['pck'], 3).tolist()}); pretrained merge "
+          f"(supernet L=8 -> NPPNet L=8) loaded / shape-skipped / values "
+          f"copied: card {merged['card']}, CPU {merged['host']} {tag}")
+    if not (cm_same and par_same and pck_same):
+        raise AssertionError("phase 12: confusion matrices, labels or PCK "
+                             "vectors differ")
+    if not (hm_err <= PPP_HM_RTOL and loss_rel <= TINY_LOSS_RTOL[0]):
+        raise AssertionError("phase 12: heatmaps or losses disagree")
+    if not (merged["card"] == merged["host"] and merged["card"][2]
+            and merged["card"][0] > 0):
+        raise AssertionError("phase 12: the pretrained merges differ")
+    return dict(hm_rel=hm_err, loss_rel=loss_rel, merge=merged["card"][:2])
+
+
+def ppp_map_fixtures(root: str, noise: float, rng) -> tuple:
+    """Four PPP images with 1-3 persons each: ground truth written as
+    ``.mat`` files with ``scipy.io.savemat`` and per-image predictions
+    (relative to each person's box corner) with ``noise`` px of error."""
+    import scipy.io as scio
+    gt_dir = os.path.join(root, "PersonJoints")
+    os.makedirs(gt_dir, exist_ok=True)
+    names, preds = [f"{noise:g}_{i}" for i in range(4)], {}
+    for i, name in enumerate(names):
+        n = 1 + i % 3
+        joints = np.empty((1, n), dtype=object)
+        boxes = np.empty((1, n), dtype=object)
+        preds[name] = []
+        for k in range(n):
+            x0, y0 = rng.uniform(0, 200, 2)
+            w, h = rng.uniform(40, 160, 2)
+            xy = rng.uniform(0, 1, (14, 2)) * (w, h) + (x0, y0)
+            vis = (rng.random(14) > 0.2).astype(np.float64)
+            joints[0, k] = np.concatenate([xy, vis[:, None]], 1)
+            boxes[0, k] = np.array([[x0, y0, x0 + w, y0 + h]])
+            preds[name].append(xy - (x0, y0)
+                               + rng.normal(0, noise, (14, 2)))
+        scio.savemat(os.path.join(gt_dir, name + ".mat"),
+                     {"joints": joints, "boxes": boxes})
+    val = os.path.join(root, f"val_{noise:g}.txt")
+    with open(val, "w") as f:
+        f.write("\n".join(names) + "\n")
+    pred_path = os.path.join(root, f"preds_{noise:g}.npy")
+    np.save(pred_path, preds, allow_pickle=True)
+    return ["--val-list", val, "--gt-dir", gt_dir, "--preds", pred_path], \
+        preds, names
+
+
+def flagship_ppp(tag: str, out_root: str) -> dict:
+    """Phase 13: the PPP train slice at the flagship width (L=16, C=64, 7
+    classes, 14 joints, batch 2, bf16 + channels_last) through the train
+    CLI's functions, validate_ppp, the train and search CLIs with
+    ``--dataset ppp``, and eval_ppp_map on .mat fixtures."""
+    model_kw, hp = PPP.train_config()
+    bs = hp["batch_size"]
+    heatmaps.render_heatmaps.launches = 0  # the PPP train path's count
+    train_loader, val_loader = augment_lip.build_loaders(hp, "cuda", PPP)
+    state = augment_lip.init_state(model_kw, hp, device="cuda",
+                                   dtype=torch.bfloat16, seed=SEED,
+                                   steps_per_epoch=len(train_loader))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step = augment_lip.make_train_step(hp, PPP)
+    batches = take(train_loader, 2)
+    taken = heatmaps.render_heatmaps.launches
+    loss32 = fp32_loss(state, batches[0], hp, PPP.class_weights)
+    losses = [step(state, batches[0])["loss"] for _ in range(TRAIN_REPEAT)]
+    losses = [x.item() for x in losses]
+    rel = abs(losses[0] - loss32) / abs(loss32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        step(state, batches[i % 2])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step(step, state, batches[0])
+    idle = 1.0 - prof["busy_ms"] / (step_s * 1e3)
+    print(f"phase 13: PPP flagship train step (bs{bs}, 384x384, 7 classes, "
+          f"14 joints, bf16, channels_last, {n_params:,} parameters): "
+          f"heatmap kernel launches for the {len(batches)} batches taken "
+          f"{taken}; first loss {losses[0]:.6f} vs fp32 {loss32:.6f}, "
+          f"relative {rel:.3g} (<= {BF16_RTOL}); {TRAIN_REPEAT} steps on one "
+          f"batch: {['%.4f' % x for x in losses]}; median {step_s * 1e3:.3f} "
+          f"ms over {TRAIN_TIMED - 1} warm steps "
+          f"({['%.1f' % (t * 1e3) for t in times]} ms) = {bs / step_s:.2f} "
+          f"img/s; peak memory {peak / 2**30:.3f} GiB; one profiled step: "
+          f"{prof['kernels']} device operations, device busy "
+          f"{prof['busy_ms']:.3f} ms, idle share of the median step "
+          f"{idle:.3f}; top by device time {prof['top']} {tag}")
+    if not all(math.isfinite(x) for x in losses + [loss32]):
+        raise AssertionError(f"phase 13: non-finite loss {losses}")
+    if not rel <= BF16_RTOL:
+        raise AssertionError(f"phase 13: bf16 loss {losses[0]} vs fp32 "
+                             f"{loss32}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 13: the loss did not fall: {losses}")
+    if taken != len(batches):
+        raise AssertionError(f"phase 13: {taken} kernel launches for "
+                             f"{len(batches)} train batches")
+
+    # validate_ppp over the 2 val batches, its table printed.
+    eval_step = augment_lip.make_eval_step(state.model, hp, PPP)
+    res = augment_lip.validate(state, eval_step, val_loader, PPP,
+                               log_fn=lambda t: print(
+                                   "phase 13: " + t.replace("\n", " | ")))
+    n_valid = len(val_loader.dataset) * 384 * 384  # synthetic: no ignore
+    print(f"phase 13: validate_ppp over {len(val_loader)} val batches: loss "
+          f"{res['loss']:.6f}, mIoU {res['mean_iou']:.4f}, cm.sum "
+          f"{int(res['cm'].sum())} == valid pixels {n_valid}, pck shape "
+          f"{res['pck'].shape}, PCK avg {res['pck_avg']:.3f} {tag}")
+    if not (math.isfinite(res["loss"]) and int(res["cm"].sum()) == n_valid
+            and res["pck"].shape == (15,)):
+        raise AssertionError("phase 13: validate_ppp failed")
+    train_launches = heatmaps.render_heatmaps.launches
+    del state, batches, eval_step
+    torch.cuda.empty_cache()
+
+    # The CLIs with --dataset ppp.
+    heatmaps.render_heatmaps.launches = 0
+    out = augment_lip.main(["--synthetic", "--dataset", "ppp", "--steps",
+                            "2", "--epochs", "1", "--out", out_root])
+    cli_train_launches = heatmaps.render_heatmaps.launches
+    r = out["result"]
+    print(f"phase 13: python -m npp_tpu_torch.tools.augment_lip --synthetic "
+          f"--dataset ppp --steps 2 --epochs 1: train loss "
+          f"{out['train_loss']:.6f}, val loss {r['loss']:.6f}, mIoU "
+          f"{r['mean_iou']:.4f}, PCK {r['pck_avg']:.3f}; heatmap kernel "
+          f"launches {cli_train_launches} {tag}")
+    if not (math.isfinite(out["train_loss"]) and math.isfinite(r["loss"])):
+        raise AssertionError("phase 13: the PPP train CLI's loss is not "
+                             "finite")
+    del out
+    torch.cuda.empty_cache()
+    heatmaps.render_heatmaps.launches = 0  # the PPP search path's count
+    out = search_lip.main(["--synthetic", "--dataset", "ppp", "--steps",
+                           "2", "--epochs", "1", "--out", out_root])
+    genotype = os.path.join(out["out_dir"], "best_genotype.json")
+    print(f"phase 13: python -m npp_tpu_torch.tools.search_lip --synthetic "
+          f"--dataset ppp --steps 2 --epochs 1 (supernet L="
+          f"{out['state'].model.layers}, bs{PPP.search['batch_size']}): "
+          f"train loss "
+          f"{out['train_loss']:.6f}, {eval_lip.result_line(out['result'])}, "
+          f"best_genotype.json written {os.path.isfile(genotype)} {tag}")
+    if not (math.isfinite(out["train_loss"]) and os.path.isfile(genotype)
+            and out["state"].model.layers == 12):
+        raise AssertionError("phase 13: the PPP search CLI failed")
+
+    # A bi-level pair at the PPP search scale: timed and profiled.
+    state = out["state"]
+    del out
+    shp = PPP.search_config()[1]
+    train_l, mini_l, _ = search_lip.build_loaders(shp, "cuda", PPP)
+    tb, mb = take(train_l, 1)[0], take(mini_l, 1)[0]
+    weight_step, arch_step = search_lip.make_search_steps(shp, PPP)
+
+    def pair(st, b):
+        m1 = weight_step(st, b[0])
+        m2 = arch_step(st, b[1], 1.0)
+        return m1["loss"], m2["loss"]
+
+    torch.cuda.synchronize()
+    times, pair_losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pair_losses.append([x.item() for x in pair(state, (tb, mb))])
+        times.append(time.perf_counter() - t0)
+    pair_s = statistics.median(times[1:])
+    sprof = profile_step(pair, state, (tb, mb))
+    s_idle = 1.0 - sprof["busy_ms"] / (pair_s * 1e3)
+    search_launches = heatmaps.render_heatmaps.launches
+    print(f"phase 13: PPP search pair (L={PPP.search_model['layers']}, "
+          f"C={PPP.search_model['init_channels']}, bs{shp['batch_size']}, "
+          f"bf16): losses "
+          f"{pair_losses}; median of 2 warm pairs {pair_s * 1e3:.3f} ms "
+          f"({['%.1f' % (t * 1e3) for t in times]} ms); one profiled pair: "
+          f"{sprof['kernels']} device operations, device busy "
+          f"{sprof['busy_ms']:.3f} ms, idle share {s_idle:.3f} {tag}")
+    if not all(math.isfinite(x) for p in pair_losses for x in p):
+        raise AssertionError("phase 13: non-finite PPP search pair loss")
+    del state, tb, mb
+    torch.cuda.empty_cache()
+
+    # eval_ppp_map on .mat fixtures: exact predictions give AP 1 for every
+    # joint; noisy ones the numbers of the port's oks_map in-process.
+    rng = np.random.default_rng(SEED)
+    maps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for noise in (0.0, 6.0):
+            args, preds, names = ppp_map_fixtures(tmp, noise, rng)
+            ap = eval_ppp_map.main(args)
+            gts = eval_ppp_map.load_gt(os.path.join(tmp, "PersonJoints"),
+                                       names)
+            maps[noise] = (ap, M.oks_map(preds, gts))
+    exact, noisy = maps[0.0][0], maps[6.0]
+    print(f"phase 13: python -m npp_tpu_torch.tools.eval_ppp_map on .mat "
+          f"fixtures: predictions equal to the GT give AP "
+          f"{exact.tolist()}; noisy ones mAP {noisy[0][-1]:.4f}, equal to "
+          f"oks_map in-process {np.array_equal(noisy[0], noisy[1])} {tag}")
+    if not (np.array_equal(exact, np.ones(15))
+            and np.array_equal(noisy[0], noisy[1]) and noisy[0][-1] < 1):
+        raise AssertionError("phase 13: eval_ppp_map disagrees")
+    return dict(step_ms=step_s * 1e3, img_per_s=bs / step_s,
+                peak_gib=peak / 2**30, idle_share=idle,
+                loss_rel_bf16=rel, val_loss=res["loss"],
+                pck_avg=res["pck_avg"], search_pair_ms=pair_s * 1e3,
+                search_kernels=sprof["kernels"],
+                search_busy_ms=sprof["busy_ms"], search_idle=s_idle,
+                noisy_map=float(noisy[0][-1]), **prof), \
+        dict(ppp_train=train_launches + cli_train_launches,
+             ppp_search=search_launches)
+
+
+def chain(tag: str, out_root: str, genotype: str, search_ckpt: str) -> dict:
+    """Phase 14: the search -> train -> eval chain on the port's own
+    artifacts at the LIP flagship width: the train CLI builds phase 9's
+    genotype and merges phase 9's search checkpoint, then the eval CLI
+    scores that run's checkpoint; an in-process validate of the restored
+    state on the same images and device must give the same loss and
+    mIoU."""
+    out = augment_lip.main(["--synthetic", "--genotype", genotype,
+                            "--pretrained-encoder", search_ckpt, "--steps",
+                            "2", "--epochs", "1", "--out", out_root])
+    n_tensors = len(list(out["state"].model.parameters()))
+    loaded, skipped = out["merged"]
+    without = n_tensors - loaded - skipped
+    print(f"phase 14: python -m npp_tpu_torch.tools.augment_lip --synthetic "
+          f"--genotype <phase 9> --pretrained-encoder <phase 9 checkpoints> "
+          f"--steps 2 --epochs 1: pretrained merge {loaded} loaded, "
+          f"{skipped} shape-skipped, {without} without a counterpart, of "
+          f"{n_tensors} parameter tensors; train loss "
+          f"{out['train_loss']:.6f}, {eval_lip.result_line(out['result'])} "
+          f"{tag}")
+    if not (loaded > 0 and without >= 0 and math.isfinite(out["train_loss"])):
+        raise AssertionError("phase 14: the merge or the train run failed")
+    ckpt = out["checkpoints"]
+    del out
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, js = os.path.join(tmp, "pred.csv"), os.path.join(tmp, "m.json")
+        res = eval_lip.main(["--synthetic", "--ckpt", ckpt, "--genotype",
+                             genotype, "--pred-csv", csv, "--json-out", js])
+        with open(js) as f:
+            blob = json.load(f)
+        with open(csv) as f:
+            rows = len(f.read().splitlines())
+    # The restored state, in-process, with the eval CLI's initial lambdas.
+    model_kw, hp = LIP.train_config()
+    kw = dict(model_kw)
+    kw["inter"], kw["fusion"] = load_genotypes(genotype)
+    state = augment_lip.init_state(kw, hp, device="cuda",
+                                   dtype=torch.bfloat16, seed=SEED + 1,
+                                   steps_per_epoch=1)
+    restored, _ = checkpoint.CheckpointManager(ckpt).restore_named(state,
+                                                                    "best")
+    if restored is None:
+        checkpoint.CheckpointManager(ckpt).restore(state)
+    state.model.eval()
+    ref = eval_lip.evaluate_synthetic(state.model, n=N_IMAGES, batch=BATCH,
+                                      crop_size=(384, 384), device="cuda",
+                                      seed=SEED)
+    del state
+    same = res["loss"] == ref["loss"] and res["mean_iou"] == ref["mean_iou"]
+    keys = {"mean_iou", "pixel_acc", "loss"} <= set(blob)
+    print(f"phase 14: python -m npp_tpu_torch.tools.eval_lip --synthetic "
+          f"--ckpt <that run> --genotype <phase 9> --pred-csv --json-out: "
+          f"loss {res['loss']!r} mIoU {res['mean_iou']!r}; in-process "
+          f"validate of the restored state: loss {ref['loss']!r} mIoU "
+          f"{ref['mean_iou']!r}; equal {same}; JSON keys {sorted(blob)[:4]}.. "
+          f"present {keys}; CSV rows {rows} for {len(res['names'])} images "
+          f"{tag}")
+    if not (same and keys and rows == len(res["names"]) == N_IMAGES):
+        raise AssertionError("phase 14: the eval CLI disagrees with the "
+                             "restored state, or its outputs are wrong")
+    return dict(merge=(loaded, skipped, without, n_tensors),
+                eval_loss=res["loss"], eval_miou=res["mean_iou"])
+
+
+class PhaseClock:
+    """Prints each phase's wall time on the host clock, and the total."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def done(self, phase: int) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.last
+        print(f"phase {phase}: {now - self.last:.1f} s (total "
+              f"{now - self.start:.1f} s)")
+        self.last = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    clock = PhaseClock()
     # Phase 1: device.
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -1100,6 +1493,7 @@ def main() -> int:
     print(f"phase 1: {name}, compute capability {cap[0]}.{cap[1]}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvidia-smi: {smi}")
+    clock.done(1)
 
     # Phase 2: build the kernel from this checkout's sources.
     t0 = time.perf_counter()
@@ -1108,9 +1502,11 @@ def main() -> int:
     for line in log.strip().splitlines():
         if "registers" in line or "spill" in line:
             print(f"phase 2: ptxas: {line.strip()}")
+    clock.done(2)
 
     # Phase 3: the kernel against its plain version on the card.
     kernel = check_kernel(tag)
+    clock.done(3)
 
     # Phase 4: the slice in fp32 (TF32 off: cuDNN would use it for fp32
     # convs by default).
@@ -1132,6 +1528,7 @@ def main() -> int:
     assert int(cm.sum()) == n_valid, (int(cm.sum()), n_valid)
     print(f"phase 4: fp32 flagship eval {eval_lip.result_line(res32)} "
           f"cm.sum={int(cm.sum())} == valid pixels {n_valid} {tag}")
+    clock.done(4)
 
     # Phase 5: bf16 + channels_last, same weights and data; then a timed
     # warm pass.
@@ -1155,9 +1552,11 @@ def main() -> int:
           f"{N_IMAGES / dt:.2f} img/s (bf16, bs{BATCH}, flip-TTA, loader "
           f"and decode included); peak memory {peak / 2**30:.3f} GiB {tag}")
     del model
+    clock.done(5)
 
     # Phase 6: the tiny train step, card against CPU (fp32, TF32 off).
     tiny = check_tiny_train(tag)
+    clock.done(6)
 
     # Phases 7 and 9 leave their CLI runs here for phase 11.
     runs = tempfile.TemporaryDirectory()
@@ -1166,27 +1565,53 @@ def main() -> int:
     heatmaps.render_heatmaps.launches = 0  # the train path's count
     train = flagship_train(tag, runs.name)
     launches["train"] = heatmaps.render_heatmaps.launches
+    clock.done(7)
 
     # Phase 8: the tiny search pair, card against CPU (fp32, TF32 off).
     tiny_search = check_tiny_search(tag)
+    clock.done(8)
 
     # Phase 9: the search slice at the reference scale.
     heatmaps.render_heatmaps.launches = 0  # the search path's count
     search = flagship_search(tag, runs.name)
     launches["search"] = heatmaps.render_heatmaps.launches
+    clock.done(9)
 
     # Phase 10: the tiny Predictor, card against CPU (fp32, TF32 off).
     tiny_serve = check_tiny_serve(tag)
+    clock.done(10)
 
     # Phase 11: the serving slice at the flagship width. It renders no
     # targets, so the heatmap kernel must not run on it.
     heatmaps.render_heatmaps.launches = 0  # the serving path's count
     serve = flagship_serve(tag, train["checkpoints"], search["genotype"])
     launches["serve"] = heatmaps.render_heatmaps.launches
+    clock.done(11)
+
+    # Phase 12: the tiny PPP eval and merge, card against CPU (fp32, TF32
+    # off).
+    tiny_ppp = check_tiny_ppp(tag)
+    clock.done(12)
+
+    # Phase 13: the PPP path at the flagship width; it counts the kernel's
+    # launches on the PPP train and search paths itself.
+    ppp, ppp_launches = flagship_ppp(tag, runs.name)
+    launches.update(ppp_launches)
+    clock.done(13)
+
+    # Phase 14: the search -> train -> eval chain on phase 9's artifacts.
+    heatmaps.render_heatmaps.launches = 0  # the chain's count
+    chained = chain(tag, runs.name, search["genotype"],
+                    search["search_checkpoints"])
+    launches["chain"] = heatmaps.render_heatmaps.launches
+    clock.done(14)
     runs.cleanup()
-    print(f"phase 11: heatmap kernel launches on the main paths: {launches}; "
-          f"summary {json.dumps({'tiny_train': tiny, 'train_step': train, 'tiny_search': tiny_search, 'search_pair': search, 'tiny_serve': tiny_serve, 'serve': serve})}")
-    for path in ("eval", "train", "search"):
+    seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
+    print(f"phase 14: heatmap kernel launches on the main paths: {launches}; "
+          f"phase seconds {json.dumps(seconds)}; "
+          f"summary {json.dumps({'tiny_train': tiny, 'train_step': train, 'tiny_search': tiny_search, 'search_pair': search, 'tiny_serve': tiny_serve, 'serve': serve, 'tiny_ppp': tiny_ppp, 'ppp': ppp, 'chain': chained})}")
+    for path in ("eval", "train", "search", "ppp_train", "ppp_search",
+                 "chain"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")

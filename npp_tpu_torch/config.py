@@ -1,0 +1,93 @@
+"""Built-in configurations: the LIP and the Pascal-Person-Part presets.
+
+The port reads no YAML (the card machine has no ``yaml``), so the values
+of ``experiments/lip/384_384.yaml`` and ``experiments/pascal/384_384.yaml``
+as ``npp_tpu/config.py`` loads them are built in here. A preset holds a
+dataset's class and joint counts, its parsing class weights and flip
+pairs, the fixed NPPNet (``model``) with its train hyper-parameters
+(``train``), and the supernet (``search_model``) with its search
+hyper-parameters (``search``). ``tiny`` gives the small test
+configuration of each, as the JAX CLIs' ``--tiny`` overrides make it:
+L=8, C=8, 128x128 crops, batch 4 for training and 2 for the search.
+
+Both datasets take OHEM at 0.9 / 131072: ``LOSS.USE_OHEM: False`` in the
+YAMLs is read nowhere (``npp_tpu/config.py:56``), and npp_tpu always
+applies OHEM. Joint target weights are off, as both released CLIs leave
+them. The search's 15 weight-only warmup epochs and its entropy epoch 70
+are ``npp_tpu/config.py:121-125``'s defaults; the YAMLs set neither.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from npp_tpu_torch.core.criterion import (LIP_CLASS_WEIGHTS,
+                                          PASCAL_CLASS_WEIGHTS)
+
+SIGMA, IGNORE = 3, 255  # MODEL.SIGMA and TRAIN.IGNORE_LABEL of both YAMLs
+LIP_FLIP_PAIRS = ((14, 15), (16, 17), (18, 19))  # left/right part classes
+TINY_CROP = (128, 128)
+
+_LOSS = dict(ohem_thres=0.9, ohem_keep=131072, use_target_weight=False)
+_RUN = dict(print_freq=100, workers=8)  # PRINT_FREQ, WORKERS
+
+
+def _net(num_classes: int, num_joints: int, layers: int,
+         init_channels: int) -> dict:
+    return dict(num_classes=num_classes, num_joints=num_joints,
+                layers=layers, init_channels=init_channels, refine_layers=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Preset:
+    """One dataset's built-in configuration (see the module docstring).
+    ``model`` and ``search_model`` are NPPNet / SearchNet keyword
+    arguments; ``train`` and ``search`` the CLIs' hyper-parameters, with
+    the crop as (width, height)."""
+    name: str
+    num_classes: int
+    num_joints: int
+    class_weights: tuple
+    flip_pairs: tuple
+    model: dict
+    train: dict
+    search_model: dict
+    search: dict
+
+    def train_config(self, tiny: bool = False) -> tuple[dict, dict]:
+        """(NPPNet keyword arguments, train hyper-parameters)."""
+        if not tiny:
+            return self.model, self.train
+        return (dict(self.model, layers=8, init_channels=8),
+                dict(self.train, crop=TINY_CROP, batch_size=4))
+
+    def search_config(self, tiny: bool = False) -> tuple[dict, dict]:
+        """(SearchNet keyword arguments, search hyper-parameters)."""
+        if not tiny:
+            return self.search_model, self.search
+        return (dict(self.search_model, layers=8, init_channels=8),
+                dict(self.search, crop=TINY_CROP, batch_size=2))
+
+
+LIP = Preset(
+    name="lip", num_classes=20, num_joints=16,
+    class_weights=LIP_CLASS_WEIGHTS, flip_pairs=LIP_FLIP_PAIRS,
+    model=_net(20, 16, 16, 64),
+    train=dict(crop=(384, 384), batch_size=16, lr=0.0015,
+               lr_step=(150, 170), lr_factor=0.2, epochs=190,
+               num_samples=5000, **_LOSS, **_RUN),
+    search_model=_net(20, 16, 16, 32),
+    search=dict(crop=(384, 384), batch_size=7, w_lr=1e-3, alpha_lr=1e-3,
+                lr_step=(70, 100), lr_factor=0.2, warmup_epochs=15,
+                entropy_epoch=70, epochs=120, **_LOSS, **_RUN))
+
+PPP = Preset(
+    name="ppp", num_classes=7, num_joints=14,
+    class_weights=PASCAL_CLASS_WEIGHTS, flip_pairs=(),
+    model=_net(7, 14, 16, 64),
+    train=dict(crop=(384, 384), batch_size=2, lr=0.001,
+               lr_step=(75, 85, 95), lr_factor=0.1, epochs=150,
+               num_samples=5000, **_LOSS, **_RUN),
+    search_model=_net(7, 14, 12, 32),
+    search=LIP.search)  # the YAMLs' SEARCH sections differ in LAYERS only
+
+PRESETS = {p.name: p for p in (LIP, PPP)}

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 from typing import Optional
 
@@ -26,6 +27,13 @@ from npp_tpu_torch.core.train import TrainState
 
 _STATE_FILE = "state.pt"
 _NAMED = ("best", "warmed", "final")
+# The supernet's modules that npp_tpu saves stacked, in its default
+# vmapped layout (``utils/convert.unroll_search_layout`` unstacks them):
+# the encoder's and the decoder's injection ops and the fusion cells'
+# candidate ops. No NPPNet parameter path coincides with a stacked leaf,
+# so npp_tpu's merge takes none of them.
+_STACKED_IN_JAX = re.compile(
+    r"^(inj_ops[12]|up_inj_ops[12])\.|^(pose_net|par_net)\.\d+\.ops\.")
 
 
 def state_dict(state: TrainState | SearchState) -> dict:
@@ -150,22 +158,31 @@ class CheckpointManager:
         _read(self._epoch_dir(epoch), state)
         return state, _read_meta(self._meta_file(epoch), {"epoch": epoch})
 
-    def restore_model(self, model):
-        """Load the model weights of the ``best`` checkpoint, else of the
-        latest epoch's, into ``model``; returns the checkpoint's meta, or
-        None when the directory holds no checkpoint."""
+    def model_state(self):
+        """The model state_dict (on the CPU) of the ``best`` checkpoint,
+        else of the latest epoch's, and that checkpoint's meta; (None,
+        None) when the directory holds no checkpoint."""
         best = os.path.join(self.directory, "best")
         if os.path.isfile(os.path.join(best, _STATE_FILE)):
             path, meta = best, os.path.join(best, "meta.json")
         else:
             epoch = self.latest_epoch()
             if epoch is None:
-                return None
+                return None, None
             path, meta = self._epoch_dir(epoch), self._meta_file(epoch)
         blob = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
                           weights_only=True)
-        model.load_state_dict(blob["model"])
-        return _read_meta(meta, {})
+        return blob["model"], _read_meta(meta, {})
+
+    def restore_model(self, model):
+        """Load the model weights of the ``best`` checkpoint, else of the
+        latest epoch's, into ``model``; returns the checkpoint's meta, or
+        None when the directory holds no checkpoint."""
+        weights, meta = self.model_state()
+        if weights is None:
+            return None
+        model.load_state_dict(weights)
+        return meta
 
     def restore_named(self, state, name: str = "best"):
         path = os.path.join(self.directory, name)
@@ -173,3 +190,33 @@ class CheckpointManager:
             return None, None
         _read(path, state)
         return state, _read_meta(os.path.join(path, "meta.json"), {})
+
+
+def load_pretrained_params(model, pretrained: dict, log_fn=print):
+    """Shape-tolerant merge of a search checkpoint's supernet weights into
+    ``model`` (an NPPNet), in place, as ``npp_tpu/core/checkpoint.py:
+    112-137`` merges a search state's parameters: a parameter whose name
+    is in ``pretrained`` (a SearchNet state_dict) with the same shape is
+    copied; one whose shapes differ keeps its value and is logged as
+    shape-skipped; the rest keep theirs. Parameters only: npp_tpu merges
+    no batch statistics and no loss lambdas. The supernet's parameters
+    that npp_tpu stores stacked (``_STACKED_IN_JAX``) take no part, so the
+    counts are npp_tpu's. Returns (loaded names, shape-skipped names)."""
+    loaded, skipped, n_params = [], [], 0
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            n_params += 1
+            value = pretrained.get(name)
+            if value is None or _STACKED_IN_JAX.match(name):
+                continue
+            if tuple(value.shape) == tuple(param.shape):
+                param.copy_(value)
+                loaded.append(name)
+            else:
+                log_fn(f"skip {name}: shape {tuple(value.shape)} != "
+                       f"{tuple(param.shape)}")
+                skipped.append(name)
+    log_fn(f"pretrained merge: {len(loaded)} loaded, {len(skipped)} "
+           f"shape-skipped, {n_params - len(loaded) - len(skipped)} without "
+           f"a counterpart, of {n_params} parameters")
+    return loaded, skipped

@@ -1,10 +1,13 @@
-"""Evaluation: the flip-TTA eval step and the single-process ``validate``.
+"""Evaluation: the flip-TTA eval steps and the single-process validation
+passes, for LIP and for Pascal-Person-Part (PPP).
 
-Port of ``npp_tpu/core/evaluate.py:30-126, 247-328``. The step runs the
-direct and the flipped forward (in the model's compute dtype), then the
-losses, the parsing flip fusion, argmax, the confusion matrix and the
-pose decode, all in float32 on the device. ``validate`` keeps every
-result on the device inside the loop and fetches once at the end.
+Port of ``npp_tpu/core/evaluate.py:30-126, 247-328, 411-489``. A step
+runs the direct and the flipped forward (in the model's compute dtype),
+then the losses, the parsing flip fusion, argmax and the confusion matrix
+in float32 on the device; the LIP step decodes the pose, the PPP step
+returns the flip-fused heatmaps, which ``validate_ppp`` scores in heatmap
+space. Both passes keep every result on the device inside the loop and
+fetch once at the end.
 """
 from __future__ import annotations
 
@@ -20,15 +23,34 @@ from npp_tpu_torch.ops.resize import resize_bilinear
 from npp_tpu_torch.utils import metrics as M
 
 
+def _parsing_pred(par_list, flip_par, labels: torch.Tensor, flip_pairs):
+    """Argmax of the last stage's parsing logits at the labels' size, the
+    flipped forward's fused in (its ``flip_pairs`` swapped) when given."""
+    h, w = labels.shape[1], labels.shape[2]
+    par = resize_bilinear(par_list[-1][0].float(), (h, w),
+                          align_corners=False)
+    if flip_par is not None:
+        fpar = resize_bilinear(flip_par[-1][0].float(), (h, w),
+                               align_corners=False)
+        par = flip_parsing_fuse(par, fpar, flip_pairs)
+    return torch.argmax(par, dim=1)
+
+
 def make_eval_step(model, *, num_classes: int, class_weights,
                    flip_test: bool = True, ignore_index: int = 255,
-                   ohem_keep: int = 131072,
-                   decode_hw: tuple[int, int] = (384, 384)):
+                   ohem_thres: float = 0.9, ohem_keep: int = 131072,
+                   flip_pairs=((14, 15), (16, 17), (18, 19)),
+                   pose_flip_idx=None,
+                   decode_hw: tuple[int, int] = (384, 384),
+                   blur_sigma: float = 3.0, dark: bool = False):
     """Returns ``step(criterion_params, batch) -> {loss, loss_pose,
     loss_par, cm (C, C), pose_pred (B, J, 3), par_pred (B, H, W)}``, with
     ``criterion_params`` = {"lamda_pose", "lamda_par"} and ``batch`` a
-    rendered device batch (``data/loader.py``). The flip pairs are LIP's;
-    the decode blurs with sigma 3."""
+    rendered device batch (``data/loader.py``). ``flip_pairs`` are the
+    parsing classes swapped under a flip (LIP's by default);
+    ``pose_flip_idx`` remaps the joints (by default LIP's for 16 joints,
+    PPP's for 14, none otherwise); the decode blurs with ``blur_sigma``
+    and, with ``dark``, refines the argmax by the DARK step."""
 
     @torch.inference_mode()
     def step(criterion_params, batch):
@@ -43,17 +65,11 @@ def make_eval_step(model, *, num_classes: int, class_weights,
                                      criterion_params["lamda_par"],
                                      class_weights=class_weights,
                                      ignore_index=ignore_index,
-                                     min_kept=ohem_keep)
+                                     thres=ohem_thres, min_kept=ohem_keep)
 
         # Parsing: last stage, upsampled to label size, flip-fused, argmax.
-        h, w = batch["par"].shape[1], batch["par"].shape[2]
-        par = resize_bilinear(par_list[-1][0].float(), (h, w),
-                              align_corners=False)
-        if flip_test:
-            fpar = resize_bilinear(flip_par[-1][0].float(), (h, w),
-                                   align_corners=False)
-            par = flip_parsing_fuse(par, fpar)
-        par_pred = torch.argmax(par, dim=1)
+        par_pred = _parsing_pred(par_list, flip_par if flip_test else None,
+                                 batch["par"], flip_pairs)
         cm = M.confusion_matrix(batch["par"], par_pred, num_classes,
                                 ignore_index)
 
@@ -61,11 +77,13 @@ def make_eval_step(model, *, num_classes: int, class_weights,
         pose_hm = pose_list[-1][0].float()
         flip_hm = flip_pose[-1][0].float() if flip_test else None
         n_j = pose_hm.shape[1]
-        fidx = (FLIPPED_POSEIDX if n_j == 16 else FLIPPED_POSEIDX_PPP
-                if n_j == 14 else tuple(range(n_j)))
+        fidx = pose_flip_idx or (FLIPPED_POSEIDX if n_j == 16
+                                 else FLIPPED_POSEIDX_PPP if n_j == 14
+                                 else tuple(range(n_j)))
         pose_pred = decode_pose_validate(pose_hm, flip_hm,
                                          batch["crop_param"], batch["scale"],
-                                         decode_hw, flip_idx=fidx)
+                                         decode_hw, blur_sigma, fidx,
+                                         dark=dark)
         return {"loss": loss_pose + loss_par, "loss_pose": loss_pose,
                 "loss_par": loss_par, "cm": cm, "pose_pred": pose_pred,
                 "par_pred": par_pred}
@@ -113,3 +131,77 @@ def validate(eval_step, criterion_params, loader, *, num_classes: int,
             result["pck_avg"] = float(pck[-1][-1])
             log_fn(M.pckh_table(pck[-1]))
     return result
+
+
+def make_ppp_eval_step(model, *, num_classes: int, class_weights,
+                       flip_test: bool = True, ignore_index: int = 255,
+                       ohem_thres: float = 0.9, ohem_keep: int = 131072):
+    """The PPP eval step: ``step(criterion_params, batch) -> {loss, cm
+    (C, C), pose_hm (B, J, h, w), par_pred (B, H, W)}``. Parsing as in
+    ``make_eval_step`` with no class pairs to swap; the pose is scored in
+    heatmap space, so the step returns the last stage's heatmaps, with the
+    flipped forward's averaged in after ``FLIPPED_POSEIDX_PPP`` and a
+    horizontal unflip. npp_tpu keeps that unflip where the reference
+    averaged mirror-image maps (PARITY.md, ``function_ppp.py`` row)."""
+
+    @torch.inference_mode()
+    def step(criterion_params, batch):
+        image = batch["image"]
+        pose_list, par_list = model(image)
+        if flip_test:
+            flip_pose, flip_par = model(image.flip(3))
+        loss_pose = crit.pose_loss(pose_list, batch["pose"],
+                                   batch["pose_aux"],
+                                   criterion_params["lamda_pose"])
+        loss_par = crit.parsing_loss(par_list, batch["par"], batch["edge"],
+                                     criterion_params["lamda_par"],
+                                     class_weights=class_weights,
+                                     ignore_index=ignore_index,
+                                     thres=ohem_thres, min_kept=ohem_keep)
+        par_pred = _parsing_pred(par_list, flip_par if flip_test else None,
+                                 batch["par"], ())
+        cm = M.confusion_matrix(batch["par"], par_pred, num_classes,
+                                ignore_index)
+        hm = pose_list[-1][0].float()
+        if flip_test:
+            perm = torch.as_tensor(FLIPPED_POSEIDX_PPP, device=hm.device)
+            fl = flip_pose[-1][0].float().index_select(1, perm)
+            hm = 0.5 * (hm + fl.flip(3))
+        return {"loss": loss_pose + loss_par, "cm": cm, "pose_hm": hm,
+                "par_pred": par_pred}
+
+    return step
+
+
+def validate_ppp(eval_step, criterion_params, loader, *, num_classes: int,
+                 num_joints: int = 14, log_fn=print) -> dict:
+    """One PPP pass over ``loader``: the mean batch loss, the segmentation
+    metrics of the summed confusion matrix (also returned as ``cm``), and
+    the heatmap PCK: each batch's ``heatmap_pck_accuracy`` of the fused
+    heatmaps against the targets, averaged over the batches with each
+    weighted by its count of scoring joints (``MulAverageMeter``), in
+    percent as ``pck`` ((J + 1,), the average first) and ``pck_avg``; the
+    PPP PCK table is logged. Each batch's maps are fetched as contiguous
+    NCHW arrays, so the argmax runs over each map's row-major (h * w)
+    order and ties go to the first maximum; the losses and the confusion
+    matrix are fetched once after the loop."""
+    cm_dev = None
+    losses_dev = []
+    acc = M.MulAverageMeter(num_joints + 1)
+    for batch in loader:
+        out = eval_step(criterion_params, batch)
+        cm_dev = out["cm"] if cm_dev is None else cm_dev + out["cm"]
+        losses_dev.append(out["loss"])
+        hm = out["pose_hm"].float().contiguous().cpu().numpy()
+        gt = batch["pose"].float().contiguous().cpu().numpy()
+        acc1, _, cnt, _ = M.heatmap_pck_accuracy(hm, gt)
+        acc.update(acc1, max(cnt, 1))
+    cm = (cm_dev.cpu().numpy().astype(np.float64) if cm_dev is not None
+          else np.zeros((num_classes, num_classes), np.float64))
+    losses = (torch.stack(losses_dev).cpu().numpy().astype(np.float64)
+              if losses_dev else np.zeros((0,), np.float64))
+    pck = acc.val() * 100
+    log_fn(M.ppp_pck_table(pck))
+    return {"loss": float(losses.mean()) if losses.size else float("nan"),
+            **M.seg_metrics(cm), "cm": cm, "pck": pck,
+            "pck_avg": float(pck[0])}

@@ -32,7 +32,7 @@ def get_max_preds(batch_heatmaps: torch.Tensor):
     maxvals = flat.amax(dim=2)
     idx = torch.argmax(flat, dim=2)  # the first maximum on ties
     x = (idx % w).float()
-    y = torch.floor(idx.float() / w)
+    y = (idx // w).float()  # integer division: exact at any width
     preds = torch.stack([x, y], dim=-1)
     mask = (maxvals[..., None] > 0.0).float()
     return preds * mask, maxvals[..., None]

@@ -2,9 +2,9 @@
 optional searched genotype, weights.
 
 After ``npp_tpu/core/loading.py``, with the port's built-in
-configurations in place of the YAML: the flagship NPPNet (L=16, C=64,
+configurations in place of the YAML: the LIP flagship NPPNet (L=16, C=64,
 384x384) or, with ``tiny``, the test one (L=8, C=8, 128x128)
-(``tools/eval_lip.FLAGSHIP`` / ``TINY``).
+(``config.LIP``).
 """
 from __future__ import annotations
 
@@ -12,10 +12,10 @@ import os
 
 import torch
 
+from npp_tpu_torch.config import LIP
 from npp_tpu_torch.core.checkpoint import CheckpointManager
 from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.models.augment import build_nppnet
-from npp_tpu_torch.tools.eval_lip import FLAGSHIP, TINY
 from npp_tpu_torch.utils.convert import load_jax_variables, load_npz
 
 
@@ -32,7 +32,8 @@ def load_eval_model(ckpt: str = "", *, tiny: bool = False,
     a checkpoint directory of the train CLI (the ``best`` checkpoint,
     else the latest epoch's) or a flax variable tree saved as ``.npz``;
     empty gives random weights drawn from ``seed``."""
-    config, size = (TINY, (128, 128)) if tiny else (FLAGSHIP, (384, 384))
+    config, hp = LIP.train_config(tiny)
+    size = hp["crop"]
     kw = dict(config)
     if genotype:
         kw["inter"], kw["fusion"] = load_genotypes(genotype)

@@ -1,28 +1,41 @@
 """Training CLI (augment phase): the fixed NPPNet on synthetic data.
 
 Port of ``tools/augment_lip.py`` for synthetic data (the LIP and PPP
-readers are not ported yet). The flagship configuration is built in, so
-no YAML is read: the model of ``eval_lip.FLAGSHIP`` (L=16, C=64, one
-refinement stage, 20 classes, 16 joints), 384x384 crops at batch 16,
-bf16 compute with the last head conv in fp32 (channels_last on the
-card), and ``experiments/lip/384_384.yaml``'s ``TRAIN`` / ``LOSS``: Adam
-at lr 0.0015 (0.2x for the backbone, 1e-4 for the loss lambdas), LR_STEP
-(150, 170) with factor 0.2 per iteration, 190 epochs, OHEM 0.9 / 131072,
-sigma 3, ignore 255, no joint target weights. ``--tiny`` is the small
+readers are not ported yet). The configurations are built in
+(``config.py``), so no YAML is read. ``--dataset lip`` (the default) is
+the LIP flagship: the NPPNet of L=16, C=64, one refinement stage, 20
+classes, 16 joints, 384x384 crops at batch 16, bf16 compute with the
+last head conv in fp32 (channels_last on the card), and
+``experiments/lip/384_384.yaml``'s ``TRAIN`` / ``LOSS``: Adam at lr
+0.0015 (0.2x for the backbone, 1e-4 for the loss lambdas), LR_STEP (150,
+170) with factor 0.2 per iteration, 190 epochs, OHEM 0.9 / 131072, sigma
+3, ignore 255, no joint target weights. ``--dataset ppp`` is
+Pascal-Person-Part (``experiments/pascal/384_384.yaml``): 7 classes, 14
+joints, the same net, batch 2, Adam at lr 0.001 with LR_STEP (75, 85,
+95) x 0.1, 150 epochs, the Pascal class weights. ``--tiny`` is the small
 test configuration (L=8, C=8, 128x128, batch 4). Weights are random,
-drawn from ``--seed``.
+drawn from ``--seed``; ``--genotype`` builds the net from a search's
+``best_genotype.json``, and ``--pretrained-encoder`` then merges a search
+checkpoint directory's weights into it (its ``best`` checkpoint, else the
+latest epoch's; ``core/checkpoint.load_pretrained_params``), after
+``--resume`` as in the JAX CLI, logging what it loaded and skipped.
 
 Each epoch: ``engine.train_epoch`` over the shuffled synthetic train set
 (the loader renders each batch's targets on the device: the heatmap
-kernel once per step on a card), the flip-TTA ``validate`` over a
-synthetic val set (2 x batch images, seed 7), and a checkpoint under
-``<out>/lip/augment/<config>/checkpoints``.
+kernel once per step on a card), the flip-TTA validation over a
+synthetic val set (2 x batch images, seed 7): ``validate`` for LIP,
+``validate_ppp`` (heatmap PCK) for PPP; the coupled (mIoU, PCK)
+best-model rule, and a checkpoint under
+``<out>/<dataset>/augment/<config>/checkpoints``.
 
 Examples:
   python -m npp_tpu_torch.tools.augment_lip --synthetic --steps 20 \\
       --epochs 1
+  python -m npp_tpu_torch.tools.augment_lip --synthetic --dataset ppp \\
+      --steps 2 --epochs 1
   python -m npp_tpu_torch.tools.augment_lip --synthetic --tiny \\
-      --device cpu --dtype float32 --steps 2 --epochs 1
+      --device cpu --dtype float32 --steps 2 --epochs 1 \\
+      --genotype best_genotype.json --pretrained-encoder search/checkpoints
 """
 from __future__ import annotations
 
@@ -33,35 +46,31 @@ import os
 import torch
 
 from npp_tpu_torch import engine
+from npp_tpu_torch.config import IGNORE, LIP, PRESETS, SIGMA
 from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import train as T
-from npp_tpu_torch.core.checkpoint import CheckpointManager
-from npp_tpu_torch.core.criterion import LIP_CLASS_WEIGHTS
+from npp_tpu_torch.core.checkpoint import (CheckpointManager,
+                                           load_pretrained_params)
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
-from npp_tpu_torch.tools.eval_lip import (FLAGSHIP, IGNORE, NUM_CLASSES,
-                                          NUM_JOINTS, SIGMA, TINY)
+from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
 
-# experiments/lip/384_384.yaml TRAIN / LOSS / PRINT_FREQ / WORKERS and
-# npp_tpu/config.py:56-65.
-FLAGSHIP_TRAIN = dict(crop=(384, 384), batch_size=16, lr=0.0015,
-                      lr_step=(150, 170), lr_factor=0.2, epochs=190,
-                      ohem_thres=0.9, ohem_keep=131072,
-                      use_target_weight=False, print_freq=100, workers=8)
-TINY_TRAIN = dict(FLAGSHIP_TRAIN, crop=(128, 128), batch_size=4)
+FLAGSHIP_TRAIN = LIP.train_config()[1]
+TINY_TRAIN = LIP.train_config(tiny=True)[1]
 
 
-def build_loaders(hp: dict, device):
-    """(train loader, val loader) over synthetic data; both render their
-    targets on ``device`` and normalise the uint8 images there."""
+def build_loaders(hp: dict, device, preset=LIP):
+    """(train loader, val loader) over synthetic data shaped as
+    ``preset``'s; both render their targets on ``device`` and normalise
+    the uint8 images there."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
-                                    num_joints=NUM_JOINTS, ignore=IGNORE,
-                                    normalize_images=True)
+                                    num_joints=preset.num_joints,
+                                    ignore=IGNORE, normalize_images=True)
     bs, crop = hp["batch_size"], hp["crop"]
-    common = dict(crop_size=crop, num_joints=NUM_JOINTS,
-                  num_classes=NUM_CLASSES, device_normalize=True)
+    common = dict(crop_size=crop, num_joints=preset.num_joints,
+                  num_classes=preset.num_classes, device_normalize=True)
     train_ds = SyntheticDataset(length=max(4 * bs, 32), **common)
     val_ds = SyntheticDataset(length=2 * bs, is_train=False, seed=7,
                               **common)
@@ -102,31 +111,88 @@ def init_state(model_kw: dict, hp: dict, *, device, dtype, seed: int,
         steps_per_epoch=steps_per_epoch, dtype=dtype, **model_kw)
 
 
-def make_train_step(hp: dict):
-    return T.make_train_step(class_weights=LIP_CLASS_WEIGHTS,
+def make_train_step(hp: dict, preset=LIP):
+    return T.make_train_step(class_weights=preset.class_weights,
                              ignore_index=IGNORE,
                              ohem_thres=hp["ohem_thres"],
                              ohem_keep=hp["ohem_keep"],
                              use_target_weight=hp["use_target_weight"])
 
 
-def validate(state: T.TrainState, eval_step, val_loader) -> dict:
-    """Flip-TTA validation of the state's model in eval mode."""
+def _eval_kw(hp: dict, preset) -> dict:
+    return dict(num_classes=preset.num_classes,
+                class_weights=preset.class_weights, flip_test=True,
+                ignore_index=IGNORE, ohem_thres=hp["ohem_thres"],
+                ohem_keep=hp["ohem_keep"])
+
+
+def make_lip_eval_step(model, hp: dict, preset=LIP):
+    """The LIP-protocol flip-TTA eval step (``make_eval_step``: pose
+    decode, parsing fusion with ``preset``'s flip pairs; the joint flip
+    index follows from the joint count)."""
+    crop = hp["crop"]
+    return E.make_eval_step(model, flip_pairs=preset.flip_pairs,
+                            decode_hw=(crop[1], crop[0]),
+                            **_eval_kw(hp, preset))
+
+
+def make_eval_step(model, hp: dict, preset=LIP):
+    """The train CLI's eval step: ``make_ppp_eval_step`` for PPP, the
+    LIP protocol otherwise."""
+    if preset.name == "ppp":
+        return E.make_ppp_eval_step(model, **_eval_kw(hp, preset))
+    return make_lip_eval_step(model, hp, preset)
+
+
+def validate(state: T.TrainState, eval_step, val_loader, preset=LIP,
+             log_fn=print) -> dict:
+    """Flip-TTA validation of the state's model in eval mode:
+    ``validate_ppp`` (heatmap PCK, its table logged) for PPP, else
+    ``validate``."""
     state.model.eval()
+    if preset.name == "ppp":
+        return E.validate_ppp(eval_step, state.lamdas, val_loader,
+                              num_classes=preset.num_classes,
+                              num_joints=preset.num_joints, log_fn=log_fn)
     return E.validate(eval_step, state.lamdas, val_loader,
-                      num_classes=NUM_CLASSES)
+                      num_classes=preset.num_classes)
+
+
+def merge_pretrained(state: T.TrainState, directory: str,
+                     log_fn=print) -> tuple[int, int]:
+    """Merge the supernet weights of a search-CLI checkpoint directory
+    (its ``best`` checkpoint, else the latest epoch's) into the state's
+    model (``load_pretrained_params``); returns the (loaded,
+    shape-skipped) counts."""
+    weights, meta = CheckpointManager(directory).model_state()
+    if weights is None:
+        raise FileNotFoundError(f"no search checkpoint in {directory}")
+    log_fn(f"merging the pretrained search state of {directory} "
+           f"(meta {meta})")
+    loaded, skipped = load_pretrained_params(state.model, weights, log_fn)
+    return len(loaded), len(skipped)
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic LIP-shaped data (the only source so far)")
+                   help="synthetic data shaped as the dataset's (the only "
+                        "source so far)")
+    p.add_argument("--dataset", choices=sorted(PRESETS), default="lip",
+                   help="the built-in configuration: LIP or "
+                        "Pascal-Person-Part")
     p.add_argument("--steps", type=int, default=0,
                    help="limit steps per epoch (0 = full)")
     p.add_argument("--epochs", type=int, default=0,
-                   help="number of epochs (0 = the flagship's 190)")
+                   help="number of epochs (0 = the dataset's: 190 for LIP, "
+                        "150 for PPP)")
     p.add_argument("--tiny", action="store_true",
                    help="L=8, C=8, 128x128, batch 4")
+    p.add_argument("--genotype", default="",
+                   help="genotype JSON from a search run (best_genotype.json)")
+    p.add_argument("--pretrained-encoder", default="",
+                   help="search-CLI checkpoint directory whose supernet "
+                        "weights are merged in where names and shapes match")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
@@ -147,14 +213,20 @@ def main(argv=None) -> dict:
         # fp32 convs (the last head convs, the decode blur) in full fp32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model_kw, hp = (TINY, TINY_TRAIN) if args.tiny else (FLAGSHIP,
-                                                         FLAGSHIP_TRAIN)
+    preset = PRESETS[args.dataset]
+    model_kw, hp = preset.train_config(args.tiny)
     logger, out_dir, tb_dir = create_logger(
-        args.out, os.path.join(args.out, "log"), "lip",
+        args.out, os.path.join(args.out, "log"), preset.name,
         "tiny" if args.tiny else "flagship", "augment")
     writer = MetricWriter(tb_dir)
+    merged = None
     try:
-        train_loader, val_loader = build_loaders(hp, device)
+        if args.genotype:
+            model_kw = dict(model_kw)
+            model_kw["inter"], model_kw["fusion"] = load_genotypes(
+                args.genotype)
+            logger.info(f"loaded searched genotypes from {args.genotype}")
+        train_loader, val_loader = build_loaders(hp, device, preset)
         if args.steps:
             train_loader = LimitedLoader(train_loader, args.steps)
             val_loader = LimitedLoader(val_loader, max(1, args.steps // 2))
@@ -172,13 +244,12 @@ def main(argv=None) -> dict:
                 best_iou = float(meta.get("best_iou", 0.0))
                 best_pck = float(meta.get("best_pck", 0.0))
                 logger.info(f"resumed from epoch {meta['epoch']}")
+        if args.pretrained_encoder:
+            merged = merge_pretrained(state, args.pretrained_encoder,
+                                      logger.info)
 
-        train_step = make_train_step(hp)
-        crop = hp["crop"]
-        eval_step = E.make_eval_step(
-            state.model, num_classes=NUM_CLASSES,
-            class_weights=LIP_CLASS_WEIGHTS, flip_test=True,
-            ignore_index=IGNORE, decode_hw=(crop[1], crop[0]))
+        train_step = make_train_step(hp, preset)
+        eval_step = make_eval_step(state.model, hp, preset)
         epochs = args.epochs or hp["epochs"]
         gstep, train_loss, result = 0, float("nan"), None
         for epoch in range(begin_epoch, epochs):
@@ -187,11 +258,14 @@ def main(argv=None) -> dict:
                 train_step, state, train_loader, epoch=epoch, logger=logger,
                 writer=writer, print_freq=hp["print_freq"],
                 global_step=gstep)
-            result = validate(state, eval_step, val_loader)
+            result = validate(state, eval_step, val_loader, preset,
+                              logger.info)
             miou = result["mean_iou"]
-            pck = 0.0  # synthetic names match no PCKh ground truth
+            # LIP: synthetic names match no PCKh ground truth.
+            pck = result.get("pck_avg", 0.0)
             logger.info(f"epoch {epoch}: train loss {train_loss:.4f} val "
-                        f"loss {result['loss']:.4f} mIoU {miou:.4f}")
+                        f"loss {result['loss']:.4f} mIoU {miou:.4f} "
+                        f"PCK {pck:.2f}")
             writer.scalar("valid_mIoU", miou, epoch)
             writer.scalar("valid_loss", result["loss"], epoch)
             is_best = engine.is_best_checkpoint(miou, pck, best_iou,
@@ -205,12 +279,14 @@ def main(argv=None) -> dict:
                       is_best=is_best,
                       tag="final" if epoch == epochs - 1 else None)
         ckpt.wait()
-        logger.info(f"done: best mIoU {best_iou:.4f}")
+        logger.info(f"done: best mIoU {best_iou:.4f} best PCK "
+                    f"{best_pck:.2f}")
     finally:
         writer.close()
         close_logger(logger)
     return {"state": state, "train_loss": train_loss, "result": result,
-            "out_dir": out_dir, "checkpoints": ckpt.directory}
+            "out_dir": out_dir, "checkpoints": ckpt.directory,
+            "merged": merged}
 
 
 if __name__ == "__main__":

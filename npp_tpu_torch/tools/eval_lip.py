@@ -1,46 +1,55 @@
 """Evaluation CLI: the LIP flip-TTA val protocol on the port.
 
 Port of ``tools/eval_lip.py`` for synthetic data (the LIP dataset reader
-is not ported yet). The flagship configuration is built in, so no YAML
-is read: L=16 cells, C=64, one refinement stage, 20 classes, 16 joints,
-384x384 crops, bf16 compute (channels_last on the card). ``--tiny`` is
-the small test configuration (L=8, C=8, 128x128). Without ``--ckpt`` the
-weights are random, drawn from ``--seed``; ``--ckpt`` loads a flax
-variable tree saved as ``.npz`` with '/'-joined keys
-(``params/stem0/Conv_0/Conv_0/kernel``, ...).
+is not ported yet). The LIP flagship configuration is built in
+(``config.LIP``), so no YAML is read: L=16 cells, C=64, one refinement
+stage, 20 classes, 16 joints, 384x384 crops, bf16 compute (channels_last
+on the card). ``--tiny`` is the small test configuration (L=8, C=8,
+128x128). Without ``--ckpt`` the weights are random, drawn from
+``--seed``; ``--ckpt`` takes a train-CLI checkpoint directory (its
+``best`` checkpoint, else the latest epoch's) or a flax variable tree
+saved as ``.npz`` with '/'-joined keys (``core/loading.load_eval_model``),
+and ``--genotype`` a search's ``best_genotype.json`` to build the net
+from. The loss lambdas are the initial ones, as in the JAX CLI.
+``--pred-csv`` writes the LIP pose CSV, ``--json-out`` the metrics as
+JSON. LIP only, as the JAX CLI is: it fixes LIP's class weights and flip
+pairs.
 
 Examples:
   python -m npp_tpu_torch.tools.eval_lip --synthetic --batch 8 --n 16 \\
       --device cuda
   python -m npp_tpu_torch.tools.eval_lip --synthetic --tiny --n 4 \\
       --batch 2 --device cpu --dtype float32
+  python -m npp_tpu_torch.tools.eval_lip --synthetic \\
+      --ckpt output/lip/augment/flagship/checkpoints \\
+      --genotype best_genotype.json --pred-csv pred.csv --json-out m.json
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 import torch
 
+from npp_tpu_torch.config import IGNORE, LIP, SIGMA
 from npp_tpu_torch.core import evaluate as E
-from npp_tpu_torch.core.criterion import (LIP_CLASS_WEIGHTS,
-                                          init_criterion_params)
+from npp_tpu_torch.core.criterion import init_criterion_params
+from npp_tpu_torch.core.loading import load_eval_model
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
-from npp_tpu_torch.models.augment import build_nppnet
-from npp_tpu_torch.utils.convert import load_jax_variables, load_npz
 from npp_tpu_torch.utils.metrics import per_class_table
 
-NUM_CLASSES, NUM_JOINTS, SIGMA, IGNORE = 20, 16, 3, 255
-FLAGSHIP = dict(num_classes=NUM_CLASSES, num_joints=NUM_JOINTS, layers=16,
-                init_channels=64, refine_layers=1)
-TINY = dict(FLAGSHIP, layers=8, init_channels=8)
+NUM_CLASSES, NUM_JOINTS = LIP.num_classes, LIP.num_joints
+FLAGSHIP = LIP.train_config()[0]
+TINY = LIP.train_config(tiny=True)[0]
 
 
 def evaluate_synthetic(model, *, n: int, batch: int, crop_size, device,
-                       seed: int = 0) -> dict:
+                       seed: int = 0, pred_csv: str | None = None) -> dict:
     """Flip-TTA validation of ``model`` over ``n`` synthetic images: the
     loader renders the targets on ``device`` (the heatmap kernel on a
-    card), then ``make_eval_step`` + ``validate``."""
+    card), then ``make_eval_step`` + ``validate`` with the initial loss
+    lambdas; ``pred_csv`` writes the LIP pose CSV."""
     ds = SyntheticDataset(length=n, crop_size=crop_size,
                           num_joints=NUM_JOINTS, num_classes=NUM_CLASSES,
                           seed=seed, device_normalize=True)
@@ -50,11 +59,12 @@ def evaluate_synthetic(model, *, n: int, batch: int, crop_size, device,
     loader = DataLoader(ds, batch, device=device, num_workers=4,
                         renderer=renderer)
     step = E.make_eval_step(model, num_classes=NUM_CLASSES,
-                            class_weights=LIP_CLASS_WEIGHTS, flip_test=True,
-                            ignore_index=IGNORE,
+                            class_weights=LIP.class_weights, flip_test=True,
+                            ignore_index=IGNORE, flip_pairs=LIP.flip_pairs,
                             decode_hw=(crop_size[1], crop_size[0]))
     crit = init_criterion_params(model.refine_layers + 1, device)
-    return E.validate(step, crit, loader, num_classes=NUM_CLASSES)
+    return E.validate(step, crit, loader, num_classes=NUM_CLASSES,
+                      pred_csv=pred_csv)
 
 
 def result_line(result: dict) -> str:
@@ -63,14 +73,30 @@ def result_line(result: dict) -> str:
             f"mIoU={result['mean_iou']:.4f}")
 
 
+def metrics_json(result: dict) -> dict:
+    """The metrics as the JAX CLI's ``--json-out`` writes them: every
+    entry but the predictions, their names, the PCKh table (and the
+    confusion matrix, which the JAX result does not hold), arrays as
+    lists."""
+    return {k: (v.tolist() if hasattr(v, "tolist") else v)
+            for k, v in result.items()
+            if k not in ("pose_preds", "names", "pck", "cm")}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic LIP-shaped data (the only source so far)")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--ckpt", default="",
-                   help=".npz of a flax NPPNet variable tree (empty = "
-                        "random weights from --seed)")
+                   help="train-CLI checkpoint directory or flax .npz "
+                        "(empty = random weights from --seed)")
+    p.add_argument("--genotype", default="",
+                   help="searched-genotype JSON matching the checkpoint")
+    p.add_argument("--pred-csv", default="",
+                   help="write the LIP-protocol pose CSV here")
+    p.add_argument("--json-out", default="",
+                   help="also dump the metric dict as JSON")
     p.add_argument("--n", type=int, default=16, help="images to evaluate")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--device", default="cuda")
@@ -89,20 +115,19 @@ def main(argv=None):
         # fp32 convs (the decode blur, an fp32 model) in full fp32, not TF32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, crop = (TINY, (128, 128)) if args.tiny else (FLAGSHIP, (384, 384))
-    model = build_nppnet(device="cpu", generator=torch.Generator()
-                         .manual_seed(args.seed),
-                         dtype=getattr(torch, args.dtype), **cfg)
-    if args.ckpt:
-        load_jax_variables(model, load_npz(args.ckpt))
-    model = model.to(device)
-    if device.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
+    model, crop, _ = load_eval_model(
+        args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
+        dtype=getattr(torch, args.dtype), seed=args.seed)
     result = evaluate_synthetic(model, n=args.n, batch=args.batch,
                                 crop_size=crop, device=device,
-                                seed=args.seed)
+                                seed=args.seed,
+                                pred_csv=args.pred_csv or None)
     print(per_class_table(result["per_class_iou"], result["per_class_acc"]))
     print(result_line(result))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(metrics_json(result), f, indent=1)
+        print(f"wrote {args.json_out}")
     return result
 
 

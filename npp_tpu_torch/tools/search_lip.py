@@ -1,16 +1,22 @@
 """Search CLI: the bi-level NPPNet interaction search on synthetic data.
 
 Port of ``tools/search_lip.py`` for synthetic data (the LIP and PPP
-readers are not ported yet). The reference search scale is built in, so
-no YAML is read: the supernet at L=16, C=32, one refinement stage, 20
-classes, 16 joints, 384x384 crops at batch 7, bf16 compute (channels_last
-on the card), and ``experiments/lip/384_384.yaml``'s ``SEARCH`` / ``LOSS``:
+readers are not ported yet). The reference search scale is built in
+(``config.py``), so no YAML is read: for ``--dataset lip`` (the default)
+the supernet at L=16, C=32, one refinement stage, 20 classes, 16 joints,
+384x384 crops at batch 7, bf16 compute (channels_last on the card), and
+``experiments/lip/384_384.yaml``'s ``SEARCH`` / ``LOSS``:
 weight Adam at W_LR 1e-3 with LR_STEP (70, 100) x 0.2 per iteration (the
 loss lambdas at 1e-4), arch Adam at APLHA_LR 1e-3 with betas (0.5, 0.999)
 and weight decay 1e-3 (the value the JAX CLI passes, not the yaml's
 1e-4), 15 weight-only warmup epochs, the entropy term after epoch 70, 120
-epochs, OHEM 0.9 / 131072. ``--tiny`` is the small test configuration
-(L=8, C=8, 128x128, batch 2). Weights are random, drawn from ``--seed``.
+epochs, OHEM 0.9 / 131072. ``--dataset ppp`` is Pascal-Person-Part
+(``experiments/pascal/384_384.yaml``): the supernet at L=12 with 7
+classes and 14 joints, the same search hyper-parameters, the Pascal class
+weights and no parsing flip pairs; its validation stays the LIP-protocol
+step with the 14-joint flip index, as the JAX CLI's does. ``--tiny`` is
+the small test configuration (L=8, C=8, 128x128, batch 2). Weights are
+random, drawn from ``--seed``.
 
 Data: synthetic train, mini and val sets (8 x batch, 8 x batch and 2 x
 batch images, seeds 0, 1 and 2); the train and mini loaders shuffle (the
@@ -21,7 +27,7 @@ batch, an arch step on a mini batch), the flip-TTA ``validate``, the
 genotype of the current architecture parameters (logged), the coupled
 best-model rule, ``best_genotype.json`` for a new best, and a checkpoint
 (mirrored to ``warmed`` at the warmup's last epoch and ``final`` at the
-last) under ``<out>/lip/search/<config>/``.
+last) under ``<out>/<dataset>/search/<config>/``.
 
 Not ported: ``--zero`` (several devices), ``--merged-streams`` and the
 dataset readers.
@@ -29,6 +35,8 @@ dataset readers.
 Examples:
   python -m npp_tpu_torch.tools.search_lip --synthetic --steps 2 \\
       --epochs 2 --warmup-epochs 1
+  python -m npp_tpu_torch.tools.search_lip --synthetic --dataset ppp \\
+      --steps 2 --epochs 1
   python -m npp_tpu_torch.tools.search_lip --synthetic --tiny \\
       --device cpu --dtype float32 --steps 2 --epochs 2 --warmup-epochs 1
 """
@@ -40,45 +48,35 @@ import os
 import torch
 
 from npp_tpu_torch import engine
+from npp_tpu_torch.config import IGNORE, LIP, PRESETS, SIGMA
 from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import search as S
 from npp_tpu_torch.core.checkpoint import CheckpointManager
-from npp_tpu_torch.core.criterion import LIP_CLASS_WEIGHTS
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import save_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
-from npp_tpu_torch.tools.augment_lip import LimitedLoader
-from npp_tpu_torch.tools.eval_lip import IGNORE, NUM_CLASSES, NUM_JOINTS, SIGMA
+from npp_tpu_torch.tools.augment_lip import LimitedLoader, make_lip_eval_step
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
 
-FLAGSHIP_SEARCH_MODEL = dict(num_classes=NUM_CLASSES, num_joints=NUM_JOINTS,
-                             layers=16, init_channels=32, refine_layers=1)
-TINY_SEARCH_MODEL = dict(FLAGSHIP_SEARCH_MODEL, layers=8, init_channels=8)
-# experiments/lip/384_384.yaml SEARCH / LOSS / PRINT_FREQ / WORKERS and
-# npp_tpu/config.py:121-125; the arch weight decay is
-# core/search.ALPHA_WEIGHT_DECAY.
-FLAGSHIP_SEARCH = dict(crop=(384, 384), batch_size=7, w_lr=1e-3,
-                       alpha_lr=1e-3, lr_step=(70, 100), lr_factor=0.2,
-                       warmup_epochs=15, entropy_epoch=70, epochs=120,
-                       ohem_thres=0.9, ohem_keep=131072,
-                       use_target_weight=False, print_freq=100, workers=8)
-TINY_SEARCH = dict(FLAGSHIP_SEARCH, crop=(128, 128), batch_size=2)
+FLAGSHIP_SEARCH_MODEL, FLAGSHIP_SEARCH = LIP.search_config()
+TINY_SEARCH_MODEL, TINY_SEARCH = LIP.search_config(tiny=True)
 
 
-def build_loaders(hp: dict, device):
-    """(train, mini, val) loaders over synthetic data, rendering their
-    targets on ``device`` and normalising the uint8 images there."""
+def build_loaders(hp: dict, device, preset=LIP):
+    """(train, mini, val) loaders over synthetic data shaped as
+    ``preset``'s, rendering their targets on ``device`` and normalising the
+    uint8 images there."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
-                                    num_joints=NUM_JOINTS, ignore=IGNORE,
-                                    normalize_images=True)
+                                    num_joints=preset.num_joints,
+                                    ignore=IGNORE, normalize_images=True)
     bs, crop = hp["batch_size"], hp["crop"]
 
     def dataset(n, seed, train):
         return SyntheticDataset(length=n, crop_size=crop,
-                                num_joints=NUM_JOINTS,
-                                num_classes=NUM_CLASSES, seed=seed,
+                                num_joints=preset.num_joints,
+                                num_classes=preset.num_classes, seed=seed,
                                 is_train=train, device_normalize=True)
 
     common = dict(device=device, num_workers=hp["workers"],
@@ -100,25 +98,30 @@ def init_state(model_kw: dict, hp: dict, *, device, dtype, seed: int,
         dtype=dtype, **model_kw)
 
 
-def make_search_steps(hp: dict):
-    return S.make_search_steps(class_weights=LIP_CLASS_WEIGHTS,
+def make_search_steps(hp: dict, preset=LIP):
+    return S.make_search_steps(class_weights=preset.class_weights,
                                ignore_index=IGNORE,
                                ohem_thres=hp["ohem_thres"],
                                ohem_keep=hp["ohem_keep"],
                                use_target_weight=hp["use_target_weight"])
 
 
-def validate(state: S.SearchState, eval_step, val_loader) -> dict:
+def validate(state: S.SearchState, eval_step, val_loader,
+             preset=LIP) -> dict:
     """Flip-TTA validation of the supernet in eval mode."""
     state.model.eval()
     return E.validate(eval_step, state.lamdas, val_loader,
-                      num_classes=NUM_CLASSES)
+                      num_classes=preset.num_classes)
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic LIP-shaped data (the only source so far)")
+                   help="synthetic data shaped as the dataset's (the only "
+                        "source so far)")
+    p.add_argument("--dataset", choices=sorted(PRESETS), default="lip",
+                   help="the built-in configuration: LIP or "
+                        "Pascal-Person-Part")
     p.add_argument("--steps", type=int, default=0,
                    help="limit steps (pairs) per epoch (0 = full)")
     p.add_argument("--epochs", type=int, default=0,
@@ -148,14 +151,15 @@ def main(argv=None) -> dict:
         # fp32 convs (the last head convs, the decode blur) in full fp32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model_kw, hp = ((TINY_SEARCH_MODEL, TINY_SEARCH) if args.tiny
-                    else (FLAGSHIP_SEARCH_MODEL, FLAGSHIP_SEARCH))
+    preset = PRESETS[args.dataset]
+    model_kw, hp = preset.search_config(args.tiny)
     logger, out_dir, tb_dir = create_logger(
-        args.out, os.path.join(args.out, "log"), "lip",
+        args.out, os.path.join(args.out, "log"), preset.name,
         "tiny" if args.tiny else "flagship", "search")
     writer = MetricWriter(tb_dir)
     try:
-        train_loader, mini_loader, val_loader = build_loaders(hp, device)
+        train_loader, mini_loader, val_loader = build_loaders(hp, device,
+                                                              preset)
         if args.steps:
             train_loader = LimitedLoader(train_loader, args.steps)
             mini_loader = LimitedLoader(mini_loader, args.steps)
@@ -175,12 +179,9 @@ def main(argv=None) -> dict:
                 best_pck = float(meta.get("best_pck", 0.0))
                 logger.info(f"resumed from epoch {meta['epoch']}")
 
-        weight_step, arch_step = make_search_steps(hp)
-        crop = hp["crop"]
-        eval_step = E.make_eval_step(
-            state.model, num_classes=NUM_CLASSES,
-            class_weights=LIP_CLASS_WEIGHTS, flip_test=True,
-            ignore_index=IGNORE, decode_hw=(crop[1], crop[0]))
+        weight_step, arch_step = make_search_steps(hp, preset)
+        # The LIP protocol for either dataset, as in the JAX search CLI.
+        eval_step = make_lip_eval_step(state.model, hp, preset)
         warmup = (args.warmup_epochs if args.warmup_epochs >= 0
                   else hp["warmup_epochs"])
         epochs = args.epochs or hp["epochs"]
@@ -201,7 +202,7 @@ def main(argv=None) -> dict:
                     entropy_epoch=hp["entropy_epoch"], logger=logger,
                     writer=writer, print_freq=hp["print_freq"],
                     global_step=gstep)
-            result = validate(state, eval_step, val_loader)
+            result = validate(state, eval_step, val_loader, preset)
             miou = result["mean_iou"]
             pck = 0.0  # synthetic names match no PCKh ground truth
             genotype = GP.extract_genotype(S.get_arch_params(state))

@@ -23,7 +23,7 @@ from npp_tpu_torch.core import test_seg
 from npp_tpu_torch.core.loading import load_eval_model
 from npp_tpu_torch.data.loader import DataLoader
 from npp_tpu_torch.data.synthetic import SyntheticDataset
-from npp_tpu_torch.tools.eval_lip import IGNORE
+from npp_tpu_torch.config import IGNORE
 
 TEST_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)
 TINY_SCALES = (0.5, 1.0)

@@ -1,10 +1,13 @@
-"""Metrics: the confusion matrix on the device; mIoU, the per-class table
-and the LIP PCKh protocol on the host.
+"""Metrics: the confusion matrix on the device; mIoU, the per-class table,
+the LIP PCKh protocol, the heatmap PCK and the Pascal-Person-Part OKS mAP
+on the host.
 
-Port of ``npp_tpu/utils/metrics.py:22-220``. The confusion matrix is a
+Port of ``npp_tpu/utils/metrics.py``. The confusion matrix is a
 ``torch.bincount``; the JAX package's one-hot matmul (``metrics.py:38-60``)
 worked around a slow scatter on the TPU. The PCKh side (the LIP CSV
-files, head-size normalisation, the PCK table) is a numpy copy.
+files, head-size normalisation, the PCK table), the heatmap PCK, the PPP
+PCK table and the OKS mAP (``metrics.py:226-359``) are numpy copies, in
+float64 where the JAX package computes in it.
 """
 from __future__ import annotations
 
@@ -189,3 +192,153 @@ def save_pose_csv(im_names, pose_xy: np.ndarray, path: str) -> None:
                 row.append(str(int(pose_xy[i, j, 0])))
                 row.append(str(int(pose_xy[i, j, 1])))
             w.writerow(row)
+
+
+# --------------------------------------------------------------------------
+# Heatmap-space PCK (npp_tpu/utils/metrics.py:226-266)
+# --------------------------------------------------------------------------
+
+def _np_max_preds(heatmaps: np.ndarray):
+    """(B, J, H, W) -> preds (B, J, 2) in (x, y) as float32 and maxvals
+    (B, J, 1): the first maximum in row-major order wins, and a map whose
+    maximum is not positive (an invisible joint's all-zero map) gives
+    (0, 0)."""
+    b, j, h, w = heatmaps.shape
+    flat = heatmaps.reshape(b, j, -1)
+    idx = np.argmax(flat, 2)
+    maxvals = np.max(flat, 2)[..., None]
+    preds = np.stack([idx % w, idx // w], axis=-1).astype(np.float32)
+    preds *= (maxvals > 0).astype(np.float32)
+    return preds, maxvals
+
+
+def heatmap_pck_accuracy(output: np.ndarray, target: np.ndarray,
+                         thr: float = 0.5):
+    """Train-time heatmap PCK of (B, J, H, W) maps against target maps:
+    per joint, the share of images whose argmax distance over (H, W) / 10
+    is under ``thr``, over the images where the target's argmax is not at
+    (0, 0) (the invisible joints). Returns (acc (J + 1,) with the average
+    of the joints whose share is positive first, that average, their
+    count, the predicted positions)."""
+    pred, _ = _np_max_preds(output)
+    gt, _ = _np_max_preds(target)
+    h, w = output.shape[2], output.shape[3]
+    norm = np.array([h, w]) / 10.0
+    nj = output.shape[1]
+    acc = np.zeros(nj + 1)
+    cnt = 0
+    avg = 0.0
+    for j in range(nj):
+        valid = ~((gt[:, j, 0] < 1) & (gt[:, j, 1] < 1))
+        if valid.sum() == 0:
+            acc[j + 1] = 0
+            continue
+        d = np.linalg.norm((pred[valid, j] - gt[valid, j]) / norm, axis=1)
+        acc[j + 1] = np.mean(d < thr)
+        if acc[j + 1] > 0:
+            avg += acc[j + 1]
+            cnt += 1
+    avg = avg / cnt if cnt else 0
+    acc[0] = avg
+    return acc, avg, cnt, pred
+
+
+class MulAverageMeter:
+    """A vector of running averages."""
+
+    def __init__(self, length: int):
+        self.sum = np.zeros(length)
+        self.count = np.zeros(length)
+
+    def update(self, val, n: int = 1) -> None:
+        self.sum += np.asarray(val) * n
+        self.count += n
+
+    def val(self) -> np.ndarray:
+        return np.where(self.count > 0, self.sum / np.maximum(self.count, 1),
+                        0.0)
+
+
+def ppp_pck_table(pck: np.ndarray, method_name: str = "Ours") -> str:
+    """The PPP PCK table in the 14-joint order; ``pck[0]`` is the average,
+    ``pck[1:]`` the joints (left and right averaged)."""
+    p = pck
+    cells = [
+        ("fore", p[1]), ("neck", p[2]), ("sho.", (p[3] + p[9]) / 2),
+        ("elb.", (p[4] + p[10]) / 2), ("wri.", (p[5] + p[11]) / 2),
+        ("hip", (p[6] + p[12]) / 2), ("knee", (p[7] + p[13]) / 2),
+        ("ank.", (p[8] + p[14]) / 2), ("Avg.", p[0]),
+    ]
+    head = "PCK@0.5    " + " ".join(f"{n:>7}" for n, _ in cells)
+    vals = f"{method_name:10} " + " ".join(f"{v:7.1f}" for _, v in cells)
+    return head + "\n" + vals
+
+
+# --------------------------------------------------------------------------
+# OKS mAP for Pascal-Person-Part pose (npp_tpu/utils/metrics.py:269-341)
+# --------------------------------------------------------------------------
+
+PPP_SIGMAS = np.array([1., 1., 1., .8, .8, .6, .6, .6, 1., .8, .8, .6, .6,
+                       .6]) / 10
+
+
+def cal_oks(p_gt: np.ndarray, p_pred: np.ndarray, box: np.ndarray) -> float:
+    """OKS of one person's (J, 2) prediction, relative to its box's
+    corner, against its (J, 3) ground truth, normalised by the (1, 4)
+    box's area; only joints visible in the ground truth count."""
+    var = (box[0, 2] - box[0, 0]) * (box[0, 3] - box[0, 1]) + np.spacing(1)
+    var = 0.06 * var
+    vis = p_gt[:, 2]
+    dx = p_gt[:, 0] - (p_pred[:, 0] + box[0, 0])
+    dy = p_gt[:, 1] - (p_pred[:, 1] + box[0, 1])
+    e = (dx ** 2 + dy ** 2) / var / 2
+    oks = np.exp(-e)[vis > 0].sum()
+    return oks / max((vis > 0).sum(), 1)
+
+
+def cal_map_image(preds, gt_joints, gt_boxes, hits, counts, thr=0.5):
+    """One image: each ground-truth person takes the prediction of the
+    highest OKS; its visible joints count, and where that OKS reaches
+    ``thr``, each joint whose keypoint similarity reaches it is a hit.
+    ``preds``: list of (J, 2); ``gt_joints``: list of (J, 3);
+    ``gt_boxes``: list of (1, 4). Returns the updated (hits, counts)."""
+    n_gt = len(gt_joints)
+    oks_m = np.zeros((n_gt, len(preds)))
+    for i in range(n_gt):
+        for j, p in enumerate(preds):
+            oks_m[i, j] = cal_oks(gt_joints[i], p, gt_boxes[i])
+    match = np.argmax(oks_m, axis=1)
+    for i in range(n_gt):
+        box = gt_boxes[i]
+        var = ((box[0, 2] - box[0, 0]) * (box[0, 3] - box[0, 1])
+               + np.spacing(1)) * PPP_SIGMAS ** 2
+        p = preds[match[i]]
+        dx = gt_joints[i][:, 0] - (p[:, 0] + box[0, 0])
+        dy = gt_joints[i][:, 1] - (p[:, 1] + box[0, 1])
+        dist = np.exp(-(dx ** 2 + dy ** 2) / var / 2)
+        vis = (gt_joints[i][:, 2] > 0).astype(np.float64)
+        counts += vis
+        if oks_m[i, match[i]] >= thr:
+            hits += ((dist >= thr) & (vis > 0)).astype(np.float64)
+    return hits, counts
+
+
+def oks_map(per_image_preds: dict, per_image_gt: dict,
+            thresholds=np.arange(0.5, 1.0, 0.05)) -> np.ndarray:
+    """Per-joint AP, then their mean, averaged over the OKS thresholds
+    0.5:0.05:0.95. ``per_image_preds[name]``: list of (J, 2) person
+    predictions; ``per_image_gt[name]``: (list of (J, 3) joints, list of
+    (1, 4) boxes). Images without ground truth are skipped."""
+    n_joints = len(PPP_SIGMAS)
+    aps = []
+    for t in thresholds:
+        hits = np.zeros(n_joints)
+        counts = np.zeros(n_joints)
+        for name, preds in per_image_preds.items():
+            if name not in per_image_gt:
+                continue
+            gj, gb = per_image_gt[name]
+            hits, counts = cal_map_image(preds, gj, gb, hits, counts, thr=t)
+        ap = hits / np.maximum(counts, 1)
+        aps.append(np.concatenate([ap, [ap.mean()]]))
+    return np.mean(np.stack(aps), axis=0)

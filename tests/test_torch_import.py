@@ -3,8 +3,9 @@ nor cv2, PIL or yaml, which the card machine lacks.
 
 Checked in a fresh interpreter, because this test process has imported
 jax already (tests/conftest.py). Importing also builds nothing. The
-search and serving slices' modules are also imported each on its own, so
-that none of them leans on another module having been imported first.
+search, serving and PPP / chain slices' modules are also imported each
+on its own, so that none of them leans on another module having been
+imported first.
 """
 import os
 import subprocess
@@ -44,6 +45,12 @@ SERVE_MODULES = ("npp_tpu_torch.core.predictor",
                  "npp_tpu_torch.utils.vis",
                  "npp_tpu_torch.tools.predict",
                  "npp_tpu_torch.tools.test_lip")
+PPP_MODULES = ("npp_tpu_torch.config",
+               "npp_tpu_torch.core.evaluate",
+               "npp_tpu_torch.utils.metrics",
+               "npp_tpu_torch.tools.augment_lip",
+               "npp_tpu_torch.tools.eval_lip",
+               "npp_tpu_torch.tools.eval_ppp_map")
 
 
 def _run(code: str) -> str:
@@ -56,11 +63,12 @@ def _run(code: str) -> str:
 
 def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
     n_mods, bad = _run(PROBE).split(" ", 1)
-    assert int(n_mods) >= 37
+    assert int(n_mods) >= 39
     assert bad.strip() == "[]", bad
 
 
-@pytest.mark.parametrize("module", SEARCH_MODULES + SERVE_MODULES)
+@pytest.mark.parametrize("module",
+                         SEARCH_MODULES + SERVE_MODULES + PPP_MODULES)
 def test_search_module_imports_alone_without_jax(module):
     bad = _run(f"import importlib, sys\n"
                f"importlib.import_module({module!r})\n"
