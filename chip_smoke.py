@@ -27,8 +27,13 @@ heatmap PCK; the train and search CLIs with ``--dataset ppp``; the OKS
 mAP CLI on .mat fixtures); and the chain on the port's own artifacts:
 the train CLI builds the search CLI's genotype and merges its checkpoint
 (``--genotype``, ``--pretrained-encoder``), and the eval CLI scores the
-result (``--ckpt``). Any failure raises, so the exit code is non-zero;
-without CUDA it exits non-zero before printing any result.
+result (``--ckpt``); and the LIP reader (the host library's JPEG decoder
+and cv2-rule warps, built with the host C++ compiler) on a LIP tree
+written from the committed JPEG fixtures (``tests/fixtures/torch_lip``):
+the reader alone, the flagship train step fed from the tree, and the
+train, eval, test, search and predict CLIs reading it. Any failure
+raises, so the exit code is non-zero; without CUDA it exits non-zero
+before printing any result.
 
 Phases: 1 device, 2 build, 3 kernel vs plain version (seven shapes) and
 the device time of both by many launches, beside the kernel's bound, at
@@ -47,7 +52,10 @@ PPP eval and the pretrained merge on the card against the CPU in fp32,
 13 the PPP path at the flagship width in bf16 + channels_last (train
 step checked, timed, profiled; validate_ppp; the PPP train and search
 CLIs; a PPP search pair timed and profiled; eval_ppp_map), 14 the search
--> train -> eval chain at the LIP flagship width.
+-> train -> eval chain at the LIP flagship width, 15 the LIP reader
+(fixture decodes against their recorded SHA-256, samples/s with 8
+threads and 1, ms per stage, the flagship bs16 bf16 train step from the
+tree with the loop's wait on the loader, the CLIs on the tree).
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -57,9 +65,11 @@ from __future__ import annotations
 
 import collections
 import copy
+import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -80,7 +90,11 @@ from npp_tpu_torch.core import train as T
 from npp_tpu_torch.core.criterion import (LIP_CLASS_WEIGHTS,
                                           init_criterion_params)
 from npp_tpu_torch.core.predictor import Predictor
+from npp_tpu_torch.data import augmentation as A
+from npp_tpu_torch.data import imgproc
+from npp_tpu_torch.data import lip
 from npp_tpu_torch.data import loader as L
+from npp_tpu_torch.data import targets as TG
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
@@ -169,6 +183,13 @@ SERVE_IMAGES, SERVE_BATCH = 64, 8
 PPP_HM_RTOL = 1e-4
 LATENCY_CALLS = 20
 BF16_MAP_RTOL = 5e-2   # ||bf16 - fp32|| / ||fp32|| of the fused logits / heatmaps
+# Phase 15: the LIP reader on a tree built from the committed JPEG
+# fixtures (tests/fixtures/make_torch_lip.py writes them).
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "torch_lip")
+LIP_TRAIN, LIP_VAL = 64, 16  # entries of the tree's train and val sets
+LIP_EPOCHS = 2               # train epochs of the in-process loop (8 steps)
+STAGE_SAMPLES = 16           # samples timed stage by stage
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TIMED_CALLS = 200          # calls per timed run
@@ -1465,6 +1486,277 @@ def chain(tag: str, out_root: str, genotype: str, search_ckpt: str) -> dict:
                 eval_loss=res["loss"], eval_miou=res["mean_iou"])
 
 
+def write_lip_tree(root: str, records: list, rng) -> str:
+    """A LIP directory as ``config.LIP.data`` lays it out, from the
+    committed fixtures: LIP_TRAIN train and LIP_VAL val entries that reuse
+    the fixture JPEGs and grey PNG labels under distinct names, with
+    ``joint_self`` (MPII order, about one joint in seven at (0, 0), so not
+    visible) and ``objpos`` drawn from ``rng``; every annotation file the
+    preset names (the search's ``_w`` and ``_a`` sets are the train
+    entries, the test set is the val one) and the pose GT CSV of the val
+    entries. Returns the GT CSV's path."""
+    layout = LIP.data
+    entries = {}
+    for split, n in (("train", LIP_TRAIN), ("val", LIP_VAL)):
+        im_dir = os.path.join(root, layout[f"{split}_imroot"])
+        seg_dir = os.path.join(root, layout[f"{split}_segroot"])
+        os.makedirs(im_dir)
+        os.makedirs(seg_dir)
+        annos = []
+        for i in range(n):
+            rec = records[i % len(records)]
+            name = f"{split}_{i:04d}"
+            shutil.copyfile(os.path.join(FIXTURES, rec["image"]),
+                            os.path.join(im_dir, f"{name}.jpg"))
+            shutil.copyfile(os.path.join(FIXTURES, rec["label"]),
+                            os.path.join(seg_dir, f"{name}.png"))
+            h, w = rec["height"], rec["width"]
+            joints = np.stack([rng.uniform(0.2 * w, 0.8 * w, 16),
+                               rng.uniform(0.05 * h, 0.95 * h, 16),
+                               np.ones(16)], 1)
+            joints[rng.random(16) < 0.15] = 0.0
+            # upper neck (8) and head top (9) set a head size for PCKh
+            joints[8] = [w / 2, 0.2 * h, 1]
+            joints[9] = [w / 2, 0.06 * h, 1]
+            annos.append({"im_name": f"{name}.jpg",
+                          "joint_self": joints.tolist(),
+                          "objpos": [w / 2 + rng.uniform(-0.05, 0.05) * w,
+                                     h / 2 + rng.uniform(-0.05, 0.05) * h],
+                          "scale_provided": 1.0})
+        entries[split] = annos
+    os.makedirs(os.path.join(root, "jsons"))
+    for key, split in (("train_set", "train"), ("search_train_set", "train"),
+                       ("search_mini_set", "train"), ("val_set", "val"),
+                       ("search_val_set", "val"), ("test_set", "val")):
+        with open(os.path.join(root, layout[key]), "w") as f:
+            json.dump({"root": entries[split]}, f)
+    gt = os.path.join(root, "pose_gt.csv")
+    with open(gt, "w") as f:
+        for a in entries["val"]:
+            cells = [a["im_name"].split(".")[0]]
+            for x, y, v in a["joint_self"]:
+                cells += [repr(x), repr(y), str(int(v))]
+            f.write(",".join(cells) + "\n")
+    return gt
+
+
+def reader_stages(root: str) -> dict:
+    """Mean ms per sample of each stage of the train reader, run one after
+    another on the first STAGE_SAMPLES train entries: decode, scale,
+    rotate, crop, flip, and the label chain (PNG read + nearest scale,
+    warp, crop, flip)."""
+    ds = lip.dataset_for(LIP.data, "train", root, crop_size=(384, 384),
+                         is_train=True, seed=SEED, **LIP.reader)
+    rng = np.random.default_rng(SEED)
+    t = collections.defaultdict(float)
+    for item in ds.anno_list[:STAGE_SAMPLES]:
+        name = item["im_name"]
+        t0 = time.perf_counter()
+        im = vis.read_image(os.path.join(ds.im_root, name))
+        t1 = time.perf_counter()
+        im_s, scale = A.augmentation_scale(im, 1.0, crop_size=384.0, rng=rng,
+                                           scale_min=ds.scale_min,
+                                           scale_max=ds.scale_max)
+        t2 = time.perf_counter()
+        im_r, rot = A.augmentation_rotate(
+            im_s, max_rotate_degree=ds.max_rotate_degree, rng=rng)
+        t3 = time.perf_counter()
+        center = np.array([item["objpos"]], np.float64) * scale
+        center = A.rotate_coords(center, center, rot)[1]
+        im_c, crop = A.augmentation_cropped(
+            im_r, center, crop_x=384, crop_y=384,
+            max_center_trans=ds.max_center_trans, rng=rng)
+        t4 = time.perf_counter()
+        _, flip = A.augmentation_flip(im_c, flip_prob=ds.flip_prob, rng=rng)
+        t5 = time.perf_counter()
+        TG.gen_parsing_target(
+            lip.read_label_png(os.path.join(ds.parsing_anno_root,
+                                            name.split(".")[0] + ".png")),
+            scale_param=scale, rotate_param=[rot, im_r.shape[1],
+                                             im_r.shape[0]],
+            crop_param=[crop, 384, 384], flip_param=flip, stride=1,
+            flip_pairs=ds.flip_pairs)
+        t6 = time.perf_counter()
+        for k, (a, b) in zip(("decode", "scale", "rotate", "crop", "flip",
+                              "labels"),
+                             ((t0, t1), (t1, t2), (t2, t3), (t3, t4),
+                              (t4, t5), (t5, t6))):
+            t[k] += (b - a) * 1e3 / STAGE_SAMPLES
+    return dict(t)
+
+
+def reader_rate(root: str, workers: int) -> float:
+    """Samples/s of one epoch of the train LIPDataset through the loader
+    (``workers`` threads, batch 16, pinned copies to the card, no target
+    rendering)."""
+    ds = lip.dataset_for(LIP.data, "train", root, crop_size=(384, 384),
+                         is_train=True, seed=SEED, device_normalize=True,
+                         **LIP.reader)
+    loader = L.DataLoader(ds, 16, device="cuda", shuffle=True,
+                          drop_last=True, num_workers=workers)
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in loader)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def lip_from_disk(tag: str, out_root: str) -> dict:
+    """Phase 15: the LIP reader beside the card. The host library is
+    built and each fixture decodes to its recorded SHA-256; a LIP tree is
+    written from the fixtures; the reader is timed alone (8 threads and
+    1, stage by stage); the flagship train step (L=16, C=64, bs16, bf16 +
+    channels_last) runs fed from the tree, timed with the loop's wait on
+    the loader; then the train, eval, test, search and predict CLIs read
+    the tree (the fixtures, for predict)."""
+    t0 = time.perf_counter()
+    lib_path, _ = imgproc.build_library()
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(FIXTURES, "fixtures.json")) as f:
+        records = json.load(f)
+    bad = [r["image"] for r in records if hashlib.sha256(imgproc.read_jpeg(
+        os.path.join(FIXTURES, r["image"])).tobytes()).hexdigest()
+        != r["sha256"]]
+    print(f"phase 15: built {lib_path.name} in {build_s:.2f} s; "
+          f"{len(records) - len(bad)} of {len(records)} fixture JPEGs "
+          f"({sorted({r['sampling'] for r in records})}, restart intervals "
+          f"{sorted({r['restart'] for r in records})}) decode to their "
+          f"recorded SHA-256 {tag}")
+    if bad or not records:
+        raise AssertionError(f"phase 15: decodes differ from the recorded "
+                             f"hashes: {bad}")
+
+    tree = tempfile.TemporaryDirectory()
+    root = tree.name
+    gt = write_lip_tree(root, records, np.random.default_rng(SEED))
+
+    # The reader alone.
+    cpus = os.cpu_count()
+    rates = {w: reader_rate(root, w) for w in (8, 1)}
+    stages = reader_stages(root)
+    print(f"phase 15: reader alone (train LIPDataset, 384x384 crops, one "
+          f"epoch of {LIP_TRAIN} samples through the loader at bs16): "
+          f"{rates[8]:.3f} samples/s with 8 threads, {rates[1]:.3f} with 1; "
+          f"os.cpu_count() {cpus}, affinity {len(os.sched_getaffinity(0))}; "
+          f"mean ms per sample by stage "
+          f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} "
+          f"{tag}")
+
+    # The flagship train step fed from the tree.
+    model_kw, hp = LIP.train_config()
+    bs = hp["batch_size"]
+    train_loader, _ = augment_lip.build_loaders(hp, "cuda", LIP, root, SEED)
+    state = augment_lip.init_state(model_kw, hp, device="cuda",
+                                   dtype=torch.bfloat16, seed=SEED,
+                                   steps_per_epoch=len(train_loader))
+    step = augment_lip.make_train_step(hp)
+    first = take(train_loader, 1)[0]
+    loss32 = fp32_loss(state, first, hp)
+    loss0 = step(state, first)["loss"].item()
+    rel = abs(loss0 - loss32) / abs(loss32)
+    n0 = heatmaps.render_heatmaps.launches
+    steps, waits, losses = [], [], []
+    for epoch in range(LIP_EPOCHS):
+        train_loader.set_epoch(epoch)
+        it = iter(train_loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            t1 = time.perf_counter()
+            if batch is None:
+                break
+            losses.append(step(state, batch)["loss"].item())
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            waits.append(t1 - t0)
+    launched = heatmaps.render_heatmaps.launches - n0
+    step_s = statistics.median(steps[1:])
+    wait_share = sum(waits[1:]) / sum(steps[1:])
+    print(f"phase 15: flagship train step from the LIP tree (bs{bs}, "
+          f"384x384, bf16, channels_last, reader seed {SEED}): first loss "
+          f"{loss0:.6f} vs fp32 {loss32:.6f}, relative {rel:.3g} (<= "
+          f"{BF16_RTOL}); {len(steps)} steps over {LIP_EPOCHS} epochs, "
+          f"losses {['%.4f' % x for x in losses]}; median step "
+          f"{step_s * 1e3:.3f} ms over {len(steps) - 1} warm steps "
+          f"({['%.1f' % (t * 1e3) for t in steps]} ms) = {bs / step_s:.2f} "
+          f"img/s; waiting in next() "
+          f"{['%.1f' % (t * 1e3) for t in waits]} ms, {wait_share:.3f} of "
+          f"the warm steps' time; heatmap kernel launches {launched} for "
+          f"{len(steps)} steps {tag}")
+    if not all(math.isfinite(x) for x in [loss0, *losses]):
+        raise AssertionError(f"phase 15: non-finite loss {losses}")
+    if not rel <= BF16_RTOL:
+        raise AssertionError(f"phase 15: bf16 loss {loss0} vs fp32 {loss32}")
+    if launched != len(steps) or len(steps) < 6:
+        raise AssertionError(f"phase 15: {launched} kernel launches for "
+                             f"{len(steps)} steps")
+    del state, first, batch, train_loader
+    torch.cuda.empty_cache()
+
+    # The CLIs on the tree.
+    cli = {}
+    out = augment_lip.main(["--data-root", root, "--gt-csv", gt, "--steps",
+                            "3", "--epochs", "1", "--out", out_root])
+    r = out["result"]
+    print(f"phase 15: python -m npp_tpu_torch.tools.augment_lip --data-root "
+          f"<tree> --gt-csv <tree> --steps 3 --epochs 1: train loss "
+          f"{out['train_loss']:.6f}, {eval_lip.result_line(r)} {tag}")
+    if not (math.isfinite(out["train_loss"]) and math.isfinite(r["loss"])
+            and math.isfinite(r["pck_avg"])):
+        raise AssertionError("phase 15: the train CLI failed on the tree")
+    ckpt = out["checkpoints"]
+    cli["augment_lip"] = dict(train_loss=out["train_loss"], val=r["loss"])
+    del out
+    torch.cuda.empty_cache()
+    res = eval_lip.main(["--data-root", root, "--gt-csv", gt, "--ckpt", ckpt])
+    print(f"phase 15: python -m npp_tpu_torch.tools.eval_lip --data-root "
+          f"<tree> --gt-csv <tree> --ckpt <that run>: "
+          f"{eval_lip.result_line(res)} {tag}")
+    if not (len(res["names"]) == LIP_VAL and math.isfinite(res["loss"])
+            and math.isfinite(res["mean_iou"])
+            and math.isfinite(res["pck_avg"])):
+        raise AssertionError("phase 15: the eval CLI failed on the tree")
+    cli["eval_lip"] = dict(loss=res["loss"], miou=res["mean_iou"],
+                           pckh=res["pck_avg"])
+    res = test_lip.main(["--data-root", root, "--mode", "testval", "--limit",
+                         "4"])
+    print(f"phase 15: python -m npp_tpu_torch.tools.test_lip --data-root "
+          f"<tree> --mode testval --limit 4: mIoU {res['mean_iou']:.4f}, "
+          f"cm.sum {int(res['cm'].sum())} {tag}")
+    if not (int(res["cm"].sum()) > 0 and math.isfinite(res["mean_iou"])):
+        raise AssertionError("phase 15: the test CLI failed on the tree")
+    cli["test_lip"] = dict(miou=res["mean_iou"])
+    out = search_lip.main(["--data-root", root, "--gt-csv", gt, "--steps",
+                           "2", "--epochs", "2", "--warmup-epochs", "1",
+                           "--out", out_root])
+    genotype = os.path.join(out["out_dir"], "best_genotype.json")
+    print(f"phase 15: python -m npp_tpu_torch.tools.search_lip --data-root "
+          f"<tree> --gt-csv <tree> --steps 2 --epochs 2 --warmup-epochs 1: "
+          f"train loss {out['train_loss']:.6f}, "
+          f"{eval_lip.result_line(out['result'])}, best_genotype.json "
+          f"written {os.path.isfile(genotype)} {tag}")
+    if not (math.isfinite(out["train_loss"]) and os.path.isfile(genotype)):
+        raise AssertionError("phase 15: the search CLI failed on the tree")
+    cli["search_lip"] = dict(train_loss=out["train_loss"])
+    del out
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = predict.main(["--images", os.path.join(FIXTURES, "*.jpg"),
+                            "--out", tmp])
+        ok = len(out["names"]) == len(records) and all(
+            p.shape == (r["height"], r["width"])
+            for p, r in zip(out["parsings"], records))
+    print(f"phase 15: python -m npp_tpu_torch.tools.predict --images "
+          f"'tests/fixtures/torch_lip/*.jpg': {len(out['names'])} JPEGs "
+          f"served, parsings at the images' sizes {ok} {tag}")
+    if not ok:
+        raise AssertionError("phase 15: the predict CLI failed on the JPEGs")
+    tree.cleanup()
+    return dict(build_s=build_s, samples_per_s_8=rates[8],
+                samples_per_s_1=rates[1], cpu_count=cpus, stage_ms=stages,
+                step_ms=step_s * 1e3, img_per_s=bs / step_s,
+                wait_share=wait_share, loss_rel_bf16=rel, cli=cli)
+
+
 class PhaseClock:
     """Prints each phase's wall time on the host clock, and the total."""
 
@@ -1605,13 +1897,24 @@ def main() -> int:
                     search["search_checkpoints"])
     launches["chain"] = heatmaps.render_heatmaps.launches
     clock.done(14)
+
+    # Phase 15: the LIP reader and the paths fed from a LIP tree on disk.
+    heatmaps.render_heatmaps.launches = 0  # the LIP-from-disk path's count
+    from_disk = lip_from_disk(tag, runs.name)
+    launches["lip_disk"] = heatmaps.render_heatmaps.launches
+    clock.done(15)
     runs.cleanup()
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
-    print(f"phase 14: heatmap kernel launches on the main paths: {launches}; "
+    summary = {"tiny_train": tiny, "train_step": train,
+               "tiny_search": tiny_search, "search_pair": search,
+               "tiny_serve": tiny_serve, "serve": serve,
+               "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
+               "lip_disk": from_disk}
+    print(f"phase 15: heatmap kernel launches on the main paths: {launches}; "
           f"phase seconds {json.dumps(seconds)}; "
-          f"summary {json.dumps({'tiny_train': tiny, 'train_step': train, 'tiny_search': tiny_search, 'search_pair': search, 'tiny_serve': tiny_serve, 'serve': serve, 'tiny_ppp': tiny_ppp, 'ppp': ppp, 'chain': chained})}")
+          f"summary {json.dumps(summary)}")
     for path in ("eval", "train", "search", "ppp_train", "ppp_search",
-                 "chain"):
+                 "chain", "lip_disk"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")

@@ -10,6 +10,13 @@ hyper-parameters (``search``). ``tiny`` gives the small test
 configuration of each, as the JAX CLIs' ``--tiny`` overrides make it:
 L=8, C=8, 128x128 crops, batch 4 for training and 2 for the search.
 
+The LIP preset also holds the YAML's dataset layout (``data``: the
+root, the image and label directories and the annotation files of each
+split, as ``npp_tpu/config.py`` loads them) and the reader's
+augmentation defaults (``reader``: ``LIPDataset``'s, which the YAML's
+``ROT_FACTOR`` and ``SCALE_FACTOR`` do not reach). The PPP reader is not
+ported, so the PPP preset has neither.
+
 Both datasets take OHEM at 0.9 / 131072: ``LOSS.USE_OHEM: False`` in the
 YAMLs is read nowhere (``npp_tpu/config.py:56``), and npp_tpu always
 applies OHEM. Joint target weights are off, as both released CLIs leave
@@ -52,6 +59,8 @@ class Preset:
     train: dict
     search_model: dict
     search: dict
+    data: dict = dataclasses.field(default_factory=dict)
+    reader: dict = dataclasses.field(default_factory=dict)
 
     def train_config(self, tiny: bool = False) -> tuple[dict, dict]:
         """(NPPNet keyword arguments, train hyper-parameters)."""
@@ -78,7 +87,21 @@ LIP = Preset(
     search_model=_net(20, 16, 16, 32),
     search=dict(crop=(384, 384), batch_size=7, w_lr=1e-3, alpha_lr=1e-3,
                 lr_step=(70, 100), lr_factor=0.2, warmup_epochs=15,
-                entropy_epoch=70, epochs=120, **_LOSS, **_RUN))
+                entropy_epoch=70, epochs=120, **_LOSS, **_RUN),
+    # experiments/lip/384_384.yaml:12-24, 57-59, 82-91
+    data=dict(root="data/LIP/", train_imroot="train_images",
+              val_imroot="val_images", test_imroot="val_images",
+              train_segroot="train_segmentations",
+              val_segroot="val_segmentations",
+              train_set="jsons/LIP_SP_TRAIN_annotations.json",
+              val_set="jsons/LIP_SP_VAL_annotations.json",
+              search_train_set="jsons/LIP_SP_SEARCH_annotations_w.json",
+              search_mini_set="jsons/LIP_SP_SEARCH_annotations_a.json",
+              search_val_set="jsons/LIP_SP_VAL_annotations.json",
+              test_set="jsons/LIP_SP_VAL_annotations.json"),
+    # npp_tpu/data/lip.py:44-46 (LIPDataset's defaults)
+    reader=dict(scale_min=0.7, scale_max=1.3, max_rotate_degree=40,
+                max_center_trans=40, flip_prob=0.5))
 
 PPP = Preset(
     name="ppp", num_classes=7, num_joints=14,

@@ -1,15 +1,56 @@
-"""On-device target completion: Gaussian pose heatmaps and edge maps.
+"""Targets: the host label chain, and on-device pose heatmaps and edge maps.
 
-Port of ``npp_tpu/data/targets.py:66-156``. Heatmaps come from
-``ops/heatmaps.render_heatmaps``: the hand-written CUDA kernel on a CUDA
-tensor, its plain PyTorch version on a CPU tensor.
+Port of ``npp_tpu/data/targets.py:66-196``. ``gen_parsing_target`` runs
+the image's scale / rotate / crop / flip chain on the parsing labels on
+the host (``data/imgproc.py``, cv2's nearest rules, equal to npp_tpu's).
+Heatmaps come from ``ops/heatmaps.render_heatmaps``: the hand-written
+CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from npp_tpu_torch.data import imgproc
 from npp_tpu_torch.ops.heatmaps import render_heatmaps
+
+
+def gen_parsing_target(parsing_anno: np.ndarray, scale_param=None,
+                       rotate_param=None, crop_param=None, flip_param=None,
+                       stride: int = 8,
+                       flip_pairs=((15, 14), (17, 16), (19, 18))
+                       ) -> np.ndarray:
+    """npp_tpu's ``gen_parsing_target`` (``targets.py:159-196``): the
+    image's chain on the (H, W) uint8 labels: a nearest resize by
+    ``scale_param``, a nearest warp by ``rotate_param`` = [m, w, h] with
+    255 outside, the crop onto 255 by ``crop_param`` = [param, w, h]
+    (its canvas is (w, h), npp_tpu's order, square in every caller), the
+    flip with the (right, left) class pairs swapped, and a nearest resize
+    by 1 / ``stride``. ``flip_pairs=()`` is the Pascal variant."""
+    t = parsing_anno.copy()
+    if scale_param is not None:
+        t = imgproc.resize(t, scale_param, "nearest")
+    if rotate_param is not None:
+        t = imgproc.warp_affine(t, rotate_param[0],
+                                (int(rotate_param[1]), int(rotate_param[2])),
+                                "nearest", 255)
+    if crop_param is not None:
+        cp = crop_param[0]
+        out = np.zeros((crop_param[1], crop_param[2])) + 255
+        out[cp[0, 3]:cp[0, 7], cp[0, 2]:cp[0, 6]] = \
+            t[cp[0, 1]:cp[0, 5], cp[0, 0]:cp[0, 4]]
+        t = out.astype(np.uint8)
+    if flip_param:
+        t = t[:, ::-1].copy()
+        for right, left in flip_pairs:
+            right_pos = t == right
+            left_pos = t == left
+            t[right_pos] = left
+            t[left_pos] = right
+    if stride != 1:
+        t = imgproc.resize(t, 1.0 / stride, "nearest")
+    return t
 
 
 def gen_pose_target_device(joints: torch.Tensor, visibility: torch.Tensor,

@@ -1,7 +1,6 @@
-"""Training CLI (augment phase): the fixed NPPNet on synthetic data.
+"""Training CLI (augment phase): the fixed NPPNet on LIP or synthetic data.
 
-Port of ``tools/augment_lip.py`` for synthetic data (the LIP and PPP
-readers are not ported yet). The configurations are built in
+Port of ``tools/augment_lip.py``. The configurations are built in
 (``config.py``), so no YAML is read. ``--dataset lip`` (the default) is
 the LIP flagship: the NPPNet of L=16, C=64, one refinement stage, 20
 classes, 16 joints, 384x384 crops at batch 16, bf16 compute with the
@@ -20,15 +19,25 @@ checkpoint directory's weights into it (its ``best`` checkpoint, else the
 latest epoch's; ``core/checkpoint.load_pretrained_params``), after
 ``--resume`` as in the JAX CLI, logging what it loaded and skipped.
 
-Each epoch: ``engine.train_epoch`` over the shuffled synthetic train set
-(the loader renders each batch's targets on the device: the heatmap
-kernel once per step on a card), the flip-TTA validation over a
-synthetic val set (2 x batch images, seed 7): ``validate`` for LIP,
+Data: a LIP directory (``--data-root``, by default the YAML's
+``data/LIP/``) laid out as ``config.LIP.data`` names it: the train set
+(``LIPDataset`` with the reader's augmentation, seeded by ``--seed``) and
+the val set (its first ``num_samples`` = 5000 entries, no augmentation);
+``--gt-csv`` adds the PCKh of each validation against that LIP pose CSV
+(without it the validation reports mIoU only). ``--synthetic`` trains on
+synthetic data instead (the only source for ``--dataset ppp``: the PPP
+reader is not ported).
+
+Each epoch: ``engine.train_epoch`` over the shuffled train set (the
+loader renders each batch's targets on the device: the heatmap kernel
+once per step on a card), the flip-TTA validation: ``validate`` for LIP,
 ``validate_ppp`` (heatmap PCK) for PPP; the coupled (mIoU, PCK)
 best-model rule, and a checkpoint under
 ``<out>/<dataset>/augment/<config>/checkpoints``.
 
 Examples:
+  python -m npp_tpu_torch.tools.augment_lip --data-root data/LIP \\
+      --gt-csv data/LIP/pose_csv/pose_gt.csv
   python -m npp_tpu_torch.tools.augment_lip --synthetic --steps 20 \\
       --epochs 1
   python -m npp_tpu_torch.tools.augment_lip --synthetic --dataset ppp \\
@@ -51,6 +60,7 @@ from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import train as T
 from npp_tpu_torch.core.checkpoint import (CheckpointManager,
                                            load_pretrained_params)
+from npp_tpu_torch.data.lip import dataset_for
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import load_genotypes
@@ -61,25 +71,50 @@ FLAGSHIP_TRAIN = LIP.train_config()[1]
 TINY_TRAIN = LIP.train_config(tiny=True)[1]
 
 
-def build_loaders(hp: dict, device, preset=LIP):
-    """(train loader, val loader) over synthetic data shaped as
-    ``preset``'s; both render their targets on ``device`` and normalise
-    the uint8 images there."""
+def build_loaders(hp: dict, device, preset=LIP, data_root: str | None = None,
+                  seed: int = 0):
+    """(train loader, val loader): with ``data_root`` the LIP directory's
+    train set (augmented, the reader seeded by ``seed``) and val set (its
+    first ``num_samples`` entries), else synthetic data shaped as
+    ``preset``'s (val: 2 x batch images, seed 7); both render their
+    targets on ``device`` and normalise the uint8 images there."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
                                     num_joints=preset.num_joints,
                                     ignore=IGNORE, normalize_images=True)
     bs, crop = hp["batch_size"], hp["crop"]
-    common = dict(crop_size=crop, num_joints=preset.num_joints,
-                  num_classes=preset.num_classes, device_normalize=True)
-    train_ds = SyntheticDataset(length=max(4 * bs, 32), **common)
-    val_ds = SyntheticDataset(length=2 * bs, is_train=False, seed=7,
-                              **common)
+    if data_root is not None:
+        common = dict(crop_size=crop, sigma=SIGMA, device_normalize=True,
+                      seed=seed, **preset.reader)
+        train_ds = dataset_for(preset.data, "train", data_root,
+                               is_train=True, **common)
+        val_ds = dataset_for(preset.data, "val", data_root, is_train=False,
+                             sample=hp["num_samples"] or -1, **common)
+    else:
+        common = dict(crop_size=crop, num_joints=preset.num_joints,
+                      num_classes=preset.num_classes, device_normalize=True)
+        train_ds = SyntheticDataset(length=max(4 * bs, 32), **common)
+        val_ds = SyntheticDataset(length=2 * bs, is_train=False, seed=7,
+                                  **common)
     train = DataLoader(train_ds, bs, device=device, shuffle=True,
                        drop_last=True, num_workers=hp["workers"],
                        renderer=renderer)
     val = DataLoader(val_ds, bs, device=device, num_workers=hp["workers"],
                      renderer=renderer)
     return train, val
+
+
+def data_source(p: argparse.ArgumentParser, args, preset) -> str | None:
+    """The LIP root the CLI reads (None: ``--synthetic``); refuses the
+    combinations that are not ported or make no sense."""
+    if args.synthetic:
+        if args.data_root or getattr(args, "gt_csv", ""):
+            p.error("--data-root and --gt-csv read a LIP directory; drop "
+                    "them with --synthetic")
+        return None
+    if preset.name != "lip":
+        p.error(f"the {preset.name.upper()} reader is not ported yet: give "
+                f"--synthetic with --dataset {preset.name}")
+    return args.data_root or preset.data["root"]
 
 
 class LimitedLoader:
@@ -145,17 +180,19 @@ def make_eval_step(model, hp: dict, preset=LIP):
 
 
 def validate(state: T.TrainState, eval_step, val_loader, preset=LIP,
-             log_fn=print) -> dict:
+             log_fn=print, gt_csv: str | None = None,
+             pred_csv: str | None = None) -> dict:
     """Flip-TTA validation of the state's model in eval mode:
     ``validate_ppp`` (heatmap PCK, its table logged) for PPP, else
-    ``validate``."""
+    ``validate`` (with ``gt_csv`` and ``pred_csv``, the PCKh table too)."""
     state.model.eval()
     if preset.name == "ppp":
         return E.validate_ppp(eval_step, state.lamdas, val_loader,
                               num_classes=preset.num_classes,
                               num_joints=preset.num_joints, log_fn=log_fn)
     return E.validate(eval_step, state.lamdas, val_loader,
-                      num_classes=preset.num_classes)
+                      num_classes=preset.num_classes, gt_csv=gt_csv,
+                      pred_csv=pred_csv, log_fn=log_fn)
 
 
 def merge_pretrained(state: T.TrainState, directory: str,
@@ -176,8 +213,12 @@ def merge_pretrained(state: T.TrainState, directory: str,
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic data shaped as the dataset's (the only "
-                        "source so far)")
+                   help="synthetic data shaped as the dataset's")
+    p.add_argument("--data-root", default="",
+                   help="LIP directory (default: the YAML's data/LIP/)")
+    p.add_argument("--gt-csv", default="",
+                   help="LIP pose ground-truth CSV: adds PCKh to each "
+                        "validation")
     p.add_argument("--dataset", choices=sorted(PRESETS), default="lip",
                    help="the built-in configuration: LIP or "
                         "Pascal-Person-Part")
@@ -203,8 +244,8 @@ def main(argv=None) -> dict:
                    help="root of the run's output and log directories")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if not args.synthetic:
-        p.error("only --synthetic data is ported so far")
+    preset = PRESETS[args.dataset]
+    data_root = data_source(p, args, preset)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -213,7 +254,6 @@ def main(argv=None) -> dict:
         # fp32 convs (the last head convs, the decode blur) in full fp32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    preset = PRESETS[args.dataset]
     model_kw, hp = preset.train_config(args.tiny)
     logger, out_dir, tb_dir = create_logger(
         args.out, os.path.join(args.out, "log"), preset.name,
@@ -226,7 +266,8 @@ def main(argv=None) -> dict:
             model_kw["inter"], model_kw["fusion"] = load_genotypes(
                 args.genotype)
             logger.info(f"loaded searched genotypes from {args.genotype}")
-        train_loader, val_loader = build_loaders(hp, device, preset)
+        train_loader, val_loader = build_loaders(hp, device, preset,
+                                                 data_root, args.seed)
         if args.steps:
             train_loader = LimitedLoader(train_loader, args.steps)
             val_loader = LimitedLoader(val_loader, max(1, args.steps // 2))
@@ -258,10 +299,13 @@ def main(argv=None) -> dict:
                 train_step, state, train_loader, epoch=epoch, logger=logger,
                 writer=writer, print_freq=hp["print_freq"],
                 global_step=gstep)
-            result = validate(state, eval_step, val_loader, preset,
-                              logger.info)
+            result = validate(
+                state, eval_step, val_loader, preset, logger.info,
+                gt_csv=args.gt_csv or None,
+                pred_csv=(os.path.join(out_dir, "pose_pred.csv")
+                          if args.gt_csv else None))
             miou = result["mean_iou"]
-            # LIP: synthetic names match no PCKh ground truth.
+            # PCKh only against --gt-csv; PPP's heatmap PCK always.
             pck = result.get("pck_avg", 0.0)
             logger.info(f"epoch {epoch}: train loss {train_loss:.4f} val "
                         f"loss {result['loss']:.4f} mIoU {miou:.4f} "

@@ -1,7 +1,6 @@
 """Evaluation CLI: the LIP flip-TTA val protocol on the port.
 
-Port of ``tools/eval_lip.py`` for synthetic data (the LIP dataset reader
-is not ported yet). The LIP flagship configuration is built in
+Port of ``tools/eval_lip.py``. The LIP flagship configuration is built in
 (``config.LIP``), so no YAML is read: L=16 cells, C=64, one refinement
 stage, 20 classes, 16 joints, 384x384 crops, bf16 compute (channels_last
 on the card). ``--tiny`` is the small test configuration (L=8, C=8,
@@ -11,11 +10,19 @@ on the card). ``--tiny`` is the small test configuration (L=8, C=8,
 saved as ``.npz`` with '/'-joined keys (``core/loading.load_eval_model``),
 and ``--genotype`` a search's ``best_genotype.json`` to build the net
 from. The loss lambdas are the initial ones, as in the JAX CLI.
-``--pred-csv`` writes the LIP pose CSV, ``--json-out`` the metrics as
-JSON. LIP only, as the JAX CLI is: it fixes LIP's class weights and flip
+Data: the val set of a LIP directory (``--data-root``, by default the
+YAML's ``data/LIP/``; its first ``--n`` entries, by default
+TRAIN.NUM_SAMPLES = 5000) or, with ``--synthetic``, ``--n`` synthetic
+images (default 16). ``--gt-csv`` adds the PCKh table against that LIP
+pose CSV; ``--pred-csv`` writes the LIP pose CSV (with ``--gt-csv``
+alone it goes to a temporary file), ``--json-out`` the metrics as JSON.
+LIP only, as the JAX CLI is: it fixes LIP's class weights and flip
 pairs.
 
 Examples:
+  python -m npp_tpu_torch.tools.eval_lip --data-root data/LIP \\
+      --gt-csv data/LIP/pose_csv/pose_gt.csv \\
+      --ckpt output/lip/augment/flagship/checkpoints
   python -m npp_tpu_torch.tools.eval_lip --synthetic --batch 8 --n 16 \\
       --device cuda
   python -m npp_tpu_torch.tools.eval_lip --synthetic --tiny --n 4 \\
@@ -28,6 +35,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 
 import torch
 
@@ -35,8 +44,10 @@ from npp_tpu_torch.config import IGNORE, LIP, SIGMA
 from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core.criterion import init_criterion_params
 from npp_tpu_torch.core.loading import load_eval_model
+from npp_tpu_torch.data.lip import dataset_for
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
+from npp_tpu_torch.tools.augment_lip import data_source
 from npp_tpu_torch.utils.metrics import per_class_table
 
 NUM_CLASSES, NUM_JOINTS = LIP.num_classes, LIP.num_joints
@@ -44,19 +55,17 @@ FLAGSHIP = LIP.train_config()[0]
 TINY = LIP.train_config(tiny=True)[0]
 
 
-def evaluate_synthetic(model, *, n: int, batch: int, crop_size, device,
-                       seed: int = 0, pred_csv: str | None = None) -> dict:
-    """Flip-TTA validation of ``model`` over ``n`` synthetic images: the
-    loader renders the targets on ``device`` (the heatmap kernel on a
-    card), then ``make_eval_step`` + ``validate`` with the initial loss
-    lambdas; ``pred_csv`` writes the LIP pose CSV."""
-    ds = SyntheticDataset(length=n, crop_size=crop_size,
-                          num_joints=NUM_JOINTS, num_classes=NUM_CLASSES,
-                          seed=seed, device_normalize=True)
+def evaluate(model, ds, *, batch: int, crop_size, device,
+             pred_csv: str | None = None, gt_csv: str | None = None) -> dict:
+    """Flip-TTA validation of ``model`` over the dataset ``ds`` (uint8
+    images): the loader renders the targets on ``device`` (the heatmap
+    kernel on a card), then ``make_eval_step`` + ``validate`` with the
+    initial loss lambdas; ``pred_csv`` writes the LIP pose CSV, and with
+    ``gt_csv`` the PCKh against it is added."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
                                     num_joints=NUM_JOINTS, ignore=IGNORE,
                                     normalize_images=True)
-    loader = DataLoader(ds, batch, device=device, num_workers=4,
+    loader = DataLoader(ds, batch, device=device, num_workers=8,
                         renderer=renderer)
     step = E.make_eval_step(model, num_classes=NUM_CLASSES,
                             class_weights=LIP.class_weights, flip_test=True,
@@ -64,13 +73,26 @@ def evaluate_synthetic(model, *, n: int, batch: int, crop_size, device,
                             decode_hw=(crop_size[1], crop_size[0]))
     crit = init_criterion_params(model.refine_layers + 1, device)
     return E.validate(step, crit, loader, num_classes=NUM_CLASSES,
-                      pred_csv=pred_csv)
+                      pred_csv=pred_csv, gt_csv=gt_csv)
+
+
+def evaluate_synthetic(model, *, n: int, batch: int, crop_size, device,
+                       seed: int = 0, pred_csv: str | None = None) -> dict:
+    """``evaluate`` over ``n`` synthetic images drawn from ``seed``."""
+    ds = SyntheticDataset(length=n, crop_size=crop_size,
+                          num_joints=NUM_JOINTS, num_classes=NUM_CLASSES,
+                          seed=seed, device_normalize=True)
+    return evaluate(model, ds, batch=batch, crop_size=crop_size,
+                    device=device, pred_csv=pred_csv)
 
 
 def result_line(result: dict) -> str:
-    return (f"n={len(result['names'])} loss={result['loss']:.4f} "
+    line = (f"n={len(result['names'])} loss={result['loss']:.4f} "
             f"pixel_acc={result['pixel_acc']:.4f} "
             f"mIoU={result['mean_iou']:.4f}")
+    if "pck_avg" in result:
+        line += f" PCKh@0.5={result['pck_avg']:.2f}"
+    return line
 
 
 def metrics_json(result: dict) -> dict:
@@ -86,7 +108,11 @@ def metrics_json(result: dict) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic LIP-shaped data (the only source so far)")
+                   help="synthetic LIP-shaped data")
+    p.add_argument("--data-root", default="",
+                   help="LIP directory (default: the YAML's data/LIP/)")
+    p.add_argument("--gt-csv", default="",
+                   help="LIP pose ground-truth CSV: adds the PCKh table")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--ckpt", default="",
                    help="train-CLI checkpoint directory or flax .npz "
@@ -97,7 +123,9 @@ def main(argv=None):
                    help="write the LIP-protocol pose CSV here")
     p.add_argument("--json-out", default="",
                    help="also dump the metric dict as JSON")
-    p.add_argument("--n", type=int, default=16, help="images to evaluate")
+    p.add_argument("--n", type=int, default=0,
+                   help="images to evaluate (0 = 16 synthetic ones, or the "
+                        "first 5000 LIP val entries)")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16",
@@ -105,8 +133,7 @@ def main(argv=None):
                    help="model compute dtype (the flagship's is bfloat16)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if not args.synthetic:
-        p.error("only --synthetic data is ported so far")
+    data_root = data_source(p, args, LIP)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -118,10 +145,23 @@ def main(argv=None):
     model, crop, _ = load_eval_model(
         args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
         dtype=getattr(torch, args.dtype), seed=args.seed)
-    result = evaluate_synthetic(model, n=args.n, batch=args.batch,
-                                crop_size=crop, device=device,
-                                seed=args.seed,
-                                pred_csv=args.pred_csv or None)
+    with tempfile.TemporaryDirectory() as tmp:
+        pred_csv = args.pred_csv or (os.path.join(tmp, "pose_pred.csv")
+                                     if args.gt_csv else None)
+        if data_root is None:
+            result = evaluate_synthetic(model, n=args.n or 16,
+                                        batch=args.batch, crop_size=crop,
+                                        device=device, seed=args.seed,
+                                        pred_csv=pred_csv)
+        else:
+            ds = dataset_for(
+                LIP.data, "val", data_root, crop_size=crop, sigma=SIGMA,
+                is_train=False, device_normalize=True,
+                sample=args.n or LIP.train_config()[1]["num_samples"],
+                **LIP.reader)
+            result = evaluate(model, ds, batch=args.batch, crop_size=crop,
+                              device=device, pred_csv=pred_csv,
+                              gt_csv=args.gt_csv or None)
     print(per_class_table(result["per_class_iou"], result["per_class_acc"]))
     print(result_line(result))
     if args.json_out:

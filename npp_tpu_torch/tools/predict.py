@@ -3,9 +3,12 @@
 Port of ``tools/predict.py``: streams a directory (or glob) of images
 through ``core.predictor.Predictor`` and writes ``<stem>.png`` palette
 parsings and one ``pose_pred.csv`` in the LIP protocol. Images are read
-without cv2 or PIL: ``.png`` (8-bit grey, RGB or RGBA) through
-``utils/vis.read_image`` and ``.npy`` holding (H, W, 3) uint8 RGB; any
-other file named by ``--images`` is refused with the format named. The
+without cv2 or PIL through ``utils/vis.read_image``: ``.jpg`` /
+``.jpeg`` (baseline JPEG, the host decoder of ``data/imgproc.py``),
+``.png`` (8-bit grey, RGB or RGBA) and ``.npy`` holding (H, W, 3) uint8
+RGB; any other file named by ``--images`` is refused with the format
+named, and so is a JPEG the decoder does not read (progressive,
+arithmetic-coded, 12-bit, CMYK, a turning EXIF orientation). The
 flagship model is built in (bf16 + channels_last on the card);
 ``--tiny`` is the test one. Not ported: ``--int8`` and the fused layouts
 (``--fuse-necks``, ``--fuse-cells``, ``--no-fuse``).

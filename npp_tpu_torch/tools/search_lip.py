@@ -1,7 +1,7 @@
-"""Search CLI: the bi-level NPPNet interaction search on synthetic data.
+"""Search CLI: the bi-level NPPNet interaction search on LIP or synthetic
+data.
 
-Port of ``tools/search_lip.py`` for synthetic data (the LIP and PPP
-readers are not ported yet). The reference search scale is built in
+Port of ``tools/search_lip.py``. The reference search scale is built in
 (``config.py``), so no YAML is read: for ``--dataset lip`` (the default)
 the supernet at L=16, C=32, one refinement stage, 20 classes, 16 joints,
 384x384 crops at batch 7, bf16 compute (channels_last on the card), and
@@ -18,21 +18,30 @@ step with the 14-joint flip index, as the JAX CLI's does. ``--tiny`` is
 the small test configuration (L=8, C=8, 128x128, batch 2). Weights are
 random, drawn from ``--seed``.
 
-Data: synthetic train, mini and val sets (8 x batch, 8 x batch and 2 x
-batch images, seeds 0, 1 and 2); the train and mini loaders shuffle (the
-mini one with seed 1), and each renders its batch's targets on the
-device (the heatmap kernel on a card). Each epoch: weight steps alone
-during the warmup, then ``engine.search_epoch`` (a weight step on a train
-batch, an arch step on a mini batch), the flip-TTA ``validate``, the
-genotype of the current architecture parameters (logged), the coupled
-best-model rule, ``best_genotype.json`` for a new best, and a checkpoint
-(mirrored to ``warmed`` at the warmup's last epoch and ``final`` at the
-last) under ``<out>/<dataset>/search/<config>/``.
+Data: a LIP directory (``--data-root``, by default the YAML's
+``data/LIP/``) laid out as ``config.LIP.data`` names it: the search's
+train (``_w``) and mini (``_a``) sets with the reader's augmentation
+(seeded by ``--seed``) and the first 5000 entries of the val set;
+``--gt-csv`` adds the PCKh of each validation against that LIP pose CSV.
+``--synthetic``: synthetic train, mini and val sets instead (8 x batch,
+8 x batch and 2 x batch images, seeds 0, 1 and 2; the only source for
+``--dataset ppp``: the PPP reader is not ported). The train and mini
+loaders shuffle (the mini one with seed 1), and each renders its batch's
+targets on the device (the heatmap kernel on a card).
 
-Not ported: ``--zero`` (several devices), ``--merged-streams`` and the
-dataset readers.
+Each epoch: weight steps alone during the warmup, then
+``engine.search_epoch`` (a weight step on a train batch, an arch step on
+a mini batch), the flip-TTA ``validate``, the genotype of the current
+architecture parameters (logged), the coupled best-model rule,
+``best_genotype.json`` for a new best, and a checkpoint (mirrored to
+``warmed`` at the warmup's last epoch and ``final`` at the last) under
+``<out>/<dataset>/search/<config>/``.
+
+Not ported: ``--zero`` (several devices) and ``--merged-streams``.
 
 Examples:
+  python -m npp_tpu_torch.tools.search_lip --data-root data/LIP \\
+      --gt-csv data/LIP/pose_csv/pose_gt.csv
   python -m npp_tpu_torch.tools.search_lip --synthetic --steps 2 \\
       --epochs 2 --warmup-epochs 1
   python -m npp_tpu_torch.tools.search_lip --synthetic --dataset ppp \\
@@ -52,11 +61,13 @@ from npp_tpu_torch.config import IGNORE, LIP, PRESETS, SIGMA
 from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import search as S
 from npp_tpu_torch.core.checkpoint import CheckpointManager
+from npp_tpu_torch.data.lip import dataset_for
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import save_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
-from npp_tpu_torch.tools.augment_lip import LimitedLoader, make_lip_eval_step
+from npp_tpu_torch.tools.augment_lip import (LimitedLoader, data_source,
+                                             make_lip_eval_step)
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
 
@@ -64,28 +75,44 @@ FLAGSHIP_SEARCH_MODEL, FLAGSHIP_SEARCH = LIP.search_config()
 TINY_SEARCH_MODEL, TINY_SEARCH = LIP.search_config(tiny=True)
 
 
-def build_loaders(hp: dict, device, preset=LIP):
-    """(train, mini, val) loaders over synthetic data shaped as
-    ``preset``'s, rendering their targets on ``device`` and normalising the
-    uint8 images there."""
+def build_loaders(hp: dict, device, preset=LIP, data_root: str | None = None,
+                  seed: int = 0):
+    """(train, mini, val) loaders: with ``data_root`` the LIP directory's
+    search train and mini sets (augmented, the readers seeded by
+    ``seed``) and the first 5000 entries of its val set, else synthetic
+    data shaped as ``preset``'s; each renders its targets on ``device``
+    and normalises the uint8 images there."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
                                     num_joints=preset.num_joints,
                                     ignore=IGNORE, normalize_images=True)
     bs, crop = hp["batch_size"], hp["crop"]
 
-    def dataset(n, seed, train):
-        return SyntheticDataset(length=n, crop_size=crop,
-                                num_joints=preset.num_joints,
-                                num_classes=preset.num_classes, seed=seed,
-                                is_train=train, device_normalize=True)
+    if data_root is not None:
+        def dataset(split, train, sample=-1):
+            return dataset_for(preset.data, split, data_root,
+                               crop_size=crop, sigma=SIGMA, is_train=train,
+                               sample=sample, seed=seed,
+                               device_normalize=True, **preset.reader)
+
+        sets = (dataset("search_train", True), dataset("search_mini", True),
+                dataset("search_val", False, sample=5000))
+    else:
+        def dataset(n, seed, train):
+            return SyntheticDataset(length=n, crop_size=crop,
+                                    num_joints=preset.num_joints,
+                                    num_classes=preset.num_classes,
+                                    seed=seed, is_train=train,
+                                    device_normalize=True)
+
+        sets = (dataset(8 * bs, 0, True), dataset(8 * bs, 1, True),
+                dataset(2 * bs, 2, False))
 
     common = dict(device=device, num_workers=hp["workers"],
                   renderer=renderer)
-    train = DataLoader(dataset(8 * bs, 0, True), bs, shuffle=True,
-                       drop_last=True, **common)
-    mini = DataLoader(dataset(8 * bs, 1, True), bs, shuffle=True,
-                      drop_last=True, seed=1, **common)
-    val = DataLoader(dataset(2 * bs, 2, False), bs, **common)
+    train = DataLoader(sets[0], bs, shuffle=True, drop_last=True, **common)
+    mini = DataLoader(sets[1], bs, shuffle=True, drop_last=True, seed=1,
+                      **common)
+    val = DataLoader(sets[2], bs, **common)
     return train, mini, val
 
 
@@ -106,19 +133,26 @@ def make_search_steps(hp: dict, preset=LIP):
                                use_target_weight=hp["use_target_weight"])
 
 
-def validate(state: S.SearchState, eval_step, val_loader,
-             preset=LIP) -> dict:
-    """Flip-TTA validation of the supernet in eval mode."""
+def validate(state: S.SearchState, eval_step, val_loader, preset=LIP,
+             gt_csv: str | None = None, pred_csv: str | None = None,
+             log_fn=print) -> dict:
+    """Flip-TTA validation of the supernet in eval mode (with ``gt_csv``
+    and ``pred_csv``, the PCKh table too)."""
     state.model.eval()
     return E.validate(eval_step, state.lamdas, val_loader,
-                      num_classes=preset.num_classes)
+                      num_classes=preset.num_classes, gt_csv=gt_csv,
+                      pred_csv=pred_csv, log_fn=log_fn)
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic data shaped as the dataset's (the only "
-                        "source so far)")
+                   help="synthetic data shaped as the dataset's")
+    p.add_argument("--data-root", default="",
+                   help="LIP directory (default: the YAML's data/LIP/)")
+    p.add_argument("--gt-csv", default="",
+                   help="LIP pose ground-truth CSV: adds PCKh to each "
+                        "validation")
     p.add_argument("--dataset", choices=sorted(PRESETS), default="lip",
                    help="the built-in configuration: LIP or "
                         "Pascal-Person-Part")
@@ -141,8 +175,8 @@ def main(argv=None) -> dict:
                    help="root of the run's output and log directories")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if not args.synthetic:
-        p.error("only --synthetic data is ported so far")
+    preset = PRESETS[args.dataset]
+    data_root = data_source(p, args, preset)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -151,15 +185,14 @@ def main(argv=None) -> dict:
         # fp32 convs (the last head convs, the decode blur) in full fp32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    preset = PRESETS[args.dataset]
     model_kw, hp = preset.search_config(args.tiny)
     logger, out_dir, tb_dir = create_logger(
         args.out, os.path.join(args.out, "log"), preset.name,
         "tiny" if args.tiny else "flagship", "search")
     writer = MetricWriter(tb_dir)
     try:
-        train_loader, mini_loader, val_loader = build_loaders(hp, device,
-                                                              preset)
+        train_loader, mini_loader, val_loader = build_loaders(
+            hp, device, preset, data_root, args.seed)
         if args.steps:
             train_loader = LimitedLoader(train_loader, args.steps)
             mini_loader = LimitedLoader(mini_loader, args.steps)
@@ -202,12 +235,17 @@ def main(argv=None) -> dict:
                     entropy_epoch=hp["entropy_epoch"], logger=logger,
                     writer=writer, print_freq=hp["print_freq"],
                     global_step=gstep)
-            result = validate(state, eval_step, val_loader, preset)
+            result = validate(
+                state, eval_step, val_loader, preset,
+                gt_csv=args.gt_csv or None,
+                pred_csv=(os.path.join(out_dir, "pose_pred.csv")
+                          if args.gt_csv else None), log_fn=logger.info)
             miou = result["mean_iou"]
-            pck = 0.0  # synthetic names match no PCKh ground truth
+            pck = result.get("pck_avg", 0.0)  # PCKh only with --gt-csv
             genotype = GP.extract_genotype(S.get_arch_params(state))
             logger.info(f"epoch {epoch}: train loss {train_loss:.4f} val "
-                        f"loss {result['loss']:.4f} mIoU {miou:.4f}")
+                        f"loss {result['loss']:.4f} mIoU {miou:.4f} PCKh "
+                        f"{pck:.2f}")
             logger.info(f"genotype = {genotype}")
             writer.scalar("valid_mIoU", miou, epoch)
             is_best = engine.is_best_checkpoint(miou, pck, best_iou,

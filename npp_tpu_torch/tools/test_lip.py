@@ -1,14 +1,19 @@
 """Parsing test CLI: multi-scale evaluation or palette PNG export.
 
-Port of ``tools/test_lip.py`` for synthetic data (the LIP reader is not
-ported yet): ``--mode testval`` runs the multi-scale sliding-window
-evaluation with flips at the scales (0.5, 0.75, 1.0, 1.25, 1.5)
+Port of ``tools/test_lip.py``: ``--mode testval`` runs the multi-scale
+sliding-window evaluation with flips at the scales (0.5, 0.75, 1.0, 1.25, 1.5)
 (``experiments/lip/384_384.yaml`` ``TEST``; (0.5, 1.0) under ``--tiny``)
 and prints the parsing metrics; ``--mode test`` writes palette PNGs at
 scale 1.0. The flagship model is built in (bf16 + channels_last on the
-card); ``--tiny`` is the test one.
+card); ``--tiny`` is the test one. Data: the test set of a LIP
+directory (``--data-root``, by default the YAML's ``data/LIP/``; TEST's
+annotation file over the val images and labels, its first ``--limit``
+entries, all for 0), unaugmented at batch 1, or with ``--synthetic``
+``--limit`` synthetic images (4 for 0).
 
 Examples:
+  python -m npp_tpu_torch.tools.test_lip --data-root data/LIP \\
+      --ckpt output/lip/augment/flagship/checkpoints --mode testval
   python -m npp_tpu_torch.tools.test_lip --synthetic --mode testval --limit 2
   python -m npp_tpu_torch.tools.test_lip --synthetic --tiny --mode test \\
       --device cpu --dtype float32 --out preds/
@@ -21,9 +26,11 @@ import torch
 
 from npp_tpu_torch.core import test_seg
 from npp_tpu_torch.core.loading import load_eval_model
+from npp_tpu_torch.data.lip import dataset_for
 from npp_tpu_torch.data.loader import DataLoader
 from npp_tpu_torch.data.synthetic import SyntheticDataset
-from npp_tpu_torch.config import IGNORE
+from npp_tpu_torch.config import IGNORE, LIP, SIGMA
+from npp_tpu_torch.tools.augment_lip import data_source
 
 TEST_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)
 TINY_SCALES = (0.5, 1.0)
@@ -37,19 +44,21 @@ def main(argv=None) -> dict:
                         "= random weights from --seed, smoke only)")
     p.add_argument("--out", default="test_results")
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic LIP-shaped data (the only source so far)")
+                   help="synthetic LIP-shaped data")
+    p.add_argument("--data-root", default="",
+                   help="LIP directory (default: the YAML's data/LIP/)")
     p.add_argument("--tiny", action="store_true",
                    help="the test model (L=8, C=8, 128x128)")
     p.add_argument("--limit", type=int, default=0,
-                   help="images to run (0 = 4 synthetic ones)")
+                   help="images to run (0 = 4 synthetic ones, or every LIP "
+                        "test entry)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
                    help="model compute dtype (the flagship's is bfloat16)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if not args.synthetic:
-        p.error("only --synthetic data is ported so far")
+    data_root = data_source(p, args, LIP)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is False")
@@ -60,9 +69,15 @@ def main(argv=None) -> dict:
     model, size, config = load_eval_model(
         args.ckpt, tiny=args.tiny, device=device,
         dtype=getattr(torch, args.dtype), seed=args.seed)
-    ds = SyntheticDataset(length=args.limit or 4, crop_size=size,
-                          num_joints=config["num_joints"],
-                          num_classes=config["num_classes"], is_train=False)
+    if data_root is None:
+        ds = SyntheticDataset(length=args.limit or 4, crop_size=size,
+                              num_joints=config["num_joints"],
+                              num_classes=config["num_classes"],
+                              is_train=False)
+    else:  # host-normalised images, as the JAX CLI's
+        ds = dataset_for(LIP.data, "test", data_root, crop_size=size,
+                         sigma=SIGMA, is_train=False,
+                         sample=args.limit or -1, **LIP.reader)
     loader = DataLoader(ds, 1, device=device, num_workers=4)
     apply_fn = test_seg.make_parsing_apply_fn(model)
     crop_hw = (size[1], size[0])

@@ -6,8 +6,9 @@ standard library (``zlib`` + ``struct``): 8-bit colour type 3 with a
 ``PLTE`` chunk of the palette. ``read_png`` reads the PNGs the port and
 common encoders write (8-bit grey, RGB, RGBA or palette, not
 interlaced, any of the five row filters); ``read_image`` feeds the
-serving CLI from ``.png`` or ``.npy`` files. The cv2 drawing helpers
-(overlays, skeletons, debug grids) are not ported.
+serving CLI and the LIP reader from ``.jpg`` / ``.jpeg`` (the host JPEG
+decoder, ``data/imgproc.py``), ``.png`` or ``.npy`` files. The cv2
+drawing helpers (overlays, skeletons, debug grids) are not ported.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from npp_tpu_torch.data import imgproc
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}  # colour type -> samples
@@ -144,16 +147,20 @@ def read_png(path: str) -> tuple[np.ndarray, np.ndarray | None]:
 def check_readable(path: str) -> None:
     """Raise ValueError naming the format unless ``read_image`` reads it."""
     ext = os.path.splitext(path)[1].lower()
-    if ext not in (".png", ".npy"):
+    if ext not in (".jpg", ".jpeg", ".png", ".npy"):
         raise ValueError(f"{path}: the {ext or 'extensionless'} format is "
-                         f"not read here; give .png or .npy (H, W, 3) "
+                         f"not read here; give .jpg, .png or .npy (H, W, 3) "
                          f"uint8 RGB")
 
 
 def read_image(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB from a ``.png`` (alpha dropped, grey and
-    palette expanded) or a ``.npy`` holding (H, W, 3) uint8 RGB."""
+    """(H, W, 3) uint8 RGB from a ``.jpg`` / ``.jpeg`` (the host decoder:
+    what ``cv2.imread(path, 1)`` gives, as RGB; the files it refuses raise
+    ValueError), a ``.png`` (alpha dropped, grey and palette expanded) or
+    a ``.npy`` holding (H, W, 3) uint8 RGB."""
     check_readable(path)
+    if path.lower().endswith((".jpg", ".jpeg")):
+        return imgproc.read_jpeg(path)
     if path.lower().endswith(".npy"):
         im = np.load(path)
         if im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 3:

@@ -2,10 +2,11 @@
 nor cv2, PIL or yaml, which the card machine lacks.
 
 Checked in a fresh interpreter, because this test process has imported
-jax already (tests/conftest.py). Importing also builds nothing. The
-search, serving and PPP / chain slices' modules are also imported each
-on its own, so that none of them leans on another module having been
-imported first.
+jax already (tests/conftest.py). Importing also builds nothing: neither
+the heatmap kernel nor the LIP reader's host library. The search,
+serving, PPP / chain and LIP reader slices' modules are also imported
+each on its own, so that none of them leans on another module having
+been imported first.
 """
 import os
 import subprocess
@@ -24,7 +25,9 @@ mods = [m.name for m in pkgutil.walk_packages(npp_tpu_torch.__path__,
 for name in mods + ["chip_smoke"]:
     importlib.import_module(name)
 from npp_tpu_torch.ops import heatmaps
+from npp_tpu_torch.data import imgproc
 assert not heatmaps._LIBRARY, "importing built the kernel"
+assert not imgproc._LIBRARY, "importing built the host library"
 assert heatmaps.render_heatmaps.launches == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
@@ -51,6 +54,10 @@ PPP_MODULES = ("npp_tpu_torch.config",
                "npp_tpu_torch.tools.augment_lip",
                "npp_tpu_torch.tools.eval_lip",
                "npp_tpu_torch.tools.eval_ppp_map")
+LIP_MODULES = ("npp_tpu_torch.data.imgproc",
+               "npp_tpu_torch.data.augmentation",
+               "npp_tpu_torch.data.targets",
+               "npp_tpu_torch.data.lip")
 
 
 def _run(code: str) -> str:
@@ -63,12 +70,13 @@ def _run(code: str) -> str:
 
 def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
     n_mods, bad = _run(PROBE).split(" ", 1)
-    assert int(n_mods) >= 39
+    assert int(n_mods) >= 42
     assert bad.strip() == "[]", bad
 
 
 @pytest.mark.parametrize("module",
-                         SEARCH_MODULES + SERVE_MODULES + PPP_MODULES)
+                         SEARCH_MODULES + SERVE_MODULES + PPP_MODULES
+                         + LIP_MODULES)
 def test_search_module_imports_alone_without_jax(module):
     bad = _run(f"import importlib, sys\n"
                f"importlib.import_module({module!r})\n"

@@ -400,8 +400,8 @@ def test_read_image_takes_png_npy_and_names_other_formats(tmp_path):
                                   im)
     np.testing.assert_array_equal(tvis.read_image(str(tmp_path / "b.npy")),
                                   im)
-    with pytest.raises(ValueError, match=r"\.jpg format"):
-        tvis.read_image(str(tmp_path / "c.jpg"))
+    with pytest.raises(ValueError, match=r"\.bmp format"):
+        tvis.read_image(str(tmp_path / "c.bmp"))
 
 
 # -- multi-scale parsing -------------------------------------------------------
@@ -579,10 +579,10 @@ def test_predict_cli_reads_png_and_npy_and_refuses_the_rest(tmp_path):
     assert out["names"] == ["a", "b"]
     assert out["parsings"][0].shape == (100, 80)
     assert out["parsings"][1].shape == (60, 90)
-    (src / "c.jpg").write_bytes(b"")
-    with pytest.raises(SystemExit, match=r"\.jpg format"):
+    (src / "c.bmp").write_bytes(b"")
+    with pytest.raises(SystemExit, match=r"\.bmp format"):
         predict.main(["--images", str(src), "--out", str(tmp_path), *CPU])
-    (src / "c.jpg").unlink()
+    (src / "c.bmp").unlink()
     np.save(src / "a.npy", ims[1])
     with pytest.raises(SystemExit, match="duplicate"):
         predict.main(["--images", str(src), "--out", str(tmp_path), *CPU])
