@@ -31,9 +31,15 @@ result (``--ckpt``); and the LIP reader (the host library's JPEG decoder
 and cv2-rule warps, built with the host C++ compiler) on a LIP tree
 written from the committed JPEG fixtures (``tests/fixtures/torch_lip``):
 the reader alone, the flagship train step fed from the tree, and the
-train, eval, test, search and predict CLIs reading it. Any failure
-raises, so the exit code is non-zero; without CUDA it exits non-zero
-before printing any result.
+train, eval, test, search and predict CLIs reading it; and the rest of
+the data package: the Pascal-Person-Part reader on a PPP tree written
+from the same JPEGs and the grey part labels of ``tests/fixtures/
+torch_ppp`` (the reader alone, the PPP flagship train step and
+validate_ppp fed from the tree, the train CLI reading it) and the
+``--fast-aug`` fused warp on the LIP tree (the reader alone, against the
+parity reader, the flagship train step fed by it, the train CLI with
+``--fast-aug``). Any failure raises, so the exit code is non-zero;
+without CUDA it exits non-zero before printing any result.
 
 Phases: 1 device, 2 build, 3 kernel vs plain version (seven shapes) and
 the device time of both by many launches, beside the kernel's bound, at
@@ -55,7 +61,13 @@ CLIs; a PPP search pair timed and profiled; eval_ppp_map), 14 the search
 -> train -> eval chain at the LIP flagship width, 15 the LIP reader
 (fixture decodes against their recorded SHA-256, samples/s with 8
 threads and 1, ms per stage, the flagship bs16 bf16 train step from the
-tree with the loop's wait on the loader, the CLIs on the tree).
+tree with the loop's wait on the loader, the CLIs on the tree), 16 the
+PPP reader and the fused warp (build_ppp_db's count against the tree's,
+samples/s of each reader with 8 threads and 1, the PPP bs2 and the fused
+LIP bs16 bf16 train steps fed from disk with the loop's wait, the bf16
+vs fp32 PPP loss, validate_ppp on the val tree, the fused reader against
+the parity one and its uint8 path against its float32 one, the train CLI
+with ``--dataset ppp`` and with ``--fast-aug``).
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -94,8 +106,10 @@ from npp_tpu_torch.data import augmentation as A
 from npp_tpu_torch.data import imgproc
 from npp_tpu_torch.data import lip
 from npp_tpu_torch.data import loader as L
+from npp_tpu_torch.data import pascal
 from npp_tpu_torch.data import targets as TG
-from npp_tpu_torch.data.synthetic import SyntheticDataset
+from npp_tpu_torch.data.synthetic import (IMAGENET_MEAN, IMAGENET_STD,
+                                          SyntheticDataset)
 from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.models.augment import build_nppnet
@@ -188,6 +202,11 @@ BF16_MAP_RTOL = 5e-2   # ||bf16 - fp32|| / ||fp32|| of the fused logits / heatma
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "fixtures", "torch_lip")
 LIP_TRAIN, LIP_VAL = 64, 16  # entries of the tree's train and val sets
+# Phase 16: a Pascal-Person-Part tree from the same JPEGs and the grey
+# part labels of tests/fixtures/make_torch_ppp.py.
+PPP_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "torch_ppp")
+PPP_TRAIN, PPP_VAL = 32, 8   # ids of the PPP tree's train and val lists
+PPP_STEPS = 8                # PPP train steps from the tree (the first is warm-up)
 LIP_EPOCHS = 2               # train epochs of the in-process loop (8 steps)
 STAGE_SAMPLES = 16           # samples timed stage by stage
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
@@ -1540,6 +1559,85 @@ def write_lip_tree(root: str, records: list, rng) -> str:
     return gt
 
 
+def write_ppp_tree(root: str, n_train: int, n_val: int, rng) -> dict:
+    """A Pascal-Person-Part directory as ``config.PPP.data`` lays it out,
+    from the committed fixtures: ``n_train`` and ``n_val`` ids that reuse
+    the JPEGs and grey part labels under distinct names. Each id but the
+    last of each list has 1-3 GT persons side by side (a pose ``.mat`` of
+    boxes and 14 joints, some not visible) and a Mask-R-CNN-style
+    ``.npy``: one person instance close to each GT box but the last when
+    there are two or more (that GT has none to match: cost 1 > 0.3), and
+    one non-person instance on the first GT's box (which would match it
+    exactly); masks are ellipses in the boxes, bool or uint8 by turns.
+    The last id of each list has its ``.npy`` but no ``.mat``. Returns
+    per split the db entries this implies, and the counts of unmatched
+    GTs, non-person instances and ids without a ``.mat``."""
+    import scipy.io as scio
+
+    layout = PPP.data
+    with open(os.path.join(PPP_FIXTURES, "fixtures.json")) as f:
+        records = json.load(f)
+    for key in ("train_imroot", "val_imroot", "train_segroot",
+                "val_segroot", "pose_root", "mask_root"):
+        os.makedirs(os.path.join(root, layout[key]), exist_ok=True)
+    out = {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        ids, implied, unmatched = [], 0, 0
+        for i in range(n):
+            rec = records[i % len(records)]
+            name = f"{split}_{i:04d}"
+            ids.append(name)
+            shutil.copyfile(os.path.join(FIXTURES, rec["image"]), os.path.join(
+                root, layout[f"{split}_imroot"], name + ".jpg"))
+            shutil.copyfile(os.path.join(PPP_FIXTURES, rec["label"]),
+                            os.path.join(root, layout[f"{split}_segroot"],
+                                         name + ".png"))
+            h, w = rec["height"], rec["width"]
+            n_gt = int(rng.integers(1, 4))
+            slot = w / n_gt
+            gt_boxes, gt_joints = [], []
+            for k in range(n_gt):
+                x1 = k * slot + rng.uniform(0, 0.1) * slot
+                x2 = (k + 1) * slot - rng.uniform(0, 0.1) * slot
+                y1, y2 = rng.uniform(0, 0.15) * h, rng.uniform(0.85, 1) * h
+                gt_boxes.append(np.array([[x1, y1, x2, y2]]))
+                gt_joints.append(np.stack(
+                    [rng.uniform(x1 + 2, x2 - 2, 14),
+                     rng.uniform(y1 + 2, y2 - 2, 14),
+                     rng.choice([0.0, 1.0, 2.0], 14, p=[0.15, 0.7, 0.15])],
+                    1))
+            matched = n_gt - 1 if n_gt > 1 else n_gt
+            inst = [b[0] + rng.uniform(-2, 2, 4) for b in gt_boxes[:matched]]
+            classes = [0] * matched + [15]
+            inst.append(gt_boxes[0][0].copy())
+            order = rng.permutation(len(inst))
+            yy, xx = np.mgrid[0:h, 0:w]
+            masks = np.stack([
+                ((xx - (b[0] + b[2]) / 2) / ((b[2] - b[0]) / 2)) ** 2
+                + ((yy - (b[1] + b[3]) / 2) / ((b[3] - b[1]) / 2)) ** 2 <= 1
+                for b in inst])[order]
+            np.save(os.path.join(root, layout["mask_root"], name + ".npy"),
+                    {"pred_classes": np.array(classes)[order],
+                     "boxes": np.array(inst, np.float32)[order],
+                     "pred_masks": masks if i % 2 else masks.astype(
+                         np.uint8)})
+            if i == n - 1:
+                continue  # masks, but no .mat: skipped
+            cells = [np.empty((1, n_gt), object) for _ in range(2)]
+            for k in range(n_gt):
+                cells[0][0, k], cells[1][0, k] = gt_boxes[k], gt_joints[k]
+            scio.savemat(os.path.join(root, layout["pose_root"],
+                                      name + ".mat"),
+                         {"boxes": cells[0], "joints": cells[1]})
+            implied += matched
+            unmatched += n_gt - matched
+        with open(os.path.join(root, layout[f"{split}_set"]), "w") as f:
+            f.write("\n".join(ids) + "\n")
+        out[split] = dict(entries=implied, unmatched_gt=unmatched,
+                          non_person=n - 1, without_mat=1)
+    return out
+
+
 def reader_stages(root: str) -> dict:
     """Mean ms per sample of each stage of the train reader, run one after
     another on the first STAGE_SAMPLES train entries: decode, scale,
@@ -1585,14 +1683,11 @@ def reader_stages(root: str) -> dict:
     return dict(t)
 
 
-def reader_rate(root: str, workers: int) -> float:
-    """Samples/s of one epoch of the train LIPDataset through the loader
-    (``workers`` threads, batch 16, pinned copies to the card, no target
+def reader_rate(ds, workers: int, batch: int = 16) -> float:
+    """Samples/s of one epoch of the reader ``ds`` through the loader
+    (``workers`` threads, ``batch``, pinned copies to the card, no target
     rendering)."""
-    ds = lip.dataset_for(LIP.data, "train", root, crop_size=(384, 384),
-                         is_train=True, seed=SEED, device_normalize=True,
-                         **LIP.reader)
-    loader = L.DataLoader(ds, 16, device="cuda", shuffle=True,
+    loader = L.DataLoader(ds, batch, device="cuda", shuffle=True,
                           drop_last=True, num_workers=workers)
     t0 = time.perf_counter()
     n = sum(b["image"].shape[0] for b in loader)
@@ -1600,14 +1695,70 @@ def reader_rate(root: str, workers: int) -> float:
     return n / (time.perf_counter() - t0)
 
 
-def lip_from_disk(tag: str, out_root: str) -> dict:
+def lip_reader(root: str, **kw):
+    """The train LIPDataset of the tree at 384x384 with the preset's
+    augmentation (``kw``: ``cls`` for the fused reader, overrides)."""
+    return lip.dataset_for(LIP.data, "train", root, **{
+        **dict(crop_size=(384, 384), is_train=True, seed=SEED,
+               device_normalize=True), **LIP.reader, **kw})
+
+
+def fused_stages(root: str) -> dict:
+    """Mean ms per sample, on one thread over the first STAGE_SAMPLES
+    train entries, of the fused reader's JPEG decode, its label PNG read,
+    and the rest of a whole sample (the fused warp of image and labels,
+    the joints, the Python around them)."""
+    ds = lip_reader(root, cls=lip.FastLIPDataset)
+    t = collections.defaultdict(float)
+    for i, item in enumerate(ds.anno_list[:STAGE_SAMPLES]):
+        t0 = time.perf_counter()
+        vis.read_image(os.path.join(ds.im_root, item["im_name"]))
+        t1 = time.perf_counter()
+        lip.read_label_png(os.path.join(ds.parsing_anno_root,
+                                        item["im_name"].split(".")[0]
+                                        + ".png"))
+        t2 = time.perf_counter()
+        ds[i]
+        t3 = time.perf_counter()
+        for k, v in (("decode", t1 - t0), ("label_png", t2 - t1),
+                     ("rest", (t3 - t2) - (t2 - t0))):
+            t[k] += v * 1e3 / STAGE_SAMPLES
+    return dict(t)
+
+
+def fed_steps(step, state, loader, epochs: int, limit: int = 0):
+    """The train loop fed by ``loader`` over ``epochs`` epochs (each cut
+    at ``limit`` steps when given): per step its seconds from ``next()``
+    to the synchronised step, its seconds in ``next()``, and its loss."""
+    steps, waits, losses = [], [], []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        it = iter(loader)
+        try:
+            for _ in range(limit or len(loader)):
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                t1 = time.perf_counter()
+                if batch is None:
+                    break
+                losses.append(step(state, batch)["loss"].item())
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                waits.append(t1 - t0)
+        finally:
+            it.close()
+    return steps, waits, losses
+
+
+def lip_from_disk(tag: str, out_root: str, root: str) -> dict:
     """Phase 15: the LIP reader beside the card. The host library is
     built and each fixture decodes to its recorded SHA-256; a LIP tree is
-    written from the fixtures; the reader is timed alone (8 threads and
-    1, stage by stage); the flagship train step (L=16, C=64, bs16, bf16 +
-    channels_last) runs fed from the tree, timed with the loop's wait on
-    the loader; then the train, eval, test, search and predict CLIs read
-    the tree (the fixtures, for predict)."""
+    written from the fixtures into ``root`` (phase 16 reads it too); the
+    reader is timed alone (8 threads and 1, stage by stage); the flagship
+    train step (L=16, C=64, bs16, bf16 + channels_last) runs fed from the
+    tree, timed with the loop's wait on the loader; then the train, eval,
+    test, search and predict CLIs read the tree (the fixtures, for
+    predict)."""
     t0 = time.perf_counter()
     lib_path, _ = imgproc.build_library()
     build_s = time.perf_counter() - t0
@@ -1625,13 +1776,11 @@ def lip_from_disk(tag: str, out_root: str) -> dict:
         raise AssertionError(f"phase 15: decodes differ from the recorded "
                              f"hashes: {bad}")
 
-    tree = tempfile.TemporaryDirectory()
-    root = tree.name
     gt = write_lip_tree(root, records, np.random.default_rng(SEED))
 
     # The reader alone.
     cpus = os.cpu_count()
-    rates = {w: reader_rate(root, w) for w in (8, 1)}
+    rates = {w: reader_rate(lip_reader(root), w) for w in (8, 1)}
     stages = reader_stages(root)
     print(f"phase 15: reader alone (train LIPDataset, 384x384 crops, one "
           f"epoch of {LIP_TRAIN} samples through the loader at bs16): "
@@ -1654,20 +1803,7 @@ def lip_from_disk(tag: str, out_root: str) -> dict:
     loss0 = step(state, first)["loss"].item()
     rel = abs(loss0 - loss32) / abs(loss32)
     n0 = heatmaps.render_heatmaps.launches
-    steps, waits, losses = [], [], []
-    for epoch in range(LIP_EPOCHS):
-        train_loader.set_epoch(epoch)
-        it = iter(train_loader)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(it, None)
-            t1 = time.perf_counter()
-            if batch is None:
-                break
-            losses.append(step(state, batch)["loss"].item())
-            torch.cuda.synchronize()
-            steps.append(time.perf_counter() - t0)
-            waits.append(t1 - t0)
+    steps, waits, losses = fed_steps(step, state, train_loader, LIP_EPOCHS)
     launched = heatmaps.render_heatmaps.launches - n0
     step_s = statistics.median(steps[1:])
     wait_share = sum(waits[1:]) / sum(steps[1:])
@@ -1689,7 +1825,7 @@ def lip_from_disk(tag: str, out_root: str) -> dict:
     if launched != len(steps) or len(steps) < 6:
         raise AssertionError(f"phase 15: {launched} kernel launches for "
                              f"{len(steps)} steps")
-    del state, first, batch, train_loader
+    del state, first, train_loader
     torch.cuda.empty_cache()
 
     # The CLIs on the tree.
@@ -1750,11 +1886,242 @@ def lip_from_disk(tag: str, out_root: str) -> dict:
           f"served, parsings at the images' sizes {ok} {tag}")
     if not ok:
         raise AssertionError("phase 15: the predict CLI failed on the JPEGs")
-    tree.cleanup()
     return dict(build_s=build_s, samples_per_s_8=rates[8],
                 samples_per_s_1=rates[1], cpu_count=cpus, stage_ms=stages,
                 step_ms=step_s * 1e3, img_per_s=bs / step_s,
                 wait_share=wait_share, loss_rel_bf16=rel, cli=cli)
+
+
+def ppp_and_fused_from_disk(tag: str, out_root: str, lip_root: str,
+                            parity: dict) -> tuple[dict, dict]:
+    """Phase 16: the PPP reader and the fused warp beside the card. A PPP
+    tree is written from the fixtures and its db held to the count the
+    construction implies; the PPP reader is timed alone; the PPP flagship
+    train step (L=16, C=64, 7 classes, 14 joints, bs2, bf16 +
+    channels_last) runs fed from the tree, then validate_ppp over its val
+    set. On phase 15's LIP tree (``lip_root``; ``parity`` holds phase
+    15's numbers) the fused reader is timed alone, held against the
+    parity reader in eval mode and its uint8 path against its float32
+    one, and feeds the flagship bs16 train step. Then the train CLI reads
+    the PPP tree and, with ``--fast-aug``, the LIP tree. Returns the
+    numbers and the heatmap kernel's launches on the PPP-from-disk and
+    fused-LIP paths."""
+    launches = {}
+    root = os.path.join(os.path.dirname(lip_root), "ppp")
+    implied = write_ppp_tree(root, PPP_TRAIN, PPP_VAL,
+                             np.random.default_rng(SEED))
+    common = dict(crop_size=(384, 384), seed=SEED, device_normalize=True,
+                  **PPP.reader)
+    train_ds = pascal.dataset_for(PPP.data, "train", root, is_train=True,
+                                  **common)
+    val_ds = pascal.dataset_for(PPP.data, "val", root, is_train=False,
+                                **common)
+    counts = {"train": len(train_ds), "val": len(val_ds)}
+    print(f"phase 16: PPP tree of {PPP_TRAIN} train and {PPP_VAL} val ids "
+          f"from the fixtures: build_ppp_db gives {counts} persons, the "
+          f"construction implies "
+          f"{ {k: v['entries'] for k, v in implied.items()} } (dropped "
+          f"unmatched GTs { {k: v['unmatched_gt'] for k, v in implied.items()} }, "
+          f"non-person instances filtered, one id per list without a "
+          f".mat) {tag}")
+    if any(counts[k] != implied[k]["entries"] for k in counts):
+        raise AssertionError("phase 16: build_ppp_db's count differs from "
+                             "the tree's")
+
+    # The PPP reader alone.
+    ppp_rates = {w: reader_rate(train_ds, w, batch=2) for w in (8, 1)}
+    print(f"phase 16: PPP reader alone (train PPPDataset, 384x384 crops, "
+          f"one epoch of {len(train_ds)} persons through the loader at "
+          f"bs2): {ppp_rates[8]:.3f} samples/s with 8 threads, "
+          f"{ppp_rates[1]:.3f} with 1 {tag}")
+
+    # The PPP flagship train step fed from the tree, then validate_ppp.
+    heatmaps.render_heatmaps.launches = 0  # the PPP-from-disk path's count
+    model_kw, hp = PPP.train_config()
+    bs = hp["batch_size"]
+    train_loader, val_loader = augment_lip.build_loaders(hp, "cuda", PPP,
+                                                         root, SEED)
+    state = augment_lip.init_state(model_kw, hp, device="cuda",
+                                   dtype=torch.bfloat16, seed=SEED,
+                                   steps_per_epoch=len(train_loader))
+    step = augment_lip.make_train_step(hp, PPP)
+    first = take(train_loader, 1)[0]
+    loss32 = fp32_loss(state, first, hp, PPP.class_weights)
+    loss0 = step(state, first)["loss"].item()
+    rel = abs(loss0 - loss32) / abs(loss32)
+    n0 = heatmaps.render_heatmaps.launches
+    steps, waits, losses = fed_steps(step, state, train_loader, 1,
+                                     PPP_STEPS)
+    launched = heatmaps.render_heatmaps.launches - n0
+    ppp_step_s = statistics.median(steps[1:])
+    ppp_wait = sum(waits[1:]) / sum(steps[1:])
+    print(f"phase 16: PPP flagship train step from the tree (bs{bs}, "
+          f"384x384, 7 classes, 14 joints, bf16, channels_last, reader seed "
+          f"{SEED}): first loss {loss0:.6f} vs fp32 {loss32:.6f}, relative "
+          f"{rel:.3g} (<= {BF16_RTOL}); losses "
+          f"{['%.4f' % x for x in losses]}; median step "
+          f"{ppp_step_s * 1e3:.3f} ms over {len(steps) - 1} warm steps "
+          f"({['%.1f' % (t * 1e3) for t in steps]} ms) = "
+          f"{bs / ppp_step_s:.2f} img/s; waiting in next() "
+          f"{['%.1f' % (t * 1e3) for t in waits]} ms, {ppp_wait:.3f} of the "
+          f"warm steps' time; heatmap kernel launches {launched} for "
+          f"{len(steps)} steps {tag}")
+    if not all(math.isfinite(x) for x in [loss0, loss32, *losses]):
+        raise AssertionError(f"phase 16: non-finite PPP loss {losses}")
+    if not rel <= BF16_RTOL:
+        raise AssertionError(f"phase 16: bf16 loss {loss0} vs fp32 {loss32}")
+    if launched != len(steps) or len(steps) != PPP_STEPS:
+        raise AssertionError(f"phase 16: {launched} kernel launches for "
+                             f"{len(steps)} PPP steps")
+    eval_step = augment_lip.make_eval_step(state.model, hp, PPP)
+    res = augment_lip.validate(state, eval_step, val_loader, PPP,
+                               log_fn=lambda t: print(
+                                   "phase 16: " + t.replace("\n", " | ")))
+    n_valid = int(sum((val_ds[i]["par"] != eval_lip.IGNORE).sum()
+                      for i in range(len(val_ds))))
+    print(f"phase 16: validate_ppp over the val tree ({len(val_ds)} persons, "
+          f"{len(val_loader)} batches): loss {res['loss']:.6f}, mIoU "
+          f"{res['mean_iou']:.4f}, cm.sum {int(res['cm'].sum())} == valid "
+          f"pixels {n_valid}, pck shape {res['pck'].shape}, PCK avg "
+          f"{res['pck_avg']:.3f} {tag}")
+    if not (math.isfinite(res["loss"]) and int(res["cm"].sum()) == n_valid
+            and res["pck"].shape == (15,)
+            and np.isfinite(res["pck"]).all()):
+        raise AssertionError("phase 16: validate_ppp failed on the tree")
+    del state, first, eval_step, train_loader, val_loader
+    torch.cuda.empty_cache()
+    out = augment_lip.main(["--dataset", "ppp", "--data-root", root,
+                            "--steps", "3", "--epochs", "1", "--out",
+                            out_root])
+    r = out["result"]
+    print(f"phase 16: python -m npp_tpu_torch.tools.augment_lip --dataset "
+          f"ppp --data-root <PPP tree> --steps 3 --epochs 1: train loss "
+          f"{out['train_loss']:.6f}, val loss {r['loss']:.6f}, mIoU "
+          f"{r['mean_iou']:.4f}, PCK avg {r['pck_avg']:.3f} {tag}")
+    if not (math.isfinite(out["train_loss"]) and math.isfinite(r["loss"])
+            and r["pck"].shape == (15,)):
+        raise AssertionError("phase 16: the train CLI failed on the PPP tree")
+    ppp_cli = dict(train_loss=out["train_loss"], val=r["loss"])
+    launches["ppp_disk"] = heatmaps.render_heatmaps.launches
+    del out
+    torch.cuda.empty_cache()
+
+    # The fused reader on phase 15's LIP tree.
+    fast = lambda **kw: lip_reader(lip_root, cls=lip.FastLIPDataset, **kw)
+    fast_rates = {w: reader_rate(fast(), w) for w in (8, 1)}
+    stages = fused_stages(lip_root)
+    print(f"phase 16: fused-warp reader alone (train FastLIPDataset, "
+          f"384x384, one epoch of {LIP_TRAIN} samples at bs16): "
+          f"{fast_rates[8]:.3f} samples/s with 8 threads, "
+          f"{fast_rates[1]:.3f} with 1; the parity LIPDataset in phase 15 "
+          f"of this run: {parity['samples_per_s_8']:.3f} and "
+          f"{parity['samples_per_s_1']:.3f}; mean ms per fused sample "
+          f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} "
+          f"{tag}")
+    # Eval mode against the parity reader (tests/test_data.py:168-190's
+    # bounds: the geometry alike, labels apart at region borders only,
+    # bilinear against two cubic resamplings). One departure, npp_tpu's
+    # own: its fused reader takes the crop's end as start + crop size,
+    # the parity reader as int(centre + crop / 2), one less where the
+    # start int(centre - crop / 2) truncates a negative fraction towards
+    # 0; so the crop and store ends may both be one apart.
+    ref, ours = (lip.dataset_for(LIP.data, "val", lip_root, cls=cls,
+                                 crop_size=(384, 384), is_train=False)
+                 for cls in (lip.LIPDataset, lip.FastLIPDataset))
+    worst = dict(joints=0.0, agree=1.0, image=0.0, crop_end_apart=0)
+    for i in range(len(ref)):
+        a, b = ref[i], ours[i]
+        d = (b["crop_param"] - a["crop_param"])[0]
+        end_ok = all(d[k] == d[k + 2] in (0, 1) for k in (4, 5))
+        worst["crop_end_apart"] += int(d[4:].any())
+        if not (end_ok and not d[:4].any()
+                and np.allclose(b["scale"], a["scale"], rtol=1e-6)):
+            raise AssertionError(f"phase 16: fused eval geometry differs at "
+                                 f"{a['name']}: {a['crop_param']} vs "
+                                 f"{b['crop_param']}")
+        worst["joints"] = max(worst["joints"], float(
+            np.abs(b["joints"] - a["joints"]).max()))
+        worst["agree"] = min(worst["agree"],
+                             float((a["par"] == b["par"]).mean()))
+        worst["image"] = max(worst["image"], float(
+            np.abs(a["image"] - b["image"]).mean()))
+    # The uint8 path against the float32 one on the same train draws
+    # (tests/test_data.py:82-103's bound: half a uint8 step).
+    u8, f32 = fast(device_normalize=True), fast(device_normalize=False)
+    half_step = 0.5 / 255.0 / float(IMAGENET_STD.min()) + 1e-5
+    u8_err, u8_labels = 0.0, True
+    for i in range(STAGE_SAMPLES):
+        a, b = u8[i], f32[i]
+        renorm = (a["image"].astype(np.float32) / 255.0 - IMAGENET_MEAN) \
+            / IMAGENET_STD
+        u8_err = max(u8_err, float(np.abs(renorm - b["image"]).max()))
+        u8_labels &= bool(np.array_equal(a["par"], b["par"]))
+    print(f"phase 16: fused vs parity reader in eval mode over {len(ref)} "
+          f"val entries: crop starts equal, the ends one apart (npp_tpu's "
+          f"rule) in {worst['crop_end_apart']}; joints max|diff| "
+          f"{worst['joints']:.3g} px (<= "
+          f"1e-2), labels agree on >= {worst['agree']:.4f} (> 0.9), mean "
+          f"|image diff| <= {worst['image']:.4f} (< 0.2); uint8 vs float32 "
+          f"path over {STAGE_SAMPLES} train draws: labels equal {u8_labels}, "
+          f"max|diff| {u8_err:.3g} (< {half_step:.3g}) {tag}")
+    if not (worst["joints"] <= 1e-2 and worst["agree"] > 0.9
+            and worst["image"] < 0.2 and u8_labels and u8_err < half_step):
+        raise AssertionError("phase 16: the fused reader disagrees")
+
+    # The flagship LIP bs16 train step fed by the fused reader.
+    heatmaps.render_heatmaps.launches = 0  # the fused-LIP path's count
+    model_kw, hp = LIP.train_config()
+    bs = hp["batch_size"]
+    train_loader, _ = augment_lip.build_loaders(hp, "cuda", LIP, lip_root,
+                                                SEED, fast_aug=True)
+    state = augment_lip.init_state(model_kw, hp, device="cuda",
+                                   dtype=torch.bfloat16, seed=SEED,
+                                   steps_per_epoch=len(train_loader))
+    step = augment_lip.make_train_step(hp)
+    steps, waits, losses = fed_steps(step, state, train_loader, LIP_EPOCHS)
+    launched = heatmaps.render_heatmaps.launches
+    fast_step_s = statistics.median(steps[1:])
+    fast_wait = sum(waits[1:]) / sum(steps[1:])
+    print(f"phase 16: flagship train step fed by the fused reader (bs{bs}, "
+          f"384x384, bf16, channels_last): losses "
+          f"{['%.4f' % x for x in losses]}; median step "
+          f"{fast_step_s * 1e3:.3f} ms over {len(steps) - 1} warm steps "
+          f"({['%.1f' % (t * 1e3) for t in steps]} ms), waiting in next() "
+          f"{['%.1f' % (t * 1e3) for t in waits]} ms, {fast_wait:.3f} of the "
+          f"warm steps' time; phase 15's parity reader: "
+          f"{parity['step_ms']:.3f} ms, {parity['wait_share']:.3f}; heatmap "
+          f"kernel launches {launched} for {len(steps)} steps {tag}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 16: non-finite loss {losses}")
+    if launched != len(steps) or len(steps) < 6:
+        raise AssertionError(f"phase 16: {launched} kernel launches for "
+                             f"{len(steps)} fused-reader steps")
+    del state, train_loader
+    torch.cuda.empty_cache()
+    out = augment_lip.main(["--fast-aug", "--data-root", lip_root, "--steps",
+                            "3", "--epochs", "1", "--out", out_root])
+    print(f"phase 16: python -m npp_tpu_torch.tools.augment_lip --fast-aug "
+          f"--data-root <LIP tree> --steps 3 --epochs 1: train loss "
+          f"{out['train_loss']:.6f}, {eval_lip.result_line(out['result'])} "
+          f"{tag}")
+    if not (math.isfinite(out["train_loss"])
+            and math.isfinite(out["result"]["loss"])):
+        raise AssertionError("phase 16: the --fast-aug train CLI failed")
+    launches["lip_fast_disk"] = heatmaps.render_heatmaps.launches
+    fast_cli = dict(train_loss=out["train_loss"], val=out["result"]["loss"])
+    del out
+    torch.cuda.empty_cache()
+    return dict(
+        ppp_db=counts, ppp_samples_per_s_8=ppp_rates[8],
+        ppp_samples_per_s_1=ppp_rates[1], ppp_step_ms=ppp_step_s * 1e3,
+        ppp_wait_share=ppp_wait, ppp_loss_rel_bf16=rel,
+        ppp_val=dict(loss=res["loss"], miou=res["mean_iou"],
+                     pck_avg=res["pck_avg"]), ppp_cli=ppp_cli,
+        fast_samples_per_s_8=fast_rates[8],
+        fast_samples_per_s_1=fast_rates[1], fast_stage_ms=stages,
+        fast_vs_parity=worst,
+        fast_u8_err=u8_err, fast_step_ms=fast_step_s * 1e3,
+        fast_wait_share=fast_wait, fast_cli=fast_cli), launches
 
 
 class PhaseClock:
@@ -1899,22 +2266,32 @@ def main() -> int:
     clock.done(14)
 
     # Phase 15: the LIP reader and the paths fed from a LIP tree on disk.
+    trees = tempfile.TemporaryDirectory()
+    lip_root = os.path.join(trees.name, "lip")
     heatmaps.render_heatmaps.launches = 0  # the LIP-from-disk path's count
-    from_disk = lip_from_disk(tag, runs.name)
+    from_disk = lip_from_disk(tag, runs.name, lip_root)
     launches["lip_disk"] = heatmaps.render_heatmaps.launches
     clock.done(15)
+
+    # Phase 16: the PPP reader and the fused warp; it counts the kernel's
+    # launches on the PPP-from-disk and fused-LIP paths itself.
+    more_disk, disk_launches = ppp_and_fused_from_disk(
+        tag, runs.name, lip_root, from_disk)
+    launches.update(disk_launches)
+    clock.done(16)
+    trees.cleanup()
     runs.cleanup()
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
     summary = {"tiny_train": tiny, "train_step": train,
                "tiny_search": tiny_search, "search_pair": search,
                "tiny_serve": tiny_serve, "serve": serve,
                "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
-               "lip_disk": from_disk}
-    print(f"phase 15: heatmap kernel launches on the main paths: {launches}; "
+               "lip_disk": from_disk, "ppp_and_fused_disk": more_disk}
+    print(f"phase 16: heatmap kernel launches on the main paths: {launches}; "
           f"phase seconds {json.dumps(seconds)}; "
           f"summary {json.dumps(summary)}")
     for path in ("eval", "train", "search", "ppp_train", "ppp_search",
-                 "chain", "lip_disk"):
+                 "chain", "lip_disk", "ppp_disk", "lip_fast_disk"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")

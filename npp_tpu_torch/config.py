@@ -10,12 +10,14 @@ hyper-parameters (``search``). ``tiny`` gives the small test
 configuration of each, as the JAX CLIs' ``--tiny`` overrides make it:
 L=8, C=8, 128x128 crops, batch 4 for training and 2 for the search.
 
-The LIP preset also holds the YAML's dataset layout (``data``: the
-root, the image and label directories and the annotation files of each
-split, as ``npp_tpu/config.py`` loads them) and the reader's
-augmentation defaults (``reader``: ``LIPDataset``'s, which the YAML's
-``ROT_FACTOR`` and ``SCALE_FACTOR`` do not reach). The PPP reader is not
-ported, so the PPP preset has neither.
+Each preset also holds its dataset layout (``data``) and its reader's
+augmentation defaults (``reader``: ``LIPDataset``'s and ``PPPDataset``'s,
+which the YAMLs' ``ROT_FACTOR`` and ``SCALE_FACTOR`` do not reach). LIP's
+layout is the YAML's root, image and label directories and annotation
+files of each split, as ``npp_tpu/config.py`` loads them; PPP's is the
+YAML's root, image and label directories with the id lists, pose
+``.mat`` and mask ``.npy`` directories that ``tools/augment_lip.py``
+pairs with them.
 
 Both datasets take OHEM at 0.9 / 131072: ``LOSS.USE_OHEM: False`` in the
 YAMLs is read nowhere (``npp_tpu/config.py:56``), and npp_tpu always
@@ -111,6 +113,15 @@ PPP = Preset(
                lr_step=(75, 85, 95), lr_factor=0.1, epochs=150,
                num_samples=5000, **_LOSS, **_RUN),
     search_model=_net(7, 14, 12, 32),
-    search=LIP.search)  # the YAMLs' SEARCH sections differ in LAYERS only
+    search=LIP.search,  # the YAMLs' SEARCH sections differ in LAYERS only
+    # experiments/pascal/384_384.yaml:12-24 and tools/augment_lip.py:82-94
+    data=dict(root="data/pascal_data/", train_imroot="JPEGImages",
+              val_imroot="JPEGImages", train_segroot="SegmentationPart",
+              val_segroot="SegmentationPart", train_set="train_id.txt",
+              val_set="val_id.txt", pose_root="PersonJoints",
+              mask_root="masks"),
+    # npp_tpu/data/pascal.py:84-86 (PPPDataset's defaults)
+    reader=dict(scale_min=0.5, scale_max=1.25, max_rotate_degree=40,
+                max_center_trans=40, flip_prob=0.5))
 
 PRESETS = {p.name: p for p in (LIP, PPP)}

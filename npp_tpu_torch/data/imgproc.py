@@ -1,12 +1,15 @@
-"""The LIP reader's host image library: JPEG decoding, resize by a factor
+"""The readers' host image library: JPEG decoding, resize by a factor
 and affine warps, with OpenCV's rules and without cv2.
 
 Binds ``csrc/imgproc.cpp`` through ctypes. The library is built with the
 host C++ compiler (``g++``, else ``c++``, from ``PATH``) at its first use,
 into ``npp_tpu_torch/_build/`` under a name that carries a hash of the
-source, the compiler and the flags; importing this module builds nothing,
-and a failed build raises. ctypes releases the GIL for each call, so the
-loader's threads decode and warp in parallel.
+sources, the compiler, the flags and the host's name (``-march=native``
+ties a build to its machine); importing this module builds nothing, and a failed build raises. The same library holds the
+``--fast-aug`` fused warp (``csrc/fused_augment.cpp``, bound by
+``data/fast_aug.py``), compiled with flags of its own (``SOURCES``).
+ctypes releases the GIL for each call, so the loader's threads decode
+and warp in parallel.
 
 - ``decode_jpeg`` / ``read_jpeg``: baseline and extended sequential
   Huffman JPEGs, 8-bit, grey or YCbCr, any integral sampling, restart
@@ -27,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -34,10 +38,19 @@ from pathlib import Path
 
 import numpy as np
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "imgproc.cpp"
+_CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-# No -ffast-math: the warps' float32 rounding is part of their contract.
-CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
+# (source, compile flags). No -ffast-math in either: the warps' float32
+# rounding is part of their contract. imgproc.cpp follows OpenCV 5's
+# rule, so it forbids FMA contraction; fused_augment.cpp rounds as
+# npp_tpu's native/Makefile builds it (-O3 -march=native, GCC's default
+# contraction), so that one seed gives npp_tpu's fused-warp samples.
+SOURCES = (
+    (_CSRC_DIR / "imgproc.cpp",
+     ("-O2", "-std=c++17", "-fPIC", "-ffp-contract=off")),
+    (_CSRC_DIR / "fused_augment.cpp",
+     ("-O3", "-march=native", "-std=c++17", "-fPIC")),
+)
 _LIBRARY: dict = {}  # the loaded ctypes library, once built
 _LOCK = threading.Lock()
 _ERRLEN = 512
@@ -50,33 +63,47 @@ def _cxx() -> str:
         found = shutil.which(name)
         if found:
             return found
-    raise RuntimeError("no C++ compiler (g++ or c++) on PATH: the LIP "
-                       f"reader's host library is built from {_CSRC}")
+    raise RuntimeError("no C++ compiler (g++ or c++) on PATH: the readers' "
+                       f"host library is built from {_CSRC_DIR}")
+
+
+def _run(cmd: list) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def build_library() -> tuple[Path, str]:
-    """Compile ``csrc/imgproc.cpp`` into a shared library under
-    ``BUILD_DIR`` (named by a hash of the source, the compiler and the
-    flags, so an edit rebuilds). Returns (library path, compiler output;
-    empty when the library was already built). Raises on a failed
-    build."""
+    """Compile each source of ``SOURCES`` with its flags and link them
+    into one shared library under ``BUILD_DIR`` (named by a hash of the
+    sources, the compiler, the flags and the host's name, so an edit or
+    another machine rebuilds). Returns
+    (library path, compiler output; empty when the library was already
+    built). Raises on a failed build."""
     cxx = _cxx()
-    src = _CSRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join((cxx, *CXX_FLAGS)).encode()
-                         ).hexdigest()
-    out = BUILD_DIR / f"libimgproc_{tag[:16]}.so"
+    key = hashlib.sha256(f"{cxx} {platform.node()}".encode())
+    for src, flags in SOURCES:
+        key.update(src.read_bytes() + " ".join(flags).encode())
+    out = BUILD_DIR / f"libimgproc_{key.hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}"
-                        ".tmp")
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(_CSRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{cxx} failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    stem = f"{out.name}.{os.getpid()}.{threading.get_ident()}"
+    objs, log = [], ""
+    try:
+        for src, flags in SOURCES:
+            obj = out.with_name(f"{stem}.{src.stem}.o")
+            objs.append(obj)
+            log += _run([cxx, *flags, "-c", "-o", str(obj), str(src)])
+        tmp = out.with_name(f"{stem}.tmp")
+        log += _run([cxx, "-shared", "-o", str(tmp), *map(str, objs)])
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, log
 
 
 def _library() -> ctypes.CDLL:
@@ -105,6 +132,17 @@ def _library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
                 ctypes.c_int, ctypes.c_int]
             lib.npp_warp_affine_u8.restype = ctypes.c_int
+            # the fused warp (data/fast_aug.py)
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            geometry = [p, p, i, i, f, f, f, f, i, i, i]
+            lib.npp_fused_augment.argtypes = geometry + [p, p, p, p, p]
+            lib.npp_fused_augment_u8.argtypes = geometry + [p, p, p]
+            lib.npp_transform_joints.argtypes = [p, i, i, i, f, f, f, f, i,
+                                                 i]
+            for fn in (lib.npp_fused_augment, lib.npp_fused_augment_u8,
+                       lib.npp_transform_joints):
+                fn.restype = None
+            lib.npp_native_version.restype = i
             _LIBRARY["lib"] = lib
         return _LIBRARY["lib"]
 

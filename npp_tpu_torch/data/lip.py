@@ -10,11 +10,15 @@ JSON annotations with ``json``. The augmentation chain is
 warped labels, joints, visibility, scale, crop_param); the loader
 renders the heatmaps and edges on the device.
 
+``FastLIPDataset`` (``npp_tpu/data/lip.py:155-242``, the CLIs'
+``--fast-aug``) draws its own five numbers per train sample and runs the
+chain as one bilinear warp of the host library (``data/fast_aug.py``);
+it has no fallback to the parity path.
+
 One ``np.random.default_rng(seed)`` serves every call, as in npp_tpu: a
 loader with several threads shares it, so which sample gets which draws
 then depends on thread scheduling (sequential ``__getitem__`` calls give
-npp_tpu's samples). ``FastLIPDataset`` (the ``--fast-aug`` fused warp)
-is not ported.
+npp_tpu's samples).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import os
 import numpy as np
 
 from npp_tpu_torch.data import augmentation as aug
+from npp_tpu_torch.data import fast_aug
 from npp_tpu_torch.data import targets as tgt
 from npp_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
 from npp_tpu_torch.utils.vis import read_image, read_png
@@ -178,9 +183,91 @@ class LIPDataset:
         }
 
 
-def dataset_for(layout: dict, split: str, root: str, **kw) -> LIPDataset:
-    """The ``LIPDataset`` of ``split`` (a key of ``SPLITS``) under
-    ``root``, with the directories and annotation file that ``layout``
-    names for it; ``kw`` go to ``LIPDataset``."""
+class FastLIPDataset(LIPDataset):
+    """``LIPDataset`` with the fused warp (``--fast-aug``): scale,
+    rotate, crop and flip as one bilinear inverse warp with the
+    normalisation fused in, and one nearest warp of the labels. Train
+    mode draws five ``rng.random()`` per sample (scale, degree, jitter x,
+    jitter y, flip), npp_tpu's order, so one seed gives npp_tpu's
+    samples. ``crop_param`` is in the parity reader's format, so the eval
+    decode inverts it alike."""
+
+    def _build_sample(self, im, parsing_anno, joints, visibility, center,
+                      name, flip_pairs,
+                      flip_right=aug.RIGHT_IDX, flip_left=aug.LEFT_IDX):
+        cw, ch = self.crop_size
+        rng = self.rng
+        base_scale = float(cw) / max(im.shape[0], im.shape[1])
+        if self.is_train:
+            mult = (self.scale_max - self.scale_min) * rng.random() \
+                + self.scale_min
+            scale = base_scale * mult
+            deg = (rng.random() - 0.5) * 2 * self.max_rotate_degree
+            jitter_x = int((rng.random() - 0.5) * 2 * self.max_center_trans)
+            jitter_y = int((rng.random() - 0.5) * 2 * self.max_center_trans)
+            flip = bool(rng.random() < self.flip_prob)
+        else:
+            scale, deg, jitter_x, jitter_y, flip = base_scale, 0.0, 0, 0, \
+                False
+
+        # The person centre after scale and rotate (before the crop), as
+        # rotate_coords(scale_coords(center)) gives it in the parity chain.
+        r = np.deg2rad(deg)
+        cs, sn = np.cos(r), np.sin(r)
+        sw, sh = im.shape[1] * scale, im.shape[0] * scale
+        new_w = abs(sn) * sh + abs(cs) * sw
+        new_h = abs(sn) * sw + abs(cs) * sh
+        cx0, cy0 = center[0, 0] * scale, center[0, 1] * scale
+        rx = (cs * (cx0 - sw / 2) + sn * (cy0 - sh / 2)) + new_w / 2
+        ry = (-sn * (cx0 - sw / 2) + cs * (cy0 - sh / 2)) + new_h / 2
+
+        off_x = int(rx + jitter_x - cw / 2.0)
+        off_y = int(ry + jitter_y - ch / 2.0)
+        out_img, out_par, out_joints = fast_aug.fused_augment(
+            im, parsing_anno, joints.astype(np.float32), scale=scale,
+            rot_deg=deg, crop_dx=float(-off_x), crop_dy=float(-off_y),
+            flip=flip, out_hw=(ch, cw),
+            swap_lut=fast_aug.make_swap_lut(flip_pairs),
+            as_uint8=self.device_normalize)
+        if flip:
+            out_joints = aug.swap_left_and_right(out_joints, flip_right,
+                                                 flip_left)
+            visibility = visibility.copy()
+            for rr, ll in zip(flip_right, flip_left):
+                visibility[rr], visibility[ll] = (visibility[ll],
+                                                  visibility[rr])
+
+        # The parity reader's crop_param (crop start - store start = the
+        # offset per axis; the ends clamped to the rotated canvas, as
+        # augmentation_cropped does), so the eval decode inverts alike.
+        canvas_w = int(new_w) if self.is_train and deg != 0.0 \
+            else int(round(im.shape[1] * scale))
+        canvas_h = int(new_h) if self.is_train and deg != 0.0 \
+            else int(round(im.shape[0] * scale))
+        crop_sx, crop_sy = max(off_x, 0), max(off_y, 0)
+        store_sx, store_sy = max(-off_x, 0), max(-off_y, 0)
+        crop_ex = min(off_x + cw, canvas_w - 1)
+        crop_ey = min(off_y + ch, canvas_h - 1)
+        crop_param = np.array([[crop_sx, crop_sy, store_sx, store_sy,
+                                crop_ex, crop_ey,
+                                store_sx + (crop_ex - crop_sx),
+                                store_sy + (crop_ey - crop_sy)]],
+                              np.float32)
+        return {
+            "image": out_img,
+            "par": out_par,
+            "joints": out_joints.astype(np.float32),
+            "visibility": visibility.astype(np.float32),
+            "scale": np.float32(scale),
+            "crop_param": crop_param,
+            "name": name,
+        }
+
+
+def dataset_for(layout: dict, split: str, root: str, cls=LIPDataset,
+                **kw) -> LIPDataset:
+    """The ``cls`` (``LIPDataset`` or ``FastLIPDataset``) of ``split`` (a
+    key of ``SPLITS``) under ``root``, with the directories and
+    annotation file that ``layout`` names for it; ``kw`` go to ``cls``."""
     im_root, anno, seg_root = (layout[k] for k in SPLITS[split])
-    return LIPDataset(root, im_root, anno, seg_root, **kw)
+    return cls(root, im_root, anno, seg_root, **kw)

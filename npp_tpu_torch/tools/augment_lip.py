@@ -19,14 +19,20 @@ checkpoint directory's weights into it (its ``best`` checkpoint, else the
 latest epoch's; ``core/checkpoint.load_pretrained_params``), after
 ``--resume`` as in the JAX CLI, logging what it loaded and skipped.
 
-Data: a LIP directory (``--data-root``, by default the YAML's
-``data/LIP/``) laid out as ``config.LIP.data`` names it: the train set
-(``LIPDataset`` with the reader's augmentation, seeded by ``--seed``) and
-the val set (its first ``num_samples`` = 5000 entries, no augmentation);
-``--gt-csv`` adds the PCKh of each validation against that LIP pose CSV
-(without it the validation reports mIoU only). ``--synthetic`` trains on
-synthetic data instead (the only source for ``--dataset ppp``: the PPP
-reader is not ported).
+Data: the dataset's directory (``--data-root``, by default the YAML's
+``data/LIP/`` or ``data/pascal_data/``) laid out as the preset's
+``data`` names it: the train set (augmented by the preset's reader,
+seeded by ``--seed``) and the val set (its first ``num_samples`` = 5000
+entries, no augmentation). A LIP directory holds the images, grey PNG
+labels and annotation JSONs of ``config.LIP.data`` (``LIPDataset``, or
+with ``--fast-aug`` the fused warp of ``FastLIPDataset``); ``--gt-csv``
+adds the PCKh of each validation against a LIP pose CSV (without it the
+LIP validation reports mIoU only). A PPP directory holds
+``JPEGImages/<id>.jpg``, ``SegmentationPart/<id>.png`` (8-bit grey part
+labels 0-6), ``PersonJoints/<id>.mat`` (the GT persons' boxes and
+joints), ``masks/<id>.npy`` (Mask-R-CNN instances) and the id lists
+``train_id.txt`` and ``val_id.txt`` (``PPPDataset``: one sample per
+matched person). ``--synthetic`` trains on synthetic data instead.
 
 Each epoch: ``engine.train_epoch`` over the shuffled train set (the
 loader renders each batch's targets on the device: the heatmap kernel
@@ -40,6 +46,10 @@ Examples:
       --gt-csv data/LIP/pose_csv/pose_gt.csv
   python -m npp_tpu_torch.tools.augment_lip --synthetic --steps 20 \\
       --epochs 1
+  python -m npp_tpu_torch.tools.augment_lip --data-root data/LIP \\
+      --fast-aug
+  python -m npp_tpu_torch.tools.augment_lip --dataset ppp \\
+      --data-root data/pascal_data
   python -m npp_tpu_torch.tools.augment_lip --synthetic --dataset ppp \\
       --steps 2 --epochs 1
   python -m npp_tpu_torch.tools.augment_lip --synthetic --tiny \\
@@ -60,7 +70,7 @@ from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import train as T
 from npp_tpu_torch.core.checkpoint import (CheckpointManager,
                                            load_pretrained_params)
-from npp_tpu_torch.data.lip import dataset_for
+from npp_tpu_torch.data import lip, pascal
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import load_genotypes
@@ -72,12 +82,13 @@ TINY_TRAIN = LIP.train_config(tiny=True)[1]
 
 
 def build_loaders(hp: dict, device, preset=LIP, data_root: str | None = None,
-                  seed: int = 0):
-    """(train loader, val loader): with ``data_root`` the LIP directory's
-    train set (augmented, the reader seeded by ``seed``) and val set (its
-    first ``num_samples`` entries), else synthetic data shaped as
-    ``preset``'s (val: 2 x batch images, seed 7); both render their
-    targets on ``device`` and normalise the uint8 images there."""
+                  seed: int = 0, fast_aug: bool = False):
+    """(train loader, val loader): with ``data_root`` the dataset
+    directory's train set (augmented, the reader seeded by ``seed``; LIP
+    with ``fast_aug`` through ``FastLIPDataset``) and val set (its first
+    ``num_samples`` entries), else synthetic data shaped as ``preset``'s
+    (val: 2 x batch images, seed 7); both render their targets on
+    ``device`` and normalise the uint8 images there."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
                                     num_joints=preset.num_joints,
                                     ignore=IGNORE, normalize_images=True)
@@ -85,10 +96,15 @@ def build_loaders(hp: dict, device, preset=LIP, data_root: str | None = None,
     if data_root is not None:
         common = dict(crop_size=crop, sigma=SIGMA, device_normalize=True,
                       seed=seed, **preset.reader)
-        train_ds = dataset_for(preset.data, "train", data_root,
-                               is_train=True, **common)
-        val_ds = dataset_for(preset.data, "val", data_root, is_train=False,
-                             sample=hp["num_samples"] or -1, **common)
+        if preset.name == "ppp":
+            reader = pascal.dataset_for
+        else:
+            common["cls"] = lip.FastLIPDataset if fast_aug else lip.LIPDataset
+            reader = lip.dataset_for
+        train_ds = reader(preset.data, "train", data_root, is_train=True,
+                          **common)
+        val_ds = reader(preset.data, "val", data_root, is_train=False,
+                        sample=hp["num_samples"] or -1, **common)
     else:
         common = dict(crop_size=crop, num_joints=preset.num_joints,
                       num_classes=preset.num_classes, device_normalize=True)
@@ -104,16 +120,16 @@ def build_loaders(hp: dict, device, preset=LIP, data_root: str | None = None,
 
 
 def data_source(p: argparse.ArgumentParser, args, preset) -> str | None:
-    """The LIP root the CLI reads (None: ``--synthetic``); refuses the
-    combinations that are not ported or make no sense."""
+    """The dataset root the CLI reads (None: ``--synthetic``); refuses
+    the combinations that make no sense."""
     if args.synthetic:
         if args.data_root or getattr(args, "gt_csv", ""):
-            p.error("--data-root and --gt-csv read a LIP directory; drop "
-                    "them with --synthetic")
+            p.error("--data-root and --gt-csv read a dataset directory; "
+                    "drop them with --synthetic")
         return None
-    if preset.name != "lip":
-        p.error(f"the {preset.name.upper()} reader is not ported yet: give "
-                f"--synthetic with --dataset {preset.name}")
+    if preset.name != "lip" and getattr(args, "gt_csv", ""):
+        p.error("--gt-csv is LIP's PCKh ground truth; the "
+                f"{preset.name.upper()} validation scores its heatmap PCK")
     return args.data_root or preset.data["root"]
 
 
@@ -215,7 +231,8 @@ def main(argv=None) -> dict:
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data shaped as the dataset's")
     p.add_argument("--data-root", default="",
-                   help="LIP directory (default: the YAML's data/LIP/)")
+                   help="dataset directory (default: the YAML's data/LIP/ "
+                        "or data/pascal_data/)")
     p.add_argument("--gt-csv", default="",
                    help="LIP pose ground-truth CSV: adds PCKh to each "
                         "validation")
@@ -229,6 +246,9 @@ def main(argv=None) -> dict:
                         "150 for PPP)")
     p.add_argument("--tiny", action="store_true",
                    help="L=8, C=8, 128x128, batch 4")
+    p.add_argument("--fast-aug", action="store_true",
+                   help="LIP from disk: the fused-warp reader "
+                        "(FastLIPDataset) for the train and val sets")
     p.add_argument("--genotype", default="",
                    help="genotype JSON from a search run (best_genotype.json)")
     p.add_argument("--pretrained-encoder", default="",
@@ -246,6 +266,9 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     preset = PRESETS[args.dataset]
     data_root = data_source(p, args, preset)
+    if args.fast_aug and (data_root is None or preset.name != "lip"):
+        p.error("--fast-aug is the LIP directory's fused-warp reader: drop "
+                "--synthetic and --dataset ppp")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -267,7 +290,8 @@ def main(argv=None) -> dict:
                 args.genotype)
             logger.info(f"loaded searched genotypes from {args.genotype}")
         train_loader, val_loader = build_loaders(hp, device, preset,
-                                                 data_root, args.seed)
+                                                 data_root, args.seed,
+                                                 args.fast_aug)
         if args.steps:
             train_loader = LimitedLoader(train_loader, args.steps)
             val_loader = LimitedLoader(val_loader, max(1, args.steps // 2))

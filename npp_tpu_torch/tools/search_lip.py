@@ -24,10 +24,16 @@ train (``_w``) and mini (``_a``) sets with the reader's augmentation
 (seeded by ``--seed``) and the first 5000 entries of the val set;
 ``--gt-csv`` adds the PCKh of each validation against that LIP pose CSV.
 ``--synthetic``: synthetic train, mini and val sets instead (8 x batch,
-8 x batch and 2 x batch images, seeds 0, 1 and 2; the only source for
-``--dataset ppp``: the PPP reader is not ported). The train and mini
+8 x batch and 2 x batch images, seeds 0, 1 and 2). The train and mini
 loaders shuffle (the mini one with seed 1), and each renders its batch's
 targets on the device (the heatmap kernel on a card).
+
+``--dataset ppp`` searches on synthetic data only: npp_tpu's search CLI
+reads no PPP directory. On disk it builds ``LIPDataset`` from the PPP
+YAML's ``SEARCH`` sets, which are LIP annotation JSONs
+(``tools/search_lip.py:92-101``, ``experiments/pascal/384_384.yaml:46-48``),
+so under a PPP root it finds nothing to read, and its 16-joint samples
+would not fit the 14-joint targets.
 
 Each epoch: weight steps alone during the warmup, then
 ``engine.search_epoch`` (a weight step on a train batch, an arch step on
@@ -176,6 +182,10 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     preset = PRESETS[args.dataset]
+    if preset.name == "ppp" and not args.synthetic:
+        p.error("--dataset ppp searches on --synthetic data only: npp_tpu's "
+                "search reads the PPP YAML's SEARCH sets, which are LIP "
+                "annotation JSONs, not a PPP directory")
     data_root = data_source(p, args, preset)
 
     device = torch.device(args.device)

@@ -3,10 +3,10 @@ nor cv2, PIL or yaml, which the card machine lacks.
 
 Checked in a fresh interpreter, because this test process has imported
 jax already (tests/conftest.py). Importing also builds nothing: neither
-the heatmap kernel nor the LIP reader's host library. The search,
-serving, PPP / chain and LIP reader slices' modules are also imported
-each on its own, so that none of them leans on another module having
-been imported first.
+the heatmap kernel nor the readers' host library. The search,
+serving, PPP / chain, LIP reader and PPP reader / fused-warp slices'
+modules are also imported each on its own, so that none of them leans
+on another module having been imported first.
 """
 import os
 import subprocess
@@ -58,6 +58,8 @@ LIP_MODULES = ("npp_tpu_torch.data.imgproc",
                "npp_tpu_torch.data.augmentation",
                "npp_tpu_torch.data.targets",
                "npp_tpu_torch.data.lip")
+DATA_MODULES = ("npp_tpu_torch.data.fast_aug",
+                "npp_tpu_torch.data.pascal")
 
 
 def _run(code: str) -> str:
@@ -70,13 +72,13 @@ def _run(code: str) -> str:
 
 def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
     n_mods, bad = _run(PROBE).split(" ", 1)
-    assert int(n_mods) >= 42
+    assert int(n_mods) >= 44
     assert bad.strip() == "[]", bad
 
 
 @pytest.mark.parametrize("module",
                          SEARCH_MODULES + SERVE_MODULES + PPP_MODULES
-                         + LIP_MODULES)
+                         + LIP_MODULES + DATA_MODULES)
 def test_search_module_imports_alone_without_jax(module):
     bad = _run(f"import importlib, sys\n"
                f"importlib.import_module({module!r})\n"

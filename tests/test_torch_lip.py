@@ -40,7 +40,7 @@ from npp_tpu_torch.data import imgproc  # noqa: E402
 from npp_tpu_torch.data import lip as tlip  # noqa: E402
 from npp_tpu_torch.data import targets as ttgt  # noqa: E402
 from npp_tpu_torch.tools import (augment_lip, eval_lip, predict,  # noqa: E402
-                                 test_lip)
+                                 search_lip, test_lip)
 from npp_tpu_torch.utils import vis  # noqa: E402
 
 DECODE_ATOL = 1
@@ -474,8 +474,10 @@ def test_predict_cli_serves_jpegs(tmp_path):
 
 
 def test_clis_refuse_ppp_and_mixed_sources(png_tree):
+    # The train CLI reads a PPP directory now; the search CLI still
+    # refuses one (npp_tpu's search reads LIP JSONs under the PPP root).
     root, gt = png_tree
     with pytest.raises(SystemExit):
-        augment_lip.main(["--dataset", "ppp", "--data-root", root, *CPU])
+        search_lip.main(["--dataset", "ppp", "--data-root", root, *CPU])
     with pytest.raises(SystemExit):
         eval_lip.main(["--synthetic", "--gt-csv", gt, *CPU])
