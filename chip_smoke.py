@@ -67,7 +67,20 @@ samples/s of each reader with 8 threads and 1, the PPP bs2 and the fused
 LIP bs16 bf16 train steps fed from disk with the loop's wait, the bf16
 vs fp32 PPP loss, validate_ppp on the val tree, the fused reader against
 the parity one and its uint8 path against its float32 one, the train CLI
-with ``--dataset ppp`` and with ``--fast-aug``).
+with ``--dataset ppp`` and with ``--fast-aug``), 17 data parallelism:
+17a two gloo ranks sharing the card (spawned processes, the tiny
+configuration in fp32 at batch 2 a rank) against one process at batch 4
+fed the ranks' batches in rank order (three DDP train steps, ZeRO-1
+against plain DDP, a search pair, the arch step alone, the gathered
+validate and validate_ppp over a set the ranks do not divide), then
+each rank's flagship bf16 train step at bs8 timed and profiled, 17b
+NCCL at world size 1 (the flagship bs16 bf16 DDP step timed and
+profiled with find_unused_parameters off and on, beside phase 7's
+unwrapped step; the
+train CLI with and without ``--zero``, the search CLI with ``--tiny
+--zero`` and the eval CLI on the train CLI's checkpoint, each under
+``python -m torch.distributed.run``; ``chip_smoke.py --cli MODULE JSON
+ARGS`` is the rank those launches run).
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -78,10 +91,12 @@ from __future__ import annotations
 import collections
 import copy
 import hashlib
+import importlib
 import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -90,6 +105,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from npp_tpu_torch import engine
 from npp_tpu_torch.config import LIP, PPP
@@ -114,6 +131,7 @@ from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.ops import heatmaps
+from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.tools import (augment_lip, eval_lip, eval_ppp_map,
                                  predict, search_lip, test_lip)
 from npp_tpu_torch.utils import metrics as M
@@ -127,6 +145,9 @@ KERNEL_SHAPES = (  # (B, J, gy, gx, sigma)
     (7, 16, 96, 96, 3.0),    # the search slice's
     (2, 14, 96, 96, 3.0),    # the PPP train slice's
     (7, 14, 96, 96, 3.0),    # the PPP search slice's
+    (2, 16, 32, 32, 3.0),    # phase 17's tiny shards, train and search
+    (1, 16, 32, 32, 3.0),    # 17a's validate at bs1 a rank
+    (1, 14, 32, 32, 3.0),    # 17a's validate_ppp at bs1 a rank
 )
 TIMED_SHAPES = {0: "eval", 3: "train", 4: "search", 5: "ppp_train",
                 6: "ppp_search"}
@@ -176,7 +197,8 @@ ENTROPY_RTOL = 1e-6
 STATS_ATOL = 1e-6
 ARCH_TIE = 0.1
 ARCH_ATOL = 1e-6
-SEARCH_TIMED = 6         # timed bi-level pairs; the first is dropped as warm-up
+SEARCH_TIMED = 4         # timed bi-level pairs; the first is dropped as warm-up
+                         # (4, not 6, so that the script stays near 700 s)
 # Phase 10, the tiny Predictor on the card against the CPU (fp32, TF32
 # off): labels agree on LABEL_SHARE of the pixels (an argmax whose top two
 # logits are within rounding may part), keypoints to KP_ATOL px wherever
@@ -2124,6 +2146,612 @@ def ppp_and_fused_from_disk(tag: str, out_root: str, lip_root: str,
         fast_wait_share=fast_wait, fast_cli=fast_cli), launches
 
 
+# Phase 17: data parallelism. 17a: two gloo ranks sharing the card
+# against one process; 17b: NCCL at world size 1, the DDP step timed and
+# the train, eval and search CLIs under torchrun.
+SHARED_WORLD = 2          # gloo ranks on cuda:0
+SHARED_TIMEOUT_S = 420    # a rank that has not ended by then fails the phase
+SHARED_STEPS = 3          # DDP train steps against the one-process run
+# 17a's bounds are tests/test_torch_parallel.py's where they carry over:
+# the first step's losses and lambda gradients at rtol 1e-5, its running
+# stats at 1e-4 x max|ref| + STATS_ATOL, its weights by Adam's first step
+# (lr * g / (|g| + eps) of each side's gradient). Its gradients are held
+# by phase 6's rule (TINY_GRAD_TENSOR, TINY_GRAD_NORM), set for this
+# configuration: at L=8 and 128x128 the deepest maps are smaller than at
+# the test's L=4, 64x64, and the fp32 gradients keep fewer digits (the
+# test's tighter rule gave 1.54 and a norm of 0.011 here, on the CPU).
+# Later steps as phase 6: losses at TINY_LOSS_RTOL, lambdas at
+# TINY_LAMDA_ATOL. The search pair's losses at test_torch_search.py's
+# (weight step 1e-5, arch step 1e-3); the arch step alone from the seeded
+# state: its loss at 1e-5, its architecture gradients by phase 6's rule
+# and their update by Adam's first-step rule with the arch Adam's L2
+# decay. The card's backward is not bit-stable (atomics), so ZeRO is
+# held to plain DDP by the same first-step rules and RESUME_RTOL after.
+N_SHARED_VAL = 5          # validate's set: two ranks do not divide it
+DDP_TIMED = 6             # timed DDP steps; the first is dropped as warm-up
+SHARED_TIMED = 4          # 17a's flagship steps a rank; the first is dropped
+
+
+def shard_batch(device, seed: int, rank: int, world: int, n: int = 4):
+    """Rank ``rank``'s contiguous share of phase 6's batch of ``n`` (the
+    global batch is the ranks' shares in rank order), uploaded and
+    rendered on ``device`` (the heatmap kernel on the card)."""
+    ds = SyntheticDataset(length=n, crop_size=augment_lip.TINY_TRAIN["crop"],
+                          seed=seed, device_normalize=True)
+    host = L.collate([ds[i] for i in range(n)])
+    gain = np.linspace(0.25, 1.0, n, dtype=np.float32)
+    host["image"] = (host["image"] * gain[:, None, None, None]).astype(
+        np.uint8)
+    host["par"][1, :32, :60] = eval_lip.IGNORE  # the shards' ignored
+    host["par"][3, 80:, :90] = eval_lip.IGNORE  # pixels differ
+    share = slice(rank * n // world, (rank + 1) * n // world)
+    keys = ("image", "par", "joints", "visibility")
+    batch = {k: torch.from_numpy(np.ascontiguousarray(host[k][share]))
+             .to(device) for k in keys}
+    renderer = L.make_target_renderer(stride=4, sigma=eval_lip.SIGMA,
+                                      num_joints=eval_lip.NUM_JOINTS,
+                                      ignore=eval_lip.IGNORE,
+                                      normalize_images=True)
+    batch.update(renderer(*(batch[k] for k in keys)))
+    return batch
+
+
+def train_snapshot(state) -> dict:
+    cpu = lambda t: t.detach().float().cpu().clone()
+    return {"params": {n: cpu(p) for n, p in state.model.named_parameters()},
+            "grads": {n: cpu(p.grad)
+                      for n, p in state.model.named_parameters()},
+            "stats": {n: cpu(t) for n, t in state.model.state_dict().items()
+                      if "running" in n},
+            "lamdas": {k: cpu(p) for k, p in state.lamdas.items()},
+            "lamda_grads": {k: cpu(p.grad) for k, p in state.lamdas.items()}}
+
+
+def shared_card_work(device, group) -> dict:
+    """17a's work, run by each gloo rank (``group``) and by the one
+    process (``group=None``) on the same card: SHARED_STEPS tiny fp32
+    train steps under DDP (and, on the ranks, under ZeRO-1), one search
+    pair, ``validate`` and ``validate_ppp`` at batch 1 over
+    N_SHARED_VAL images. Each rank takes its share of the batch of 4."""
+    rank, world = ((0, 1) if group is None else
+                   (dist.get_rank(group), dist.get_world_size(group)))
+    hp = augment_lip.TINY_TRAIN
+    out = {}
+    for zero in ((False, True) if group is not None else (False,)):
+        state = augment_lip.init_state(eval_lip.TINY, hp, device=device,
+                                       dtype=torch.float32, seed=SEED,
+                                       steps_per_epoch=1, group=group,
+                                       zero=zero)
+        step = augment_lip.make_train_step(hp)
+        losses, first = [], None
+        for i in range(SHARED_STEPS):
+            losses.append(step(state, shard_batch(device, SEED + i, rank,
+                                                  world))["loss"].item())
+            if i == 0:
+                first = train_snapshot(state)
+        out["zero" if zero else "ddp"] = dict(
+            losses=losses, first=first, last=train_snapshot(state))
+        del state
+    shp = search_lip.TINY_SEARCH
+    sstate = search_lip.init_state(search_lip.TINY_SEARCH_MODEL, shp,
+                                   device=device, dtype=torch.float32,
+                                   seed=SEED, steps_per_epoch=1, group=group)
+    weight_step, arch_step = search_lip.make_search_steps(shp)
+    m1 = weight_step(sstate, shard_batch(device, SEED + 10, rank, world))
+    m2 = arch_step(sstate, shard_batch(device, SEED + 11, rank, world), 1.0)
+    out["search"] = dict(losses=[m1["loss"].item(), m2["loss"].item()],
+                         entropy=m2["entropy"].item())
+    # The arch step alone, from the seeded state: its gradients and the
+    # arch Adam's first update are held against the one process's.
+    sstate = search_lip.init_state(search_lip.TINY_SEARCH_MODEL, shp,
+                                   device=device, dtype=torch.float32,
+                                   seed=SEED, steps_per_epoch=1, group=group)
+    arch = sstate.model.arch_parameters()
+    seeded = {k: p.detach().cpu().clone() for k, p in arch.items()}
+    m = arch_step(sstate, shard_batch(device, SEED + 11, rank, world), 1.0)
+    out["arch_step"] = dict(
+        loss=m["loss"].item(), seeded=seeded,
+        params={k: p.detach().cpu().clone() for k, p in arch.items()},
+        grads={k: p.grad.detach().cpu().clone() for k, p in arch.items()})
+    del sstate, arch
+    for name, preset in (("validate", LIP), ("validate_ppp", PPP)):
+        model_kw = dict(eval_lip.TINY, num_classes=preset.num_classes,
+                        num_joints=preset.num_joints)
+        model = build_nppnet(device=device, dtype=torch.float32,
+                             generator=torch.Generator().manual_seed(SEED),
+                             **model_kw)
+        ds = SyntheticDataset(length=N_SHARED_VAL, crop_size=(128, 128),
+                              num_joints=preset.num_joints,
+                              num_classes=preset.num_classes, seed=SEED,
+                              is_train=False, device_normalize=True)
+        renderer = L.make_target_renderer(stride=4, sigma=eval_lip.SIGMA,
+                                          num_joints=preset.num_joints,
+                                          ignore=eval_lip.IGNORE,
+                                          normalize_images=True)
+        loader = L.DataLoader(ds, 1, device=device, num_workers=1,
+                              renderer=renderer)
+        crit = init_criterion_params(2, device)
+        kw = dict(num_classes=preset.num_classes,
+                  class_weights=preset.class_weights,
+                  ignore_index=eval_lip.IGNORE)
+        if preset is LIP:
+            res = E.validate(E.make_eval_step(model, decode_hw=(128, 128),
+                                              **kw),
+                             crit, loader, num_classes=preset.num_classes)
+            out[name] = dict(cm=res["cm"], loss=res["loss"],
+                             preds=res["pose_preds"], names=res["names"])
+        else:
+            res = E.validate_ppp(E.make_ppp_eval_step(model, **kw), crit,
+                                 loader, num_classes=preset.num_classes,
+                                 log_fn=lambda s: None)
+            out[name] = dict(cm=res["cm"], loss=res["loss"], pck=res["pck"])
+    return out
+
+
+def timed_train_step(step, state, batches, n: int) -> dict:
+    """``n`` train steps over ``batches`` after a warm-up one: the median
+    of the last ``n`` - 1 (host clock after ``synchronize``), each step's
+    ms, one profiled step (``profile_step``), the idle share and the peak
+    memory."""
+    step(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        loss = step(state, batches[i % len(batches)])["loss"]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not math.isfinite(loss.item()):
+        raise AssertionError("non-finite train loss")
+    step_s = statistics.median(times[1:])
+    prof = profile_step(step, state, batches[0])
+    return dict(step_ms=step_s * 1e3, times_ms=[x * 1e3 for x in times],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                idle_share=1.0 - prof["busy_ms"] / (step_s * 1e3), **prof)
+
+
+def shared_card_flagship(device, group) -> dict:
+    """17a: the flagship bf16 channels_last train step at the preset's
+    batch split over the ranks (bs8 a rank), with the cross-rank BN and
+    the global criterion, timed and profiled on this rank."""
+    hp = dict(augment_lip.FLAGSHIP_TRAIN,
+              batch_size=augment_lip.FLAGSHIP_TRAIN["batch_size"]
+              // dist.get_world_size(group))
+    train_loader, _ = augment_lip.build_loaders(hp, device)
+    batches = take(train_loader, 2)
+    state = augment_lip.init_state(
+        eval_lip.FLAGSHIP, hp, device=device, dtype=torch.bfloat16,
+        seed=SEED, steps_per_epoch=len(train_loader), group=group)
+    out = timed_train_step(augment_lip.make_train_step(hp), state, batches,
+                           SHARED_TIMED)
+    out["batch"] = hp["batch_size"]
+    return out
+
+
+def shared_card_rank(rank: int, port: int, out_dir: str) -> None:
+    """A 17a rank (spawned): joins the gloo group of SHARED_WORLD ranks on
+    cuda:0 through torchrun's variables, runs ``shared_card_work`` and
+    ``shared_card_flagship``, saves its results and its heatmap kernel
+    launches."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SHARED_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not mesh.initialize_distributed("cuda:0", backend="gloo"):
+        raise RuntimeError("the gloo group did not start")
+    try:
+        heatmaps.render_heatmaps.launches = 0
+        out = shared_card_work("cuda:0", mesh.data_group())
+        out["flagship"] = shared_card_flagship("cuda:0", mesh.data_group())
+        out["launches"] = heatmaps.render_heatmaps.launches
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def grad_rule(got: dict, ref: dict) -> tuple:
+    """(worst per-tensor ratio of phase 6's rule, its tensor, norm error)
+    of ``got`` against ``ref``."""
+    model_max = max(r.abs().max().item() for r in ref.values())
+    worst, key, sq_d, sq_r = 0.0, "", 0.0, 0.0
+    for n, r in ref.items():
+        d = (got[n].double() - r.double())
+        share = d.abs().max().item() / (r.abs().max().item()
+                                        + 1e-4 * model_max)
+        if share > worst:
+            worst, key = share, n
+        sq_d += float((d * d).sum())
+        sq_r += float((r.double() ** 2).sum())
+    return worst, key, (sq_d / sq_r) ** 0.5
+
+
+def adam_first_step_err(got: dict, ref: dict, lr: float,
+                        decay: float = 0.0) -> float:
+    """The worst share of Adam's first-step bound: weights from equal
+    seeded values differ by lr * |u(g) - u(g_ref)| (u(g) = g / (|g| +
+    eps)) plus rounding. With an L2 ``decay``, g is the gradient plus
+    decay x the seeded value (``ref["seeded"]``), as Adam adds it."""
+    worst = 0.0
+    u = lambda g: g.double() / (g.double().abs() + 1e-8)
+    for n, w in ref["params"].items():
+        g, g_ref = got["grads"][n].double(), ref["grads"][n].double()
+        if decay:
+            g = g + decay * ref["seeded"][n].double()
+            g_ref = g_ref + decay * ref["seeded"][n].double()
+        bound = (lr * (u(g) - u(g_ref)).abs()
+                 + 1e-7 + 1e-6 * w.double().abs())
+        worst = max(worst, ((got["params"][n].double() - w.double()).abs()
+                            / bound).max().item())
+    return worst
+
+
+def stats_err(got: dict, ref: dict) -> float:
+    return max(((got[n] - r).abs().max().item()
+                / (r.abs().max().item() * 1e-4 + STATS_ATOL))
+               for n, r in ref.items())
+
+
+def shared_card(tag: str, train: dict) -> tuple[dict, int]:
+    """17a: SHARED_WORLD gloo ranks share cuda:0 (spawned processes), the
+    tiny configuration in fp32 with TF32 off at batch 2 a rank, against
+    one process at batch 4 on the same card fed the ranks' batches
+    concatenated in rank order; then each rank's flagship bf16 step at
+    bs8, beside phase 7's unwrapped bs16 step (``train``). Returns the
+    numbers and the ranks' heatmap kernel launches."""
+    torch.backends.cudnn.allow_tf32 = False  # as in the ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    port = free_port()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=shared_card_rank, args=(r, port, tmp))
+                 for r in range(SHARED_WORLD)]
+        for p in procs:
+            p.start()
+        one = shared_card_work("cuda", None)  # the one-process run, meanwhile
+        deadline = time.monotonic() + SHARED_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SHARED_WORLD:
+            raise AssertionError(f"phase 17a: the ranks exited with {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(SHARED_WORLD)]
+    lr = augment_lip.TINY_TRAIN["lr"]
+    ddp = [r["ddp"] for r in ranks]
+    # Both ranks hold the same state after every step.
+    for part in ("first", "last"):
+        for field in ("params", "stats", "lamdas", "grads"):
+            for n, t in ddp[0][part][field].items():
+                if not torch.equal(t, ddp[1][part][field][n]):
+                    raise AssertionError(f"phase 17a: the ranks' {field} "
+                                         f"{n} differ after the {part} step")
+    ref = one["ddp"]
+    mean_losses = [statistics.mean(r["losses"][i] for r in ddp)
+                   for i in range(SHARED_STEPS)]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(mean_losses,
+                                                   ref["losses"])]
+    loss_tol = (1e-5,) + TINY_LOSS_RTOL[1:]
+    g_worst, g_key, g_norm = grad_rule(ddp[0]["first"]["grads"],
+                                       ref["first"]["grads"])
+    lg_rel = max(((ddp[0]["first"]["lamda_grads"][k] - r).abs()
+                  / r.abs()).max().item()
+                 for k, r in ref["first"]["lamda_grads"].items())
+    s1 = stats_err(ddp[0]["first"]["stats"], ref["first"]["stats"])
+    w1 = adam_first_step_err(ddp[0]["first"], ref["first"], lr)
+    lam3 = max((ddp[0]["last"]["lamdas"][k] - r).abs().max().item()
+               for k, r in ref["last"]["lamdas"].items())
+    print(f"phase 17a: {SHARED_WORLD} gloo ranks sharing cuda:0 at bs2 "
+          f"each vs one process at bs4 (tiny L=8, C=8, 128x128, fp32, TF32 "
+          f"off), {SHARED_STEPS} DDP train steps: mean losses "
+          f"{['%.6f' % x for x in mean_losses]} vs "
+          f"{['%.6f' % x for x in ref['losses']]}, relative "
+          f"{['%.3g' % x for x in loss_rel]} (<= {loss_tol}); step 1: "
+          f"gradients worst tensor {g_worst:.3g} (<= {TINY_GRAD_TENSOR}; "
+          f"{g_key}), norm {g_norm:.3g} (<= {TINY_GRAD_NORM}); lambda "
+          f"gradients "
+          f"{lg_rel:.3g} (<= 1e-5); running stats {s1:.3g} of 1e-4 x "
+          f"max|ref| + {STATS_ATOL}; weights {w1:.3g} of Adam's first-step "
+          f"bound; after step {SHARED_STEPS}: lambdas {lam3:.3g} (<= "
+          f"{TINY_LAMDA_ATOL}) {tag}")
+    if not all(r <= t for r, t in zip(loss_rel, loss_tol)):
+        raise AssertionError("phase 17a: DDP losses differ")
+    if not (g_worst <= TINY_GRAD_TENSOR and g_norm <= TINY_GRAD_NORM
+            and lg_rel <= 1e-5 and s1 <= 1.0 and w1 <= 1.0):
+        raise AssertionError("phase 17a: the first DDP step differs")
+    if not lam3 <= TINY_LAMDA_ATOL:
+        raise AssertionError("phase 17a: the DDP run drifted")
+
+    # ZeRO-1 against plain DDP on the same ranks.
+    zero = ranks[0]["zero"]
+    z_loss = [abs(a - b) / abs(b) for a, b in zip(zero["losses"],
+                                                ddp[0]["losses"])]
+    zg_worst, _, zg_norm = grad_rule(zero["first"]["grads"],
+                                     ddp[0]["first"]["grads"])
+    zw1 = adam_first_step_err(zero["first"], ddp[0]["first"], lr)
+    print(f"phase 17a: --zero vs plain DDP: losses relative "
+          f"{['%.3g' % x for x in z_loss]} (first 0, then <= {RESUME_RTOL}); "
+          f"step-1 gradients {zg_worst:.3g} (<= {TINY_GRAD_TENSOR}), norm "
+          f"{zg_norm:.3g} (<= {TINY_GRAD_NORM}); weights {zw1:.3g} of "
+          f"Adam's first-step bound "
+          f"{tag}")
+    if not (z_loss[0] == 0.0 and max(z_loss) <= RESUME_RTOL
+            and zg_worst <= TINY_GRAD_TENSOR and zg_norm <= TINY_GRAD_NORM
+            and zw1 <= 1.0):
+        raise AssertionError("phase 17a: ZeRO differs from plain DDP")
+
+    # The search pair.
+    srch = [r["search"] for r in ranks]
+    s_mean = [statistics.mean(s["losses"][i] for s in srch) for i in (0, 1)]
+    s_rel = [abs(a - b) / abs(b) for a, b in zip(s_mean,
+                                                one["search"]["losses"])]
+    e_rel = abs(srch[0]["entropy"] - one["search"]["entropy"]) / abs(
+        one["search"]["entropy"])
+    arch = [r["arch_step"] for r in ranks]
+    for k in ("params", "grads"):
+        for n, t in arch[0][k].items():
+            if not torch.equal(t, arch[1][k][n]):
+                raise AssertionError(f"phase 17a: the ranks' arch {k} {n} "
+                                     f"differ")
+    a1 = one["arch_step"]
+    al_rel = abs(statistics.mean(a["loss"] for a in arch) - a1["loss"]) / abs(
+        a1["loss"])
+    ag_worst, ag_key, ag_norm = grad_rule(arch[0]["grads"], a1["grads"])
+    aw = adam_first_step_err(arch[0], a1, search_lip.TINY_SEARCH["alpha_lr"],
+                             decay=S.ALPHA_WEIGHT_DECAY)
+    print(f"phase 17a: search pair (L=8, C=8, bs2 a rank vs bs4): mean "
+          f"losses {s_mean} vs {one['search']['losses']}, relative "
+          f"{['%.3g' % x for x in s_rel]} (<= (1e-5, 1e-3)); entropy "
+          f"{e_rel:.3g} (<= {ENTROPY_RTOL}); the arch step alone from the "
+          f"seeded state: loss {al_rel:.3g} (<= 1e-5), architecture "
+          f"gradients worst tensor {ag_worst:.3g} (<= {TINY_GRAD_TENSOR}; "
+          f"{ag_key}), norm {ag_norm:.3g} (<= {TINY_GRAD_NORM}), "
+          f"architecture parameters {aw:.3g} of Adam's first-step bound "
+          f"with the L2 decay {tag}")
+    if not (s_rel[0] <= 1e-5 and s_rel[1] <= 1e-3 and e_rel <= ENTROPY_RTOL
+            and al_rel <= 1e-5 and ag_worst <= TINY_GRAD_TENSOR
+            and ag_norm <= TINY_GRAD_NORM and aw <= 1.0):
+        raise AssertionError("phase 17a: the DDP search pair differs")
+
+    # validate and validate_ppp: one result on both ranks, the
+    # predictions in dataset order equal to the one-process pass's.
+    for name in ("validate", "validate_ppp"):
+        a, b = ranks[0][name], ranks[1][name]
+        for k in a:
+            same = (np.array_equal(a[k], b[k]) if k != "names"
+                    else a[k] == b[k])
+            if not same:
+                raise AssertionError(f"phase 17a: {name}'s {k} differs "
+                                     f"between the ranks")
+    v, v1 = ranks[0]["validate"], one["validate"]
+    ds = SyntheticDataset(length=N_SHARED_VAL, crop_size=(128, 128),
+                          seed=SEED, is_train=False, device_normalize=True)
+    pred_err = float(np.abs(v["preds"] - v1["preds"]).max())
+    cm_extra = int(v["cm"].sum() - v1["cm"].sum())
+    dup = int((ds[0]["par"] != eval_lip.IGNORE).sum())
+    print(f"phase 17a: validate over {N_SHARED_VAL} images at bs1 a rank: "
+          f"equal on both ranks; names {v['names'] == ds.image_names()} in "
+          f"dataset order; predictions {pred_err:.3g} px from the one "
+          f"process's (<= {KP_ATOL}); the summed matrix counts the padding "
+          f"duplicate's {cm_extra} pixels (image 0: {dup}); validate_ppp "
+          f"equal on both ranks, PCK avg "
+          f"{ranks[0]['validate_ppp']['pck'][0]:.2f} "
+          f"{tag}")
+    if not (v["names"] == ds.image_names() and pred_err <= KP_ATOL
+            and cm_extra == dup):
+        raise AssertionError("phase 17a: the gathered validate differs")
+    for r, f in enumerate(r["flagship"] for r in ranks):
+        print(f"phase 17a: rank {r} of {SHARED_WORLD} gloo ranks sharing "
+              f"cuda:0, the flagship train step (bs{f['batch']} a rank, "
+              f"384x384, bf16, channels_last, cross-rank BN, global "
+              f"criterion, DDP): median {f['step_ms']:.3f} ms over "
+              f"{SHARED_TIMED - 1} warm steps "
+              f"({['%.1f' % x for x in f['times_ms']]} ms); "
+              f"{f['kernels']} device operations, device busy "
+              f"{f['busy_ms']:.3f} ms, idle share {f['idle_share']:.3f}, "
+              f"peak memory {f['peak_gib']:.3f} GiB; phase 7's unwrapped "
+              f"bs16 step in this call: {train['kernels']} device "
+              f"operations, busy {train['busy_ms']:.3f} ms, peak "
+              f"{train['peak_gib']:.3f} GiB; top by device time "
+              f"{f['top']} {tag}")
+    launches = sum(r["launches"] for r in ranks)
+    return dict(loss_rel=loss_rel, grad_worst=g_worst, grad_norm=g_norm,
+                stats_step1=s1, adam_step1=w1, lamda_after=lam3,
+                zero_loss_rel=z_loss, search_rel=s_rel,
+                arch_grad_worst=ag_worst, arch_grad_norm=ag_norm,
+                arch_adam=aw, pred_err=pred_err,
+                flagship=[r["flagship"] for r in ranks]), launches
+
+
+def cli_rank(module: str, out_json: str, argv: list) -> int:
+    """One rank of a CLI under torchrun (``chip_smoke.py --cli MODULE
+    OUT_JSON ARGS``): runs ``MODULE.main(ARGS)`` as ``python -m MODULE``
+    would and writes rank 0's train loss and launches of the heatmap
+    kernel to OUT_JSON."""
+    mod = importlib.import_module(module)
+    heatmaps.render_heatmaps.launches = 0
+    out = mod.main(argv)
+    if mesh.is_primary():
+        with open(out_json, "w") as f:
+            json.dump({"launches": heatmaps.render_heatmaps.launches,
+                       "train_loss": out.get("train_loss"),
+                       "loss": out["result"]["loss"] if "result" in out
+                       else out["loss"]}, f)
+    return 0
+
+
+def run_under_torchrun(module: str, argv: list, tmp: str, name: str):
+    """Starts ``module``'s CLI at world size 1 under ``python -m
+    torch.distributed.run`` (NCCL on the card); returns the process and
+    the JSON path ``cli_rank`` writes."""
+    out_json = os.path.join(tmp, f"{name}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", os.path.abspath(__file__), "--cli", module,
+           out_json, *argv]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out_json
+
+
+def finish(proc, out_json: str, what: str, timeout: float = 600) -> dict:
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"phase 17b: {what} did not end in {timeout} s")
+    if proc.returncode != 0:
+        print(log[-6000:])
+        raise AssertionError(f"phase 17b: {what} exited with "
+                             f"{proc.returncode}")
+    with open(out_json) as f:
+        return json.load(f)
+
+
+def first_logged_loss(run_dir: str) -> float:
+    """Step 0's loss as the train CLI logs it (``Epoch: [0][0/N] Loss:``)
+    in its log file under ``run_dir``."""
+    logs = [os.path.join(run_dir, f) for f in os.listdir(run_dir)
+            if f.endswith(".log")]
+    if len(logs) != 1:
+        raise AssertionError(f"phase 17b: {len(logs)} log files in {run_dir}")
+    with open(logs[0]) as f:
+        for line in f:
+            if "Epoch: [0][0/" in line:
+                return float(line.split("Loss: ")[1].split()[0])
+    raise AssertionError(f"phase 17b: no first-step loss in {logs[0]}")
+
+
+def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict]:
+    """17b: NCCL at world size 1. In this process: the flagship bs16 bf16
+    train step under DDP (the model wrapped, find_unused_parameters off
+    and on), timed, profiled and its peak memory, beside phase 7's
+    unwrapped step (``train``); the fp32 loss of the train CLI's first
+    batch. Then under torchrun: the train CLI, the train CLI with
+    ``--zero`` and the search CLI (``--tiny --zero``) side by side, and
+    the eval CLI on the train CLI's checkpoint once that is written.
+    Returns the numbers and the heatmap kernel's launches by path."""
+    launches = {}
+    hp = augment_lip.FLAGSHIP_TRAIN
+    os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    try:
+        if not mesh.initialize_distributed("cuda"):
+            raise AssertionError("phase 17b: the NCCL group did not start")
+        heatmaps.render_heatmaps.launches = 0  # the DDP train path's count
+        train_loader, _ = augment_lip.build_loaders(hp, "cuda")
+        batches = take(train_loader, 2)
+        step = augment_lip.make_train_step(hp)
+        timed, loss32 = {}, None
+        for unused in (False, True):
+            # A fresh seeded state each time: two DDP wrappers over one
+            # module would both hook its parameters.
+            state = augment_lip.init_state(
+                eval_lip.FLAGSHIP, hp, device="cuda", dtype=torch.bfloat16,
+                seed=SEED, steps_per_epoch=len(train_loader))
+            # find_unused_parameters, which the port leaves off (every
+            # parameter gets a gradient), only for its timing here.
+            state.net = (DistributedDataParallel(
+                state.model, device_ids=[0], broadcast_buffers=False,
+                find_unused_parameters=True) if unused
+                else mesh.wrap_model(state.model, mesh.data_group()))
+            if not isinstance(state.net, DistributedDataParallel):
+                raise AssertionError("phase 17b: the model is not wrapped")
+            if loss32 is None:  # the train CLI's first batch and weights
+                loss32 = fp32_loss(state, batches[0], hp)
+            timed[unused] = timed_train_step(step, state, batches, DDP_TIMED)
+            t = timed[unused]
+            print(f"phase 17b: DDP train step at world size 1 over NCCL "
+                  f"(bs16, 384x384, bf16, channels_last, "
+                  f"find_unused_parameters={unused}): median "
+                  f"{t['step_ms']:.3f} ms over {DDP_TIMED - 1} warm steps "
+                  f"({['%.1f' % x for x in t['times_ms']]} ms); "
+                  f"{t['kernels']} device operations, device busy "
+                  f"{t['busy_ms']:.3f} ms, idle share {t['idle_share']:.3f}, "
+                  f"peak memory {t['peak_gib']:.3f} GiB; phase 7's unwrapped "
+                  f"step in this call: median {train['step_ms']:.3f} ms, "
+                  f"{train['kernels']} device operations, busy "
+                  f"{train['busy_ms']:.3f} ms, idle share "
+                  f"{train['idle_share']:.3f}, peak {train['peak_gib']:.3f} "
+                  f"GiB; top by device time {t['top'][:4]} {tag}")
+            del state
+            torch.cuda.empty_cache()
+        launches["ddp_train"] = heatmaps.render_heatmaps.launches
+        del batches, train_loader
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--synthetic", "--steps", "3", "--epochs", "1"]
+        procs = {
+            "train": run_under_torchrun(
+                "npp_tpu_torch.tools.augment_lip",
+                common + ["--out", os.path.join(tmp, "ddp")], tmp, "train"),
+            "zero": run_under_torchrun(
+                "npp_tpu_torch.tools.augment_lip",
+                common + ["--zero", "--out", os.path.join(tmp, "zero")], tmp,
+                "zero"),
+            "search": run_under_torchrun(
+                "npp_tpu_torch.tools.search_lip",
+                ["--synthetic", "--tiny", "--steps", "2", "--epochs", "2",
+                 "--warmup-epochs", "1", "--zero", "--out",
+                 os.path.join(tmp, "search")], tmp, "search")}
+        # The eval CLI reads the train CLI's checkpoint while the other two
+        # still run.
+        res = {"train": finish(*procs.pop("train"), "train")}
+        ckpt = os.path.join(tmp, "ddp", "lip", "augment", "flagship",
+                            "checkpoints")
+        procs["eval"] = run_under_torchrun(
+            "npp_tpu_torch.tools.eval_lip", ["--synthetic", "--ckpt", ckpt],
+            tmp, "eval")
+        blob = torch.load(os.path.join(ckpt, "final", "state.pt"),
+                          map_location="cpu", weights_only=True)
+        module_keys = sum(k.startswith("module.") for k in blob["model"])
+        del blob
+        res.update({k: finish(*v, k) for k, v in procs.items()})
+        firsts = {k: first_logged_loss(os.path.join(tmp, d, "lip", "augment",
+                                                    "flagship"))
+                  for k, d in (("train", "ddp"), ("zero", "zero"))}
+    rel = {k: abs(v - loss32) / abs(loss32) for k, v in firsts.items()}
+    print(f"phase 17b: under python -m torch.distributed.run "
+          f"--nproc_per_node=1 (NCCL): augment_lip --synthetic --steps 3 "
+          f"--epochs 1 train loss {res['train']['train_loss']:.6f}, val loss "
+          f"{res['train']['loss']:.6f}; with --zero "
+          f"{res['zero']['train_loss']:.6f} / {res['zero']['loss']:.6f}; "
+          f"first logged losses {firsts} vs fp32 {loss32:.6f} on the same "
+          f"batch, relative { {k: round(v, 6) for k, v in rel.items()} } (<= "
+          f"{BF16_RTOL}); the checkpoint holds {module_keys} 'module.' keys; "
+          f"eval_lip --ckpt: loss {res['eval']['loss']:.6f}; search_lip "
+          f"--tiny --zero: train loss {res['search']['train_loss']:.6f} "
+          f"{tag}")
+    losses = [res["train"]["train_loss"], res["train"]["loss"],
+              res["zero"]["train_loss"], res["zero"]["loss"],
+              res["eval"]["loss"], res["search"]["train_loss"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 17b: non-finite CLI losses {losses}")
+    if not (max(rel.values()) <= BF16_RTOL and module_keys == 0):
+        raise AssertionError("phase 17b: the CLI's first loss or its "
+                             "checkpoint is off")
+    launches["ddp_train"] += res["train"]["launches"] + res["zero"]["launches"]
+    launches["ddp_search"] = res["search"]["launches"]
+    launches["ddp_eval"] = res["eval"]["launches"]
+    return dict(ddp_step=timed[False], ddp_step_find_unused=timed[True],
+                cli_first_loss_rel=rel), launches
+
+
 class PhaseClock:
     """Prints each phase's wall time on the host clock, and the total."""
 
@@ -2131,7 +2759,7 @@ class PhaseClock:
         self.start = self.last = time.perf_counter()
         self.seconds = {}
 
-    def done(self, phase: int) -> None:
+    def done(self, phase) -> None:
         now = time.perf_counter()
         self.seconds[phase] = now - self.last
         print(f"phase {phase}: {now - self.last:.1f} s (total "
@@ -2281,17 +2909,30 @@ def main() -> int:
     clock.done(16)
     trees.cleanup()
     runs.cleanup()
+
+    # Phase 17a: two gloo ranks sharing the card against one process; they
+    # count the heatmap kernel's launches themselves.
+    shared, launches["ddp_shared_card"] = shared_card(tag, train)
+    clock.done("17a")
+    # Phase 17b: NCCL at world size 1, the DDP step and the CLIs under
+    # torchrun; it counts the launches on the DDP train, search and eval
+    # paths itself.
+    nccl, nccl_launches = nccl_world_one(tag, train)
+    launches.update(nccl_launches)
+    clock.done("17b")
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
     summary = {"tiny_train": tiny, "train_step": train,
                "tiny_search": tiny_search, "search_pair": search,
                "tiny_serve": tiny_serve, "serve": serve,
                "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
-               "lip_disk": from_disk, "ppp_and_fused_disk": more_disk}
-    print(f"phase 16: heatmap kernel launches on the main paths: {launches}; "
+               "lip_disk": from_disk, "ppp_and_fused_disk": more_disk,
+               "ddp_shared_card": shared, "ddp_nccl": nccl}
+    print(f"phase 17: heatmap kernel launches on the main paths: {launches}; "
           f"phase seconds {json.dumps(seconds)}; "
           f"summary {json.dumps(summary)}")
     for path in ("eval", "train", "search", "ppp_train", "ppp_search",
-                 "chain", "lip_disk", "ppp_disk", "lip_fast_disk"):
+                 "chain", "lip_disk", "ppp_disk", "lip_fast_disk",
+                 "ddp_shared_card", "ddp_train", "ddp_search", "ddp_eval"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")
@@ -2312,4 +2953,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli"]:  # a rank of phase 17b's torchrun CLIs
+        sys.exit(cli_rank(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

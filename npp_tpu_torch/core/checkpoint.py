@@ -11,6 +11,14 @@ search state the arch optimizer's state_dict:
 ``<dir>/<epoch>/state.pt`` with ``<dir>/meta_<epoch>.json``, and
 ``<dir>/<name>/state.pt`` with ``<dir>/<name>/meta.json``. Saves are
 synchronous, so ``wait`` has nothing to wait for.
+
+Under a process group every rank calls ``save`` (a ZeRO optimizer's state
+is consolidated on rank 0 inside it, a collective), rank 0 alone writes,
+and a barrier follows; every rank restores from the shared files onto
+its own device. The blob holds the bare model's state_dict (never a DDP
+wrapper's ``module.`` keys) and the whole optimizer state, so a
+checkpoint written by N ranks, with or without ZeRO, restores in one
+process and the other way round.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import torch
 
 from npp_tpu_torch.core.search import SearchState
 from npp_tpu_torch.core.train import TrainState
+from npp_tpu_torch.parallel import mesh
+from npp_tpu_torch.parallel.zero import optimizer_state_dict
 
 _STATE_FILE = "state.pt"
 _NAMED = ("best", "warmed", "final")
@@ -37,14 +47,16 @@ _STACKED_IN_JAX = re.compile(
 
 
 def state_dict(state: TrainState | SearchState) -> dict:
-    """Everything a resumed run needs, as tensors and plain values."""
+    """Everything a resumed run needs, as tensors and plain values. Under
+    ZeRO every rank calls it, and the optimizer entries are None off rank
+    0."""
     if isinstance(state, SearchState):
         return {
             "model": state.model.state_dict(),
             "lamdas": {k: p.detach() for k, p in state.lamdas.items()},
-            "w_optimizer": state.w_optimizer.state_dict(),
+            "w_optimizer": optimizer_state_dict(state.w_optimizer),
             "w_scheduler": state.w_scheduler.state_dict(),
-            "a_optimizer": state.a_optimizer.state_dict(),
+            "a_optimizer": optimizer_state_dict(state.a_optimizer),
             "step": state.step,
         }
     return {
@@ -53,7 +65,7 @@ def state_dict(state: TrainState | SearchState) -> dict:
         "crit_accum": {k: (torch.zeros_like(p) if p.grad is None
                            else p.grad.detach())
                        for k, p in state.lamdas.items()},
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": optimizer_state_dict(state.optimizer),
         "scheduler": state.scheduler.state_dict(),
         "step": state.step,
     }
@@ -81,11 +93,11 @@ def load_state_dict(state: TrainState | SearchState, blob: dict):
     return state
 
 
-def _write(path: str, state, meta: dict, meta_path: str) -> None:
+def _write(path: str, blob: dict, meta: dict, meta_path: str) -> None:
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, _STATE_FILE)
     tmp = f"{target}.{os.getpid()}.tmp"
-    torch.save(state_dict(state), tmp)
+    torch.save(blob, tmp)
     os.replace(tmp, target)
     with open(meta_path, "w") as f:
         json.dump(meta, f)
@@ -129,18 +141,25 @@ class CheckpointManager:
              tag: Optional[str] = None) -> None:
         """Save the epoch checkpoint, drop the ones beyond ``max_to_keep``,
         and mirror it to ``best`` (``is_best``) and to ``tag`` (``warmed``
-        or ``final``)."""
+        or ``final``). Under a process group every rank calls it and rank
+        0 writes."""
         if tag is not None and tag not in _NAMED:
             raise ValueError(f"tag must be one of {_NAMED}, got {tag!r}")
+        blob = state_dict(state)
+        if mesh.is_primary():
+            self._write_all(epoch, blob, metrics, is_best, tag)
+        mesh.barrier()
+
+    def _write_all(self, epoch, blob, metrics, is_best, tag) -> None:
         meta = {"epoch": int(epoch), **(metrics or {})}
-        _write(self._epoch_dir(epoch), state, meta, self._meta_file(epoch))
+        _write(self._epoch_dir(epoch), blob, meta, self._meta_file(epoch))
         for old in self._epochs()[:-self.max_to_keep]:
             shutil.rmtree(self._epoch_dir(old))
             if os.path.isfile(self._meta_file(old)):
                 os.remove(self._meta_file(old))
         for name in (("best",) if is_best else ()) + ((tag,) if tag else ()):
             path = os.path.join(self.directory, name)
-            _write(path, state, meta, os.path.join(path, "meta.json"))
+            _write(path, blob, meta, os.path.join(path, "meta.json"))
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is in flight."""

@@ -9,6 +9,17 @@ Gradients come from autograd. The k-th value is taken from detached
 probabilities: the JAX bisection carries no gradient either, and a sort
 that autograd records would keep its indices (one int64 per pixel and
 stage) alive until the backward.
+
+Under a process group of N > 1 ranks (``group=``, ``parallel/mesh.py``)
+the parsing losses are losses of the global batch, the ranks' batches
+concatenated in rank order: OHEM's k-th value is taken over every rank's
+valid gt-probabilities, and the counts (valid and kept pixels, edge and
+non-edge pixels) and the weighted CE's sum of weights are summed over the
+ranks. Each rank returns N * (its numerator) / (the global denominator),
+so the mean of the ranks' losses is the global loss and DDP's mean of
+their gradients is its gradient. No gradient flows through the threshold
+or the counts. The pose MSE takes no group: every rank's batch has the
+same size, so the mean of the ranks' means is the global mean.
 """
 from __future__ import annotations
 
@@ -18,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from npp_tpu_torch.ops.resize import resize_bilinear
+from npp_tpu_torch.parallel.mesh import all_concat, all_sum
 
 # Per-class CE weights (npp_tpu/core/criterion.py:30-39).
 PASCAL_CLASS_WEIGHTS = (
@@ -80,6 +92,10 @@ def pose_loss(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
     return total
 
 
+def _world(group) -> int:
+    return torch.distributed.get_world_size(group)
+
+
 def _gt_log_prob(logits: torch.Tensor, target: torch.Tensor,
                  ignore_index: int):
     """log p(gt class) per pixel of (B, C, H, W) logits, the valid mask
@@ -93,12 +109,13 @@ def _gt_log_prob(logits: torch.Tensor, target: torch.Tensor,
 def ohem_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                        class_weights: Sequence[float],
                        ignore_index: int = 255, thres: float = 0.9,
-                       min_kept: int = 131072) -> torch.Tensor:
+                       min_kept: int = 131072, group=None) -> torch.Tensor:
     """Online hard-example-mining CE. ``logits``: (B, C, H, W) at target
     resolution; ``target``: (B, H, W) labels. Keeps the valid pixels whose
     gt probability is strictly below max(thres, k-th smallest gt
     probability among valid pixels), k = min(min_kept + 1, n_valid); the
-    loss is the plain mean of the kept weighted pixel losses."""
+    loss is the plain mean of the kept weighted pixel losses. With
+    ``group``, of the global batch (module docstring)."""
     gt_logp, valid, tgt = _gt_log_prob(logits, target, ignore_index)
     cw = torch.as_tensor(class_weights, dtype=torch.float32,
                          device=logits.device)
@@ -109,48 +126,64 @@ def ohem_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     flat_prob = gt_prob.reshape(-1)
     # Ignored pixels sort after every probability; k <= n_valid (or k = 1
     # with nothing valid) so the k-th value is exact and valid-only.
-    ranked = torch.sort(torch.where(flat_valid, flat_prob, 3.0)).values
+    masked = torch.where(flat_valid, flat_prob, 3.0)
     n_valid = flat_valid.sum()
+    if group is not None:
+        masked, n_valid = all_concat(masked, group), all_sum(n_valid, group)
+    ranked = torch.sort(masked).values
     k = torch.clamp(n_valid, min=1).clamp(max=min_kept + 1)
     min_value = ranked.index_select(0, (k - 1).reshape(1)).squeeze(0)
     threshold = torch.clamp(min_value, min=thres)
 
     keep = flat_valid & (flat_prob < threshold)
-    kept = torch.where(keep, pixel_losses.reshape(-1), 0.0)
-    return kept.sum() / torch.clamp(keep.float().sum(), min=1.0)
+    kept = torch.where(keep, pixel_losses.reshape(-1), 0.0).sum()
+    n_kept = keep.float().sum()
+    if group is None:
+        return kept / torch.clamp(n_kept, min=1.0)
+    n_kept = all_sum(n_kept, group)
+    return _world(group) * kept / torch.clamp(n_kept, min=1.0)
 
 
 def weighted_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                            weights: torch.Tensor,
-                           ignore_index: int = 255) -> torch.Tensor:
+                           ignore_index: int = 255,
+                           group=None) -> torch.Tensor:
     """``F.cross_entropy(weight=..., ignore_index=...)``: sum(w_t * nll_t) /
     sum(w_t) over non-ignored pixels, with the sum of weights floored at
-    1e-12 as in the JAX package."""
+    1e-12 as in the JAX package; with ``group``, of the global batch."""
     gt_logp, valid, tgt = _gt_log_prob(logits, target, ignore_index)
     w = weights.float()[tgt] * valid.float()
-    return torch.sum(-gt_logp * w) / torch.clamp(w.sum(), min=1e-12)
+    num, den = torch.sum(-gt_logp * w), w.sum()
+    if group is None:
+        return num / torch.clamp(den, min=1e-12)
+    den = all_sum(den, group)
+    return _world(group) * num / torch.clamp(den, min=1e-12)
 
 
 def single_parsing_loss(par_logits: torch.Tensor, edge_logits: torch.Tensor,
                         target_par: torch.Tensor, target_edge: torch.Tensor,
                         class_weights: Sequence[float],
                         ignore_index: int = 255, thres: float = 0.9,
-                        min_kept: int = 131072) -> torch.Tensor:
+                        min_kept: int = 131072, group=None) -> torch.Tensor:
     """One refinement stage's parsing (OHEM) + edge loss; the edge class
-    weights are the batch's edge / non-edge balance."""
+    weights are the batch's edge / non-edge balance (with ``group``, the
+    global batch's)."""
     h, w = target_par.shape[1], target_par.shape[2]
     par_logits = resize_bilinear(par_logits.float(), (h, w),
                                  align_corners=True)
     edge_logits = resize_bilinear(edge_logits.float(), (h, w),
                                   align_corners=True)
     loss = ohem_cross_entropy(par_logits, target_par, class_weights,
-                              ignore_index, thres, min_kept)
-    pos = (target_edge == 1).float().sum()
-    neg = (target_edge == 0).float().sum()
+                              ignore_index, thres, min_kept, group)
+    counts = torch.stack([(target_edge == 1).float().sum(),
+                          (target_edge == 0).float().sum()])
+    if group is not None:
+        counts = all_sum(counts, group)
+    pos, neg = counts[0], counts[1]
     tot = pos + neg
     edge_w = torch.stack([pos / tot, neg / tot])  # by class id 0, 1
     return loss + weighted_cross_entropy(edge_logits, target_edge, edge_w,
-                                         ignore_index)
+                                         ignore_index, group)
 
 
 def parsing_loss(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
@@ -158,12 +191,13 @@ def parsing_loss(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
                  lamda: torch.Tensor,
                  class_weights: Sequence[float] = LIP_CLASS_WEIGHTS,
                  ignore_index: int = 255, thres: float = 0.9,
-                 min_kept: int = 131072) -> torch.Tensor:
-    """Deep-supervised parsing loss over stages."""
+                 min_kept: int = 131072, group=None) -> torch.Tensor:
+    """Deep-supervised parsing loss over stages (with ``group``, of the
+    global batch; the ``+ lamda`` terms are not scaled)."""
     total = 0.0
     for i, (par_logits, edge_logits) in enumerate(outputs):
         li = single_parsing_loss(par_logits, edge_logits, target_par,
                                  target_edge, class_weights, ignore_index,
-                                 thres, min_kept)
+                                 thres, min_kept, group)
         total = total + li * torch.exp(-lamda[i]) + lamda[i]
     return total

@@ -1,13 +1,23 @@
 """Evaluation: the flip-TTA eval steps and the single-process validation
 passes, for LIP and for Pascal-Person-Part (PPP).
 
-Port of ``npp_tpu/core/evaluate.py:30-126, 247-328, 411-489``. A step
+Port of ``npp_tpu/core/evaluate.py:30-126, 219-328, 411-489``. A step
 runs the direct and the flipped forward (in the model's compute dtype),
 then the losses, the parsing flip fusion, argmax and the confusion matrix
 in float32 on the device; the LIP step decodes the pose, the PPP step
 returns the flip-fused heatmaps, which ``validate_ppp`` scores in heatmap
 space. Both passes keep every result on the device inside the loop and
 fetch once at the end.
+
+Under a process group each rank evaluates its loader's shard and the
+passes gather the ranks' results, as npp_tpu's multi-process pass does:
+the confusion matrices (and the PPP PCK meter) are summed, the batch
+losses and the predictions gathered, and the predictions put back into
+dataset order by their indices with the wrap-padding duplicates dropped
+(``merge_eval_shards``), their names from the dataset's table. Every rank
+returns the same result; rank 0 alone writes ``pred_csv``. As in npp_tpu
+(and the reference's all-reduced matrix), the summed matrix counts the
+padding duplicates.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from npp_tpu_torch.core.inference import (FLIPPED_POSEIDX,
                                           decode_pose_validate,
                                           flip_parsing_fuse)
 from npp_tpu_torch.ops.resize import resize_bilinear
+from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.utils import metrics as M
 
 
@@ -91,15 +102,44 @@ def make_eval_step(model, *, num_classes: int, class_weights,
     return step
 
 
+def merge_eval_shards(preds: np.ndarray, idxs: np.ndarray,
+                      names: list | None = None,
+                      names_src: list | None = None
+                      ) -> tuple[np.ndarray, list]:
+    """``npp_tpu/core/evaluate.py:219-244``: the predictions put into
+    dataset order by their indices ``idxs``, the wrap-padding duplicates
+    dropped, and their names: from ``names`` (one per prediction) or else
+    from ``names_src`` (the dataset's table, by index)."""
+    order = np.argsort(idxs, kind="stable")
+    keep = np.concatenate([[True], np.diff(idxs[order]) != 0])
+    sel = order[keep]
+    if names:
+        merged = [names[i] for i in sel]
+    elif names_src:
+        merged = [names_src[i] for i in idxs[sel]]
+    else:
+        merged = []
+    return preds[sel], merged
+
+
+def _names_table(loader) -> list:
+    dataset = getattr(loader, "dataset", None)
+    return list(dataset.image_names()) if hasattr(dataset, "image_names") \
+        else []
+
+
 def validate(eval_step, criterion_params, loader, *, num_classes: int,
              pred_csv: str | None = None, gt_csv: str | None = None,
              log_fn=print) -> dict:
     """One pass over ``loader``. Returns the mean batch loss, the
     segmentation metrics of the summed confusion matrix (also returned as
     ``cm``), and the pose predictions with their image names in dataset
-    order. ``pred_csv`` writes the predictions as a LIP pose CSV; with
-    ``gt_csv`` too, the PCKh table against it is added as ``pck`` and its
-    average as ``pck_avg``, and logged."""
+    order. ``pred_csv`` writes the predictions as a LIP pose CSV;
+    ``gt_csv`` adds the PCKh table against that ground-truth CSV as
+    ``pck`` and its average as ``pck_avg``, and logs it: of the
+    predictions as a pose CSV holds them (integer pixels), so the numbers
+    are the CSV protocol's. Under a process group, of every rank's shard
+    (module docstring)."""
     cm_dev = None
     losses_dev, all_preds, all_names, all_idx = [], [], [], []
     for batch in loader:
@@ -116,20 +156,27 @@ def validate(eval_step, criterion_params, loader, *, num_classes: int,
               if losses_dev else np.zeros((0,), np.float64))
     preds = (torch.cat(all_preds).cpu().numpy() if all_preds
              else np.zeros((0, 16, 3), np.float32))
-    if all_idx:
-        order = np.argsort(np.concatenate(all_idx), kind="stable")
-        preds = preds[order]
-        all_names = [all_names[i] for i in order]
+    idxs = np.concatenate(all_idx) if all_idx else np.zeros(0, np.int64)
+    if mesh.world_size() > 1:
+        parts = mesh.all_gather_numpy((cm, losses, preds, idxs))
+        cm = sum(p[0] for p in parts)
+        losses, preds, idxs = (np.concatenate([p[i] for p in parts])
+                               for i in (1, 2, 3))
+        preds, all_names = merge_eval_shards(preds, idxs,
+                                             names_src=_names_table(loader))
+    elif all_idx:
+        preds, all_names = merge_eval_shards(preds, idxs, all_names)
     result = {"loss": float(losses.mean()) if losses.size else float("nan"),
               **M.seg_metrics(cm)}
     result.update(cm=cm, pose_preds=preds, names=all_names)
-    if pred_csv is not None and all_names:
+    if pred_csv is not None and all_names and mesh.is_primary():
         M.save_pose_csv(all_names, preds, pred_csv)
-        if gt_csv is not None:
-            pck = M.calc_pck_lip(gt_csv, pred_csv, eval_num=len(all_names))
-            result["pck"] = pck
-            result["pck_avg"] = float(pck[-1][-1])
-            log_fn(M.pckh_table(pck[-1]))
+    if gt_csv is not None and all_names:
+        pck = M.pckh_against_csv(gt_csv, M.as_pose_csv_reads(preds),
+                                 eval_num=len(all_names))
+        result["pck"] = pck
+        result["pck_avg"] = float(pck[-1][-1])
+        log_fn(M.pckh_table(pck[-1]))
     return result
 
 
@@ -184,7 +231,9 @@ def validate_ppp(eval_step, criterion_params, loader, *, num_classes: int,
     PPP PCK table is logged. Each batch's maps are fetched as contiguous
     NCHW arrays, so the argmax runs over each map's row-major (h * w)
     order and ties go to the first maximum; the losses and the confusion
-    matrix are fetched once after the loop."""
+    matrix are fetched once after the loop. Under a process group the
+    matrices and the meters are summed over the ranks and the losses
+    gathered."""
     cm_dev = None
     losses_dev = []
     acc = M.MulAverageMeter(num_joints + 1)
@@ -200,6 +249,12 @@ def validate_ppp(eval_step, criterion_params, loader, *, num_classes: int,
           else np.zeros((num_classes, num_classes), np.float64))
     losses = (torch.stack(losses_dev).cpu().numpy().astype(np.float64)
               if losses_dev else np.zeros((0,), np.float64))
+    if mesh.world_size() > 1:
+        parts = mesh.all_gather_numpy((cm, losses, acc.sum, acc.count))
+        cm = sum(p[0] for p in parts)
+        losses = np.concatenate([p[1] for p in parts])
+        acc.sum = sum(p[2] for p in parts)
+        acc.count = sum(p[3] for p in parts)
     pck = acc.val() * 100
     log_fn(M.ppp_pck_table(pck))
     return {"loss": float(losses.mean()) if losses.size else float("nan"),

@@ -21,6 +21,14 @@ The step runs eagerly and mutates the state in place; its metrics stay
 device tensors (the host reads nothing inside a step). Not ported: the
 scanned multi-step dispatch and the batch-tiling warning, both TPU
 workarounds.
+
+Under a process group (``init_train_state(group=)``, ``parallel/``) the
+model's BNs take cross-rank moments (more than one rank), DDP wraps it
+(``TrainState.net``, which the step calls; ``TrainState.model`` stays the
+bare module, so state_dict keys carry no ``module.``), the loss is the
+global batch's, and ``backward`` averages the lambdas' gradient of this
+step over the ranks before it joins their running sum. With ``zero``
+the optimizer is ZeRO-1 (``parallel/zero.py``).
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ from torch.optim.lr_scheduler import LambdaLR
 
 from npp_tpu_torch.core import criterion
 from npp_tpu_torch.models.augment import build_nppnet
+from npp_tpu_torch.parallel import mesh, zero as Z
+from npp_tpu_torch.parallel.sync_bn import convert_sync_bn
 
 BACKBONE_LR_SCALE = 0.2     # augment_lip_sync.py:193-202 in the reference
 CRITERION_LR = 1e-4         # search_lip_sync.py:277-278
@@ -57,26 +67,28 @@ def _constant(t: int) -> float:
 
 def param_group(name: str) -> str:
     """The optimizer group of model parameter ``name`` (a state_dict key):
-    the JAX package's label of the same leaf (``_label_params``)."""
-    top = name.split(".", 1)[0]
+    the JAX package's label of the same leaf (``_label_params``); a DDP
+    wrapper's ``module.`` prefix is seen through."""
+    top = name.removeprefix("module.").split(".", 1)[0]
     return "backbone" if top.startswith(_BACKBONE_MODULES) else "weights"
 
 
 def make_train_optimizer(model: nn.Module, lamdas: dict, *, base_lr: float,
                          lr_step: Sequence[int], lr_factor: float,
-                         steps_per_epoch: int):
-    """Adam over the ``weights``, ``backbone`` and ``criterion`` groups, and
-    its per-iteration schedule. Returns (optimizer, scheduler)."""
+                         steps_per_epoch: int, zero: bool = False):
+    """Adam over the ``weights``, ``backbone`` and ``criterion`` groups
+    (ZeRO-1 with ``zero``), and its per-iteration schedule. Returns
+    (optimizer, scheduler)."""
     groups: dict[str, list] = {"weights": [], "backbone": []}
     for name, p in model.named_parameters():
         groups[param_group(name)].append(p)
-    optimizer = torch.optim.Adam(
+    optimizer = Z.adam(
         [{"params": groups["weights"], "lr": base_lr, "name": "weights"},
          {"params": groups["backbone"], "lr": BACKBONE_LR_SCALE * base_lr,
           "name": "backbone"},
          {"params": list(lamdas.values()), "lr": CRITERION_LR,
           "name": "criterion"}],
-        betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+        zero=zero, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
     factor = multistep_lr(lr_step, lr_factor, steps_per_epoch)
     scheduler = LambdaLR(optimizer, [factor, factor, _constant])
     return optimizer, scheduler
@@ -87,13 +99,22 @@ class TrainState:
     """The model, the learned loss lambdas (``lamda_pose``, ``lamda_par``
     as ``nn.Parameter``s), Adam, its schedule and the count of updates.
     With ``criterion_grad_accum`` the lambdas' ``.grad`` is the running
-    sum of their gradients, as the reference's (module docstring)."""
+    sum of their gradients, as the reference's (module docstring).
+    ``net`` is the module the step calls (DDP over ``model`` under a
+    process group, else ``model``); ``group`` is the process group the
+    loss and the lambda gradients span (None on one rank)."""
     model: nn.Module
     lamdas: dict
     optimizer: torch.optim.Optimizer
     scheduler: LambdaLR
     step: int = 0
     criterion_grad_accum: bool = True
+    net: nn.Module | None = None
+    group: object = None
+
+    def __post_init__(self):
+        if self.net is None:
+            self.net = self.model
 
     def zero_grad(self) -> None:
         self.model.zero_grad(set_to_none=True)
@@ -107,32 +128,71 @@ class TrainState:
         self.step += 1
 
 
+def distribute(model: nn.Module, group):
+    """(the module a step calls, the group its loss spans) for ``model``
+    under the process group ``group``: with more than one rank its BNs
+    become cross-rank ones; DDP wraps it whenever ``group`` is given."""
+    if group is None:
+        return model, None
+    loss_group = mesh.multi_rank(group)
+    if loss_group is not None:
+        convert_sync_bn(model, loss_group)
+    return mesh.wrap_model(model, group), loss_group
+
+
 def init_train_state(*, generator: torch.Generator, device, base_lr: float,
                      lr_step: Sequence[int], lr_factor: float,
                      steps_per_epoch: int, criterion_grad_accum: bool = True,
+                     group=None, zero: bool = False,
                      **model_kw) -> TrainState:
     """A fresh train state: NPPNet in train mode with weights drawn from
     ``generator`` (``build_nppnet``; channels_last on a card), the lambdas
-    at their reference inits, and the optimizer over both."""
+    at their reference inits, and the optimizer over both. Under the
+    process group ``group`` the model is distributed (``distribute``),
+    with ``zero`` the optimizer is ZeRO-1."""
     model = build_nppnet(device=device, generator=generator, train=True,
                          **model_kw)
     if torch.device(device).type == "cuda":
         model = model.to(memory_format=torch.channels_last)
+    net, loss_group = distribute(model, group)
     init = criterion.init_criterion_params(model.refine_layers + 1, device)
     lamdas = {k: nn.Parameter(v) for k, v in init.items()}
     optimizer, scheduler = make_train_optimizer(
         model, lamdas, base_lr=base_lr, lr_step=lr_step, lr_factor=lr_factor,
-        steps_per_epoch=steps_per_epoch)
+        steps_per_epoch=steps_per_epoch, zero=zero)
     return TrainState(model=model, lamdas=lamdas, optimizer=optimizer,
                       scheduler=scheduler,
-                      criterion_grad_accum=criterion_grad_accum)
+                      criterion_grad_accum=criterion_grad_accum, net=net,
+                      group=loss_group)
+
+
+def backward(loss: torch.Tensor, lamdas: dict, group=None) -> None:
+    """``loss.backward()``; with ``group``, the lambdas' gradient of this
+    step is averaged over its ranks before it is added to what their
+    ``.grad`` held (the running sum of ``criterion_grad_accum``), so the
+    sum grows by the global gradient on every rank."""
+    if group is None:
+        loss.backward()
+        return
+    held = {k: p.grad for k, p in lamdas.items()}
+    for p in lamdas.values():
+        p.grad = None
+    loss.backward()
+    flat = mesh.all_sum(torch.cat([p.grad for p in lamdas.values()]), group)
+    flat = flat / torch.distributed.get_world_size(group)
+    for (k, p), g in zip(lamdas.items(),
+                         flat.split([p.numel() for p in lamdas.values()])):
+        p.grad = g if held[k] is None else held[k] + g
 
 
 def compute_losses(model: nn.Module, lamdas: dict, batch: dict, *,
                    class_weights, ignore_index: int = 255,
                    ohem_thres: float = 0.9, ohem_keep: int = 131072,
-                   use_target_weight: bool = False, task: str = "both"):
-    """Forward (in the model's current mode) + dual-task loss.
+                   use_target_weight: bool = False, task: str = "both",
+                   group=None):
+    """Forward (in the model's current mode) + dual-task loss; with
+    ``group`` the parsing losses are the global batch's
+    (``core/criterion.py``).
 
     ``task`` is ``both`` (the joint loss), ``pose`` or ``par`` (the
     single-task variants). Returns (loss, metrics, (pose_list,
@@ -148,7 +208,8 @@ def compute_losses(model: nn.Module, lamdas: dict, batch: dict, *,
                                       lamdas["lamda_par"],
                                       class_weights=class_weights,
                                       ignore_index=ignore_index,
-                                      thres=ohem_thres, min_kept=ohem_keep)
+                                      thres=ohem_thres, min_kept=ohem_keep,
+                                      group=group)
     loss = {"pose": loss_pose, "par": loss_par}.get(task,
                                                      loss_pose + loss_par)
     metrics = {"loss": loss.detach(), "loss_pose": loss_pose.detach(),
@@ -170,11 +231,11 @@ def make_train_step(*, class_weights, ignore_index: int = 255,
                    use_target_weight=use_target_weight, task=task)
 
     def step(state: TrainState, batch: dict) -> dict:
-        state.model.train()
+        state.net.train()
         state.zero_grad()
-        loss, metrics, _ = compute_losses(state.model, state.lamdas, batch,
-                                          **loss_kw)
-        loss.backward()
+        loss, metrics, _ = compute_losses(state.net, state.lamdas, batch,
+                                          group=state.group, **loss_kw)
+        backward(loss, state.lamdas, state.group)
         state.apply_update()
         return metrics
 

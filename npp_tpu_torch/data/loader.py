@@ -1,11 +1,13 @@
 """Prefetching batcher with on-device target completion.
 
-Port of ``npp_tpu/data/loader.py:25-240`` for one process and one device:
-an optional shuffle per epoch, a thread pool that assembles fixed-shape
-numpy batches, a producer thread that keeps ``prefetch`` of them ready,
-pinned host memory (on a CUDA device) and ``non_blocking=True`` copies,
-and the renderer, which completes the targets on the device. Sharding,
-multi-process striding and the batch caches are not ported.
+Port of ``npp_tpu/data/loader.py:25-240``: an optional shuffle per epoch,
+each process's strided shard of it (DistributedSampler semantics), a
+thread pool that assembles fixed-shape numpy batches, a producer thread
+that keeps ``prefetch`` of them ready, pinned host memory (on a CUDA
+device) and ``non_blocking=True`` copies, and the renderer, which
+completes the targets on the device. A process feeds only its own
+device: npp_tpu's assembly of a global array from the processes' shards
+has no job here (DDP and the criterion's collectives join the shards).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from npp_tpu_torch.data import targets as tgt
 from npp_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
+from npp_tpu_torch.parallel import mesh
 
 
 def collate(samples: list[dict]) -> dict:
@@ -77,13 +80,22 @@ class DataLoader:
     The defaults are the eval loader's (dataset order, every sample); the
     train loader passes ``shuffle=True, drop_last=True``, the JAX loader's
     defaults. Batches keep their dataset ``index`` (host side) beside the
-    device tensors."""
+    device tensors.
+
+    ``batch_size`` is the per-process batch. With ``process_count`` > 1
+    (by default the process group's rank and world size) each process
+    takes a strided slice of the epoch's order, padded by wrapping to the
+    same count on every process, as torch's DistributedSampler does.
+    npp_tpu's batch caches (``cache_batches``, ``cache_on_device``) serve
+    only its scanned eval and are not ported."""
 
     prefetch = 2  # host batches kept ready ahead of the consumer
 
     def __init__(self, dataset, batch_size: int, *, device,
                  shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0, num_workers: int = 8, renderer=None):
+                 seed: int = 0, num_workers: int = 8, renderer=None,
+                 process_index: int | None = None,
+                 process_count: int | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -93,22 +105,35 @@ class DataLoader:
         self.epoch = 0
         self.num_workers = max(1, num_workers)
         self.renderer = renderer
+        self.process_index = (mesh.rank() if process_index is None
+                              else process_index)
+        self.process_count = (mesh.world_size() if process_count is None
+                              else process_count)
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def _local_count(self) -> int:
+        """Samples per process (padded to be equal on every process)."""
+        return -(-len(self.dataset) // self.process_count)
+
     def __len__(self):
-        n = len(self.dataset)
+        n = self._local_count()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _indices(self):
-        """This epoch's sample order in batches (``npp_tpu/data/loader.py:
-        148-164`` for one process)."""
+        """This process's batches of the epoch's sample order
+        (``npp_tpu/data/loader.py:148-164``)."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        if self.process_count > 1:
+            pad = self._local_count() * self.process_count - len(idx)
+            if pad:
+                idx = np.concatenate([idx, idx[:pad]])
+            idx = idx[self.process_index::self.process_count]
         if self.drop_last:
             idx = idx[:len(idx) // self.batch_size * self.batch_size]
         return [idx[i:i + self.batch_size]

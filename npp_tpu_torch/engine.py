@@ -3,13 +3,25 @@
 Port of ``npp_tpu/engine.py:15-49, 99-141`` (the reference's
 ``core/function.py`` ``train`` and ``train_with_alpha`` loops and the
 best-model rule of its entry scripts). The scanned-dispatch epoch is not
-ported.
+ported. Under a process group the loss read at each ``print_freq`` is the
+mean over the ranks (one all-reduce there, none per step), so every rank
+returns the same mean. The logger and the metric writer are quiet off
+rank 0 (``utils/logging_utils.py``).
 """
 from __future__ import annotations
 
 import time
 
+from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.utils.logging_utils import AverageMeter
+
+
+def _read_mean(loss_sum, n: int) -> float:
+    """The mean of ``n`` summed step losses (a device scalar), over every
+    rank of the process group."""
+    if mesh.world_size() > 1:
+        loss_sum = mesh.all_sum(loss_sum) / mesh.world_size()
+    return float(loss_sum) / n
 
 
 def train_epoch(train_step, state, loader, *, epoch: int, logger=None,
@@ -30,7 +42,7 @@ def train_epoch(train_step, state, loader, *, epoch: int, logger=None,
                     else loss_sum + metrics["loss"])
         n_pending += 1
         if i_iter % print_freq == 0:
-            ave_loss.update(float(loss_sum) / n_pending, n=n_pending)
+            ave_loss.update(_read_mean(loss_sum, n_pending), n=n_pending)
             loss_sum, n_pending = None, 0
             if logger:
                 logger.info(
@@ -44,7 +56,7 @@ def train_epoch(train_step, state, loader, *, epoch: int, logger=None,
                 writer.scalar("train_loss", ave_loss.average(), global_step)
                 global_step += 1
     if n_pending:
-        ave_loss.update(float(loss_sum) / n_pending, n=n_pending)
+        ave_loss.update(_read_mean(loss_sum, n_pending), n=n_pending)
     return ave_loss.average(), global_step
 
 
@@ -67,7 +79,7 @@ def search_epoch(weight_step, arch_step, state, train_loader, mini_loader,
         loss_sum = m1["loss"] if loss_sum is None else loss_sum + m1["loss"]
         n_pending += 1
         if i_iter % print_freq == 0:
-            ave_loss.update(float(loss_sum) / n_pending, n=n_pending)
+            ave_loss.update(_read_mean(loss_sum, n_pending), n=n_pending)
             loss_sum, n_pending = None, 0
             if logger:
                 logger.info(
@@ -79,7 +91,7 @@ def search_epoch(weight_step, arch_step, state, train_loader, mini_loader,
                 writer.scalar("train_loss", ave_loss.average(), global_step)
                 global_step += 1
     if n_pending:
-        ave_loss.update(float(loss_sum) / n_pending, n=n_pending)
+        ave_loss.update(_read_mean(loss_sum, n_pending), n=n_pending)
     return ave_loss.average(), global_step
 
 

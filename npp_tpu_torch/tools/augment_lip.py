@@ -41,6 +41,18 @@ once per step on a card), the flip-TTA validation: ``validate`` for LIP,
 best-model rule, and a checkpoint under
 ``<out>/<dataset>/augment/<config>/checkpoints``.
 
+Several GPUs: launch it with ``python -m torch.distributed.run
+--nproc_per_node=N -m npp_tpu_torch.tools.augment_lip ...`` (one process
+per card, ``cuda:{LOCAL_RANK}``; NCCL, or gloo with ``--device cpu``).
+The preset's batch is each rank's, as in npp_tpu's multi-process loader
+and the reference, so the global batch is N x batch: each rank trains on
+its strided shard of the epoch, BN takes the moments of the global batch,
+the loss is the global batch's and DDP averages the gradients
+(``parallel/``); the validation gathers every rank's shard. ``--zero``
+shards Adam's state over the ranks (ZeRO-1). Rank 0 alone logs and
+writes the checkpoints, which hold no ``module.`` key and restore in one
+process. The returned dict is the same on every rank.
+
 Examples:
   python -m npp_tpu_torch.tools.augment_lip --data-root data/LIP \\
       --gt-csv data/LIP/pose_csv/pose_gt.csv
@@ -55,6 +67,8 @@ Examples:
   python -m npp_tpu_torch.tools.augment_lip --synthetic --tiny \\
       --device cpu --dtype float32 --steps 2 --epochs 1 \\
       --genotype best_genotype.json --pretrained-encoder search/checkpoints
+  python -m torch.distributed.run --nproc_per_node=4 \\
+      -m npp_tpu_torch.tools.augment_lip --data-root data/LIP --zero
 """
 from __future__ import annotations
 
@@ -74,6 +88,7 @@ from npp_tpu_torch.data import lip, pascal
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import load_genotypes
+from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
 
@@ -142,6 +157,10 @@ class LimitedLoader:
     def __len__(self):
         return min(len(self.loader), self.limit)
 
+    @property
+    def dataset(self):
+        return self.loader.dataset
+
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
 
@@ -155,11 +174,13 @@ class LimitedLoader:
 
 
 def init_state(model_kw: dict, hp: dict, *, device, dtype, seed: int,
-               steps_per_epoch: int) -> T.TrainState:
+               steps_per_epoch: int, group=None,
+               zero: bool = False) -> T.TrainState:
     return T.init_train_state(
         generator=torch.Generator().manual_seed(seed), device=device,
         base_lr=hp["lr"], lr_step=hp["lr_step"], lr_factor=hp["lr_factor"],
-        steps_per_epoch=steps_per_epoch, dtype=dtype, **model_kw)
+        steps_per_epoch=steps_per_epoch, dtype=dtype, group=group, zero=zero,
+        **model_kw)
 
 
 def make_train_step(hp: dict, preset=LIP):
@@ -226,6 +247,25 @@ def merge_pretrained(state: T.TrainState, directory: str,
     return len(loaded), len(skipped)
 
 
+def start_ranks(p: argparse.ArgumentParser, args) -> tuple:
+    """(this rank's device, whether this call started the process group)
+    for a CLI: under torchrun it joins the group (NCCL on the card, gloo
+    on the CPU); ``--zero`` needs one; on the card fp32 convs run without
+    TF32."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
+    started = mesh.initialize_distributed(device)
+    if getattr(args, "zero", False) and mesh.data_group() is None:
+        p.error("--zero shards the optimizer over the ranks: launch with "
+                "python -m torch.distributed.run")
+    if device.type == "cuda":
+        # fp32 convs (the last head convs, the decode blur) in full fp32.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return mesh.local_device(device), started
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--synthetic", action="store_true",
@@ -263,6 +303,11 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default="output",
                    help="root of the run's output and log directories")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-1: shard optimizer moments over the "
+                        "data-parallel ranks (parallel/zero.py); frees ~2 "
+                        "param copies per card at one parameter broadcast "
+                        "per step")
     args = p.parse_args(argv)
     preset = PRESETS[args.dataset]
     data_root = data_source(p, args, preset)
@@ -270,13 +315,7 @@ def main(argv=None) -> dict:
         p.error("--fast-aug is the LIP directory's fused-warp reader: drop "
                 "--synthetic and --dataset ppp")
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
-    if device.type == "cuda":
-        # fp32 convs (the last head convs, the decode blur) in full fp32.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device, started = start_ranks(p, args)
     model_kw, hp = preset.train_config(args.tiny)
     logger, out_dir, tb_dir = create_logger(
         args.out, os.path.join(args.out, "log"), preset.name,
@@ -297,8 +336,10 @@ def main(argv=None) -> dict:
             val_loader = LimitedLoader(val_loader, max(1, args.steps // 2))
         state = init_state(model_kw, hp, device=device,
                            dtype=getattr(torch, args.dtype), seed=args.seed,
-                           steps_per_epoch=max(1, len(train_loader)))
-        logger.info(f"device {device}; state initialised")
+                           steps_per_epoch=max(1, len(train_loader)),
+                           group=mesh.data_group(), zero=args.zero)
+        logger.info(f"device {device}; rank {mesh.rank()} of "
+                    f"{mesh.world_size()}; state initialised")
 
         ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"))
         begin_epoch, best_iou, best_pck = 0, 0.0, 0.0
@@ -352,6 +393,8 @@ def main(argv=None) -> dict:
     finally:
         writer.close()
         close_logger(logger)
+        if started:
+            torch.distributed.destroy_process_group()
     return {"state": state, "train_loss": train_loss, "result": result,
             "out_dir": out_dir, "checkpoints": ckpt.directory,
             "merged": merged}

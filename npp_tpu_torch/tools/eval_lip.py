@@ -14,10 +14,13 @@ Data: the val set of a LIP directory (``--data-root``, by default the
 YAML's ``data/LIP/``; its first ``--n`` entries, by default
 TRAIN.NUM_SAMPLES = 5000) or, with ``--synthetic``, ``--n`` synthetic
 images (default 16). ``--gt-csv`` adds the PCKh table against that LIP
-pose CSV; ``--pred-csv`` writes the LIP pose CSV (with ``--gt-csv``
-alone it goes to a temporary file), ``--json-out`` the metrics as JSON.
+pose CSV (of the predictions as the LIP pose CSV holds them);
+``--pred-csv`` writes that CSV, ``--json-out`` the metrics as JSON.
 LIP only, as the JAX CLI is: it fixes LIP's class weights and flip
-pairs.
+pairs. Under ``python -m torch.distributed.run --nproc_per_node=N`` each
+rank evaluates its strided shard of the set and ``validate`` gathers the
+ranks' results into dataset order; rank 0 prints them and writes
+``--pred-csv`` and ``--json-out``.
 
 Examples:
   python -m npp_tpu_torch.tools.eval_lip --data-root data/LIP \\
@@ -35,8 +38,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import tempfile
 
 import torch
 
@@ -47,7 +48,8 @@ from npp_tpu_torch.core.loading import load_eval_model
 from npp_tpu_torch.data.lip import dataset_for
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
-from npp_tpu_torch.tools.augment_lip import data_source
+from npp_tpu_torch.parallel import mesh
+from npp_tpu_torch.tools.augment_lip import data_source, start_ranks
 from npp_tpu_torch.utils.metrics import per_class_table
 
 NUM_CLASSES, NUM_JOINTS = LIP.num_classes, LIP.num_joints
@@ -105,6 +107,37 @@ def metrics_json(result: dict) -> dict:
             if k not in ("pose_preds", "names", "pck", "cm")}
 
 
+def run(args, data_root: str | None, device) -> dict:
+    """The CLI's work on this rank: load the model, evaluate, and on rank
+    0 print the tables and write ``--json-out``."""
+    model, crop, _ = load_eval_model(
+        args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
+        dtype=getattr(torch, args.dtype), seed=args.seed)
+    pred_csv = args.pred_csv or None
+    if data_root is None:
+        result = evaluate_synthetic(model, n=args.n or 16, batch=args.batch,
+                                    crop_size=crop, device=device,
+                                    seed=args.seed, pred_csv=pred_csv)
+    else:
+        ds = dataset_for(
+            LIP.data, "val", data_root, crop_size=crop, sigma=SIGMA,
+            is_train=False, device_normalize=True,
+            sample=args.n or LIP.train_config()[1]["num_samples"],
+            **LIP.reader)
+        result = evaluate(model, ds, batch=args.batch, crop_size=crop,
+                          device=device, pred_csv=pred_csv,
+                          gt_csv=args.gt_csv or None)
+    if not mesh.is_primary():
+        return result
+    print(per_class_table(result["per_class_iou"], result["per_class_acc"]))
+    print(result_line(result))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(metrics_json(result), f, indent=1)
+        print(f"wrote {args.json_out}")
+    return result
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--synthetic", action="store_true",
@@ -135,39 +168,12 @@ def main(argv=None):
     args = p.parse_args(argv)
     data_root = data_source(p, args, LIP)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
-    if device.type == "cuda":
-        # fp32 convs (the decode blur, an fp32 model) in full fp32, not TF32.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    model, crop, _ = load_eval_model(
-        args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
-        dtype=getattr(torch, args.dtype), seed=args.seed)
-    with tempfile.TemporaryDirectory() as tmp:
-        pred_csv = args.pred_csv or (os.path.join(tmp, "pose_pred.csv")
-                                     if args.gt_csv else None)
-        if data_root is None:
-            result = evaluate_synthetic(model, n=args.n or 16,
-                                        batch=args.batch, crop_size=crop,
-                                        device=device, seed=args.seed,
-                                        pred_csv=pred_csv)
-        else:
-            ds = dataset_for(
-                LIP.data, "val", data_root, crop_size=crop, sigma=SIGMA,
-                is_train=False, device_normalize=True,
-                sample=args.n or LIP.train_config()[1]["num_samples"],
-                **LIP.reader)
-            result = evaluate(model, ds, batch=args.batch, crop_size=crop,
-                              device=device, pred_csv=pred_csv,
-                              gt_csv=args.gt_csv or None)
-    print(per_class_table(result["per_class_iou"], result["per_class_acc"]))
-    print(result_line(result))
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(metrics_json(result), f, indent=1)
-        print(f"wrote {args.json_out}")
+    device, started = start_ranks(p, args)
+    try:
+        result = run(args, data_root, device)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
     return result
 
 

@@ -43,7 +43,13 @@ architecture parameters (logged), the coupled best-model rule,
 ``warmed`` at the warmup's last epoch and ``final`` at the last) under
 ``<out>/<dataset>/search/<config>/``.
 
-Not ported: ``--zero`` (several devices) and ``--merged-streams``.
+Several GPUs: ``python -m torch.distributed.run --nproc_per_node=N -m
+npp_tpu_torch.tools.search_lip ...``, as the train CLI (one process per
+card, the preset's batch per rank, global BN moments and losses, the
+architecture parameters' gradients averaged with the weights' by DDP,
+rank 0 logs and writes); ``--zero`` shards both Adams' state (ZeRO-1).
+
+Not ported: ``--merged-streams``.
 
 Examples:
   python -m npp_tpu_torch.tools.search_lip --data-root data/LIP \\
@@ -54,6 +60,8 @@ Examples:
       --steps 2 --epochs 1
   python -m npp_tpu_torch.tools.search_lip --synthetic --tiny \\
       --device cpu --dtype float32 --steps 2 --epochs 2 --warmup-epochs 1
+  python -m torch.distributed.run --nproc_per_node=4 \\
+      -m npp_tpu_torch.tools.search_lip --data-root data/LIP --zero
 """
 from __future__ import annotations
 
@@ -72,8 +80,9 @@ from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import save_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
+from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.tools.augment_lip import (LimitedLoader, data_source,
-                                             make_lip_eval_step)
+                                             make_lip_eval_step, start_ranks)
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
 
@@ -123,12 +132,13 @@ def build_loaders(hp: dict, device, preset=LIP, data_root: str | None = None,
 
 
 def init_state(model_kw: dict, hp: dict, *, device, dtype, seed: int,
-               steps_per_epoch: int) -> S.SearchState:
+               steps_per_epoch: int, group=None,
+               zero: bool = False) -> S.SearchState:
     return S.init_search_state(
         generator=torch.Generator().manual_seed(seed), device=device,
         w_lr=hp["w_lr"], alpha_lr=hp["alpha_lr"], lr_step=hp["lr_step"],
         lr_factor=hp["lr_factor"], steps_per_epoch=steps_per_epoch,
-        dtype=dtype, **model_kw)
+        dtype=dtype, group=group, zero=zero, **model_kw)
 
 
 def make_search_steps(hp: dict, preset=LIP):
@@ -180,6 +190,9 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default="output",
                    help="root of the run's output and log directories")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-1: shard both Adam moment trees over the "
+                        "data-parallel ranks (parallel/zero.py)")
     args = p.parse_args(argv)
     preset = PRESETS[args.dataset]
     if preset.name == "ppp" and not args.synthetic:
@@ -188,13 +201,7 @@ def main(argv=None) -> dict:
                 "annotation JSONs, not a PPP directory")
     data_root = data_source(p, args, preset)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
-    if device.type == "cuda":
-        # fp32 convs (the last head convs, the decode blur) in full fp32.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device, started = start_ranks(p, args)
     model_kw, hp = preset.search_config(args.tiny)
     logger, out_dir, tb_dir = create_logger(
         args.out, os.path.join(args.out, "log"), preset.name,
@@ -209,8 +216,10 @@ def main(argv=None) -> dict:
             val_loader = LimitedLoader(val_loader, max(1, args.steps // 2))
         state = init_state(model_kw, hp, device=device,
                            dtype=getattr(torch, args.dtype), seed=args.seed,
-                           steps_per_epoch=max(1, len(train_loader)))
-        logger.info(f"device {device}; search state initialised")
+                           steps_per_epoch=max(1, len(train_loader)),
+                           group=mesh.data_group(), zero=args.zero)
+        logger.info(f"device {device}; rank {mesh.rank()} of "
+                    f"{mesh.world_size()}; search state initialised")
 
         ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"))
         begin_epoch, best_iou, best_pck = 0, 0.0, 0.0
@@ -263,6 +272,7 @@ def main(argv=None) -> dict:
             if is_best:
                 best_iou, best_pck = miou, pck
                 best_genotype = genotype
+            if is_best and mesh.is_primary():
                 save_genotypes(os.path.join(out_dir, "best_genotype.json"),
                                genotype[0], genotype[1],
                                meta={"epoch": epoch, "miou": miou,
@@ -279,6 +289,8 @@ def main(argv=None) -> dict:
     finally:
         writer.close()
         close_logger(logger)
+        if started:
+            torch.distributed.destroy_process_group()
     return {"state": state, "train_loss": train_loss, "result": result,
             "genotype": genotype, "best_genotype": best_genotype,
             "out_dir": out_dir, "checkpoints": ckpt.directory}

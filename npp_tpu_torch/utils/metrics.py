@@ -158,12 +158,30 @@ def calc_pck_lip(gt_path: str, pred_path: str, eval_num: int = 5000):
     """PCKh of a prediction CSV against a ground-truth CSV (with
     visibility), over their first ``eval_num`` rows."""
     pred, _ = read_pose_csv(pred_path, has_vis_dim=False)
+    return pckh_against_csv(gt_path, pred, eval_num)
+
+
+def pckh_against_csv(gt_path: str, pred: np.ndarray,
+                     eval_num: int = 5000) -> np.ndarray:
+    """PCKh of (N, 16, 2) predictions in LIP CSV joint order against a
+    ground-truth CSV (with visibility), over their first ``eval_num``
+    rows."""
     gt, gt_vis = read_pose_csv(gt_path, has_vis_dim=True)
     pred, gt = pred[:eval_num], gt[:eval_num]
     if gt.shape != pred.shape:
-        raise ValueError(f"{pred_path} holds {pred.shape} predictions, "
-                         f"{gt_path} {gt.shape} ground truth")
+        raise ValueError(f"{pred.shape} predictions against {gt_path}'s "
+                         f"{gt.shape} ground truth")
     return pckh_from_arrays(pred, gt, gt_vis)
+
+
+def as_pose_csv_reads(pose_xy: np.ndarray) -> np.ndarray:
+    """(N, 16, 2+) predictions as ``read_pose_csv`` reads back the file
+    that ``save_pose_csv`` writes of them: the integer x, y in LIP joint
+    order, a negative one read as 1."""
+    xy = np.trunc(np.asarray(pose_xy)[:, IDX_MAP_TO_LIP, :2])
+    xy = xy.astype(np.float64)
+    xy[xy < 0] = 1
+    return xy
 
 
 def pckh_table(pck_row: np.ndarray, method_name: str = "Ours") -> str:

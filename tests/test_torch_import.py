@@ -4,9 +4,9 @@ nor cv2, PIL or yaml, which the card machine lacks.
 Checked in a fresh interpreter, because this test process has imported
 jax already (tests/conftest.py). Importing also builds nothing: neither
 the heatmap kernel nor the readers' host library. The search,
-serving, PPP / chain, LIP reader and PPP reader / fused-warp slices'
-modules are also imported each on its own, so that none of them leans
-on another module having been imported first.
+serving, PPP / chain, LIP reader, PPP reader / fused-warp and
+data-parallel slices' modules are also imported each on its own, so
+that none of them leans on another module having been imported first.
 """
 import os
 import subprocess
@@ -60,6 +60,9 @@ LIP_MODULES = ("npp_tpu_torch.data.imgproc",
                "npp_tpu_torch.data.lip")
 DATA_MODULES = ("npp_tpu_torch.data.fast_aug",
                 "npp_tpu_torch.data.pascal")
+PARALLEL_MODULES = ("npp_tpu_torch.parallel.mesh",
+                    "npp_tpu_torch.parallel.sync_bn",
+                    "npp_tpu_torch.parallel.zero")
 
 
 def _run(code: str) -> str:
@@ -72,13 +75,13 @@ def _run(code: str) -> str:
 
 def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
     n_mods, bad = _run(PROBE).split(" ", 1)
-    assert int(n_mods) >= 44
+    assert int(n_mods) >= 48
     assert bad.strip() == "[]", bad
 
 
 @pytest.mark.parametrize("module",
                          SEARCH_MODULES + SERVE_MODULES + PPP_MODULES
-                         + LIP_MODULES + DATA_MODULES)
+                         + LIP_MODULES + DATA_MODULES + PARALLEL_MODULES)
 def test_search_module_imports_alone_without_jax(module):
     bad = _run(f"import importlib, sys\n"
                f"importlib.import_module({module!r})\n"
