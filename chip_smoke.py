@@ -80,7 +80,15 @@ unwrapped step; the
 train CLI with and without ``--zero``, the search CLI with ``--tiny
 --zero`` and the eval CLI on the train CLI's checkpoint, each under
 ``python -m torch.distributed.run``; ``chip_smoke.py --cli MODULE JSON
-ARGS`` is the rank those launches run).
+ARGS`` is the rank those launches run), 18 spatial partitioning, two
+gloo ranks sharing the card: 18a a 1x2 space grid at the flagship width
+(the fp32 forward of each rank's 192 rows against one process's, the
+bf16 forward timed, profiled and its all-reduces counted,
+``Predictor(mesh=)`` with pose scales against the unsharded one), 18b a
+2x1 data grid (``Predictor(mesh=)``, multi-scale ``testval(mesh=)``) and
+``test_lip --mesh`` under ``python -m torch.distributed.run``, 18c the
+1x2 grid training (a tiny fp32 step against one process's, the flagship
+bf16 step at bs2 timed and profiled).
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -131,7 +139,7 @@ from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.ops import heatmaps
-from npp_tpu_torch.parallel import mesh
+from npp_tpu_torch.parallel import mesh, spatial
 from npp_tpu_torch.tools import (augment_lip, eval_lip, eval_ppp_map,
                                  predict, search_lip, test_lip)
 from npp_tpu_torch.utils import metrics as M
@@ -148,6 +156,9 @@ KERNEL_SHAPES = (  # (B, J, gy, gx, sigma)
     (2, 16, 32, 32, 3.0),    # phase 17's tiny shards, train and search
     (1, 16, 32, 32, 3.0),    # 17a's validate at bs1 a rank
     (1, 14, 32, 32, 3.0),    # 17a's validate_ppp at bs1 a rank
+    (4, 16, 32, 32, 3.0),    # phase 6's and 18c's tiny batch (18c: each
+                             # rank renders it at full height)
+    (2, 16, 96, 96, 3.0),    # 18c's flagship bs2 sp step, full height
 )
 TIMED_SHAPES = {0: "eval", 3: "train", 4: "search", 5: "ppp_train",
                 6: "ppp_search"}
@@ -979,11 +990,11 @@ def peak_is_unique(pred: Predictor, ims) -> np.ndarray:
     flat = np.stack([[p[0] for p in row] for row in pres], 1)
     flat = torch.from_numpy(flat.reshape((-1,) + flat.shape[2:]))
     cps = torch.from_numpy(np.stack([[p[1] for p in row] for row in pres]))
-    _, hm = pred.fuse(flat, cps)
+    _, hm = pred.fuse(flat.to(pred.device), cps.to(pred.device))
     hm = I.gaussian_blur(hm, pred.blur_sigma)
     top = hm.flatten(2).topk(2, dim=2).values
     return ((top[..., 0] - top[..., 1])
-            > UNIQUE_GAP * top[..., 0].abs()).numpy()
+            > UNIQUE_GAP * top[..., 0].abs()).cpu().numpy()
 
 
 def check_tiny_serve(tag: str) -> dict:
@@ -2577,8 +2588,8 @@ def shared_card(tag: str, train: dict) -> tuple[dict, int]:
 def cli_rank(module: str, out_json: str, argv: list) -> int:
     """One rank of a CLI under torchrun (``chip_smoke.py --cli MODULE
     OUT_JSON ARGS``): runs ``MODULE.main(ARGS)`` as ``python -m MODULE``
-    would and writes rank 0's train loss and launches of the heatmap
-    kernel to OUT_JSON."""
+    would and writes rank 0's train loss (or the test CLI's pixel
+    accuracy) and launches of the heatmap kernel to OUT_JSON."""
     mod = importlib.import_module(module)
     heatmaps.render_heatmaps.launches = 0
     out = mod.main(argv)
@@ -2586,8 +2597,9 @@ def cli_rank(module: str, out_json: str, argv: list) -> int:
         with open(out_json, "w") as f:
             json.dump({"launches": heatmaps.render_heatmaps.launches,
                        "train_loss": out.get("train_loss"),
+                       "pixel_acc": out.get("pixel_acc"),
                        "loss": out["result"]["loss"] if "result" in out
-                       else out["loss"]}, f)
+                       else out.get("loss")}, f)
     return 0
 
 
@@ -2750,6 +2762,317 @@ def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict]:
     launches["ddp_eval"] = res["eval"]["launches"]
     return dict(ddp_step=timed[False], ddp_step_find_unused=timed[True],
                 cli_first_loss_rel=rel), launches
+
+
+# Phase 18: spatial partitioning. Two gloo ranks share cuda:0 (NCCL
+# refuses two ranks on one card), as in 17a. 18a: a 1x2 space grid at the
+# flagship width (the fp32 forward against the one process's, the bf16
+# forward profiled, Predictor(mesh=)); 18b: a 2x1 data grid (Predictor and
+# multi-scale testval with mesh=) and test_lip --mesh under torchrun;
+# 18c: the 1x2 grid training (a tiny fp32 step against the one process's,
+# the flagship bf16 step at bs2 timed). Two ranks on one card measure
+# correctness and collective counts, not scaling.
+SP_WORLD = 2
+SP_TIMEOUT_S = 300      # a rank that has not ended by then fails the phase
+SP_FWD_ATOL = 1e-4      # npp_tpu's bound for the sharded fp32 forward
+SP_FWD_BATCH = 2
+SP_SERVE_IMAGES = 8
+SP_POSE_SCALES = (1.0, 0.75)
+SP_TIMED = 3            # 18c's flagship steps a rank; the first is dropped
+SP_MS_SCALES = (0.5, 1.0)
+
+
+def sp_images(n: int) -> torch.Tensor:
+    """``n`` normalised 384x384 images, one brightness each."""
+    g = torch.Generator().manual_seed(SEED + 18)
+    x = torch.randn(n, 3, 384, 384, generator=g)
+    return x * torch.linspace(0.5, 1.5, n)[:, None, None, None]
+
+
+def sp_flagship(device):
+    return build_nppnet(device=device, generator=torch.Generator()
+                        .manual_seed(SEED), dtype=torch.float32,
+                        **eval_lip.FLAGSHIP).to(
+        memory_format=torch.channels_last)
+
+
+def sp_tiny_step(device, grid=None) -> dict:
+    """One tiny fp32 train step (phase 6's batch of 4 at 128x128; on a
+    grid, this rank's rows of it, rendered at full height)."""
+    hp = augment_lip.TINY_TRAIN
+    state = T.init_train_state(
+        generator=torch.Generator().manual_seed(SEED), device=device,
+        base_lr=hp["lr"], lr_step=hp["lr_step"], lr_factor=hp["lr_factor"],
+        steps_per_epoch=1, dtype=torch.float32, grid=grid, **eval_lip.TINY)
+    batch = tiny_batch(device)
+    if grid is not None:
+        batch = spatial.shard_batch_spatial(batch, grid)
+    step = T.make_train_step(class_weights=LIP_CLASS_WEIGHTS,
+                             ignore_index=eval_lip.IGNORE,
+                             ohem_thres=hp["ohem_thres"],
+                             ohem_keep=hp["ohem_keep"], grid=grid)
+    metrics = step(state, batch)
+    out = train_snapshot(state)
+    out["losses"] = {k: v.item() for k, v in metrics.items()}
+    return out
+
+
+def sp_testval(device, grid=None) -> np.ndarray:
+    """The tiny model's multi-scale testval over 2 synthetic images (its
+    confusion matrix), with the windows split over ``grid``'s data axis."""
+    model = build_nppnet(device=device, generator=torch.Generator()
+                         .manual_seed(SEED), dtype=torch.float32,
+                         **eval_lip.TINY)
+    ds = SyntheticDataset(length=2, crop_size=(128, 128), is_train=False,
+                          num_joints=16, num_classes=20, seed=SEED)
+    loader = L.DataLoader(ds, 1, device=device, num_workers=1,
+                          process_index=0, process_count=1)
+    return test_seg.testval(test_seg.make_parsing_apply_fn(model), loader,
+                            num_classes=20, scales=SP_MS_SCALES,
+                            crop_size=(128, 128), mesh=grid)["cm"]
+
+
+def count_collectives(fn) -> tuple:
+    """(fn(), the all-reduces it issued in this process)."""
+    calls = [0]
+    real = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        dist.all_reduce = real
+
+
+def sp_work(device) -> dict:
+    """Phase 18's work on one rank of the two (``sp_rank``)."""
+    space, data = mesh.make_grid(1, SP_WORLD), mesh.make_grid(SP_WORLD, 1)
+    out = {"s": space.s, "d": data.d}
+    # 18a: the fp32 forward, then the bf16 one profiled.
+    model = spatial.convert_spatial(sp_flagship(device), space)
+    x = spatial.shard_batch_spatial({"image": sp_images(SP_FWD_BATCH)},
+                                    space)["image"].to(device)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        pose_list, par_list = model(x)
+        out["fwd"] = [t.float().cpu() for stage in (pose_list, par_list)
+                      for pair in stage for t in pair]
+        model.dtype = torch.bfloat16
+        for _ in range(2):  # warm-up
+            model(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out["collectives"] = count_collectives(lambda: model(x))
+        torch.cuda.synchronize()
+        out["bf16_ms"] = (time.perf_counter() - t0) * 1e3
+        out["bf16_prof"] = profile_step(lambda m, b: m(b), model, x)
+    del model
+    # 18a / 18b: Predictor(mesh=) on the space grid and on the data grid.
+    ims = serve_images(SP_SERVE_IMAGES)
+    for name, grid in (("serve_space", space), ("serve_data", data)):
+        pred = Predictor(sp_flagship(device), crop_size=(384, 384),
+                         pose_scales=SP_POSE_SCALES, mesh=grid)
+        with torch.no_grad():
+            out[name] = pred.predict_batch(ims)
+        del pred
+    out["testval_cm"] = sp_testval(device, data)
+    # 18c: the tiny step, then the flagship bf16 step at bs2, on the space
+    # grid; the heatmap kernel renders every rank's batch at full height.
+    heatmaps.render_heatmaps.launches = 0
+    out["tiny"] = sp_tiny_step(device, space)
+    hp = dict(augment_lip.FLAGSHIP_TRAIN, batch_size=2)
+    renderer = L.make_target_renderer(stride=4, sigma=eval_lip.SIGMA,
+                                      num_joints=eval_lip.NUM_JOINTS,
+                                      ignore=eval_lip.IGNORE,
+                                      normalize_images=True)
+    loader = L.DataLoader(SyntheticDataset(length=8, crop_size=(384, 384),
+                                           device_normalize=True),
+                          2, device=device, shuffle=True, drop_last=True,
+                          num_workers=4, renderer=renderer, grid=space)
+    batches = take(loader, 2)
+    state = T.init_train_state(
+        generator=torch.Generator().manual_seed(SEED), device=device,
+        base_lr=hp["lr"], lr_step=hp["lr_step"], lr_factor=hp["lr_factor"],
+        steps_per_epoch=len(loader), dtype=torch.bfloat16, grid=space,
+        **eval_lip.FLAGSHIP)
+    step = T.make_train_step(class_weights=LIP_CLASS_WEIGHTS,
+                             ignore_index=eval_lip.IGNORE,
+                             ohem_thres=hp["ohem_thres"],
+                             ohem_keep=hp["ohem_keep"], grid=space)
+    out["flagship"] = timed_train_step(step, state, batches, SP_TIMED)
+    out["flagship"]["rows"] = tuple(batches[0]["image"].shape)
+    out["launches"] = heatmaps.render_heatmaps.launches
+    return out
+
+
+def sp_rank(rank: int, port: int, out_dir: str) -> None:
+    """A phase 18 rank (spawned): joins the gloo group of SP_WORLD ranks on
+    cuda:0, runs ``sp_work`` and saves its results."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not mesh.initialize_distributed("cuda:0", backend="gloo"):
+        raise RuntimeError("the gloo group did not start")
+    try:
+        torch.save(sp_work("cuda:0"), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_agreement(got: list, ref: list, unique: np.ndarray) -> tuple:
+    """(crop label share, image label share, worst keypoint |diff| over
+    the joints with a unique peak, worst score |diff|)."""
+    crop = np.mean([np.mean(a["parsing_crop"] == b["parsing_crop"])
+                    for a, b in zip(got, ref)])
+    full = (sum(int((a["parsing"] == b["parsing"]).sum())
+                for a, b in zip(got, ref))
+            / sum(b["parsing"].size for b in ref))
+    kp = np.stack([np.abs(a["keypoints"][:, :2] - b["keypoints"][:, :2])
+                   .max(axis=1) for a, b in zip(got, ref)])
+    score = max(float(np.abs(a["keypoints"][:, 2] - b["keypoints"][:, 2])
+                      .max()) for a, b in zip(got, ref))
+    return crop, full, float(kp[unique].max()), score
+
+
+def spatial_parallel(tag: str) -> tuple[dict, int]:
+    """Phase 18 (see the constants above). Returns the numbers and the
+    ranks' heatmap kernel launches on the sp train path."""
+    torch.backends.cudnn.allow_tf32 = False  # as in the ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    port = free_port()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=sp_rank, args=(r, port, tmp))
+                 for r in range(SP_WORLD)]
+        for p in procs:
+            p.start()
+        # The one process's references, meanwhile.
+        model = sp_flagship("cuda")
+        with torch.no_grad():
+            pose_list, par_list = model(sp_images(SP_FWD_BATCH).to("cuda")
+                                        .contiguous(memory_format=
+                                                    torch.channels_last))
+            one_fwd = [t.float().cpu() for stage in (pose_list, par_list)
+                       for pair in stage for t in pair]
+        del pose_list, par_list
+        ims = serve_images(SP_SERVE_IMAGES)
+        one_pred = Predictor(model, crop_size=(384, 384),
+                             pose_scales=SP_POSE_SCALES)
+        one_serve = one_pred.predict_batch(ims)
+        unique = peak_is_unique(one_pred, ims)
+        del model, one_pred
+        one_cm = sp_testval("cuda")
+        one_tiny = sp_tiny_step("cuda")
+        torch.cuda.empty_cache()
+        # test_lip --mesh under torchrun (world size 1: NCCL on the card).
+        cli, cli_json = run_under_torchrun(
+            "npp_tpu_torch.tools.test_lip",
+            ["--synthetic", "--tiny", "--mesh", "--limit", "2"], tmp,
+            "test_lip_mesh")
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SP_WORLD:
+            raise AssertionError(f"phase 18: the ranks exited with {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(SP_WORLD)]
+        cli_out = finish(cli, cli_json, "test_lip --mesh", timeout=300)
+    # 18a: every rank's rows of the 8 outputs.
+    fwd_err = 0.0
+    for r in ranks:
+        for got, want in zip(r["fwd"], one_fwd):
+            h = want.shape[2] // SP_WORLD
+            fwd_err = max(fwd_err, (got - want[:, :, r["s"] * h:
+                                               (r["s"] + 1) * h])
+                          .abs().max().item())
+    serve = {}
+    for name in ("serve_space", "serve_data"):
+        serve[name] = [serve_agreement(r[name], one_serve, unique)
+                       for r in ranks]
+    prof = [r["bf16_prof"] for r in ranks]
+    print(f"phase 18a: 1x2 space grid, {SP_WORLD} gloo ranks sharing cuda:0, "
+          f"flagship (L=16, C=64, 384x384, eval) at bs{SP_FWD_BATCH}: fp32 "
+          f"forward (TF32 off) of every rank's 192 rows vs one process: max "
+          f"|diff| {fwd_err:.3g} over the 8 outputs (<= {SP_FWD_ATOL}); bf16 "
+          f"forward a rank: {[round(r['bf16_ms'], 3) for r in ranks]} ms on "
+          f"the host clock, {[p['kernels'] for p in prof]} device "
+          f"operations, busy {[round(p['busy_ms'], 3) for p in prof]} ms, "
+          f"{[r['collectives'] for r in ranks]} all-reduces; top by device "
+          f"time {prof[0]['top'][:4]} {tag}")
+    for name, what in (("serve_space", "18a: Predictor(mesh=1x2)"),
+                       ("serve_data", "18b: Predictor(mesh=2x1)")):
+        print(f"phase {what} fp32 on {SP_SERVE_IMAGES} images, pose scales "
+              f"{SP_POSE_SCALES}, vs the unsharded Predictor: per rank (crop "
+              f"label share, image label share, keypoint max|diff| px over "
+              f"the {int(unique.sum())} of {unique.size} joints with a unique "
+              f"peak, score max|diff|) {serve[name]} (>= {LABEL_SHARE}, <= "
+              f"{KP_ATOL}) {tag}")
+    cm_equal = all(np.array_equal(r["testval_cm"], one_cm) for r in ranks)
+    print(f"phase 18b: multi-scale testval (tiny, 2 images, scales "
+          f"{SP_MS_SCALES}, flip) with the windows split over 2 ranks: "
+          f"confusion matrices equal to one process's: {cm_equal}; python -m "
+          f"torch.distributed.run --nproc_per_node=1 test_lip --synthetic "
+          f"--tiny --mesh --limit 2 (NCCL): pixel_acc "
+          f"{cli_out['pixel_acc']:.6f} {tag}")
+    tiny = [r["tiny"] for r in ranks]
+    mean_loss = {k: statistics.mean(t["losses"][k] for t in tiny)
+                 for k in one_tiny["losses"]}
+    loss_rel = max(abs(mean_loss[k] - v) / abs(v)
+                   for k, v in one_tiny["losses"].items())
+    g_worst, g_key, g_norm = grad_rule(tiny[0]["grads"], one_tiny["grads"])
+    s1 = stats_err(tiny[0]["stats"], one_tiny["stats"])
+    lg = max(((tiny[0]["lamda_grads"][k] - v).abs() / v.abs()).max().item()
+             for k, v in one_tiny["lamda_grads"].items())
+    same = all(torch.equal(t, tiny[1][f][n]) for f in ("grads", "params",
+                                                       "stats")
+               for n, t in tiny[0][f].items())
+    fl = [r["flagship"] for r in ranks]
+    print(f"phase 18c: 1x2 space grid train: tiny fp32 step (L=8, C=8, "
+          f"128x128, bs4, each rank 64 rows) vs one process: mean losses "
+          f"relative {loss_rel:.3g} (<= 1e-5), gradients worst tensor "
+          f"{g_worst:.3g} (<= {TINY_GRAD_TENSOR}; {g_key}), norm "
+          f"{g_norm:.3g} (<= {TINY_GRAD_NORM}), running stats {s1:.3g} of "
+          f"1e-4 x max|ref| + {STATS_ATOL}, lambda gradients {lg:.3g} (<= "
+          f"1e-5), the ranks' state equal: {same}; flagship bf16 step at bs2 "
+          f"(rank batch {fl[0]['rows']}): median "
+          f"{[round(f['step_ms'], 3) for f in fl]} ms over {SP_TIMED - 1} "
+          f"warm steps a rank, {[f['kernels'] for f in fl]} device "
+          f"operations, busy {[round(f['busy_ms'], 3) for f in fl]} ms, idle "
+          f"share {[round(f['idle_share'], 3) for f in fl]}, peak "
+          f"{[round(f['peak_gib'], 3) for f in fl]} GiB; top by device time "
+          f"{fl[0]['top'][:4]} {tag}")
+    if not fwd_err <= SP_FWD_ATOL:
+        raise AssertionError("phase 18a: the sharded forward disagrees")
+    for name, rows in serve.items():
+        for crop, full, kp, _ in rows:
+            if not (crop >= LABEL_SHARE and full >= LABEL_SHARE
+                    and kp <= KP_ATOL):
+                raise AssertionError(f"phase 18: {name} disagrees")
+    if not (cm_equal and math.isfinite(cli_out["pixel_acc"])):
+        raise AssertionError("phase 18b: testval with mesh= disagrees")
+    if not (loss_rel <= 1e-5 and g_worst <= TINY_GRAD_TENSOR
+            and g_norm <= TINY_GRAD_NORM and s1 <= 1.0 and lg <= 1e-5
+            and same):
+        raise AssertionError("phase 18c: the sp train step disagrees")
+    if not all(math.isfinite(f["step_ms"]) for f in fl):
+        raise AssertionError("phase 18c: the flagship sp step failed")
+    return dict(fwd_err=fwd_err, bf16_fwd_ms=[r["bf16_ms"] for r in ranks],
+                bf16_fwd_kernels=[p["kernels"] for p in prof],
+                bf16_fwd_busy_ms=[p["busy_ms"] for p in prof],
+                collectives=[r["collectives"] for r in ranks],
+                serve=serve, testval_equal=cm_equal, tiny_loss_rel=loss_rel,
+                tiny_grad=(g_worst, g_norm), flagship=fl), \
+        sum(r["launches"] for r in ranks)
 
 
 class PhaseClock:
@@ -2920,19 +3243,25 @@ def main() -> int:
     nccl, nccl_launches = nccl_world_one(tag, train)
     launches.update(nccl_launches)
     clock.done("17b")
+    # Phase 18: spatial partitioning; its ranks count the heatmap kernel's
+    # launches on the sp train path.
+    sp, launches["sp_train"] = spatial_parallel(tag)
+    clock.done(18)
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
     summary = {"tiny_train": tiny, "train_step": train,
                "tiny_search": tiny_search, "search_pair": search,
                "tiny_serve": tiny_serve, "serve": serve,
                "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
                "lip_disk": from_disk, "ppp_and_fused_disk": more_disk,
-               "ddp_shared_card": shared, "ddp_nccl": nccl}
-    print(f"phase 17: heatmap kernel launches on the main paths: {launches}; "
+               "ddp_shared_card": shared, "ddp_nccl": nccl,
+               "spatial": sp}
+    print(f"phase 18: heatmap kernel launches on the main paths: {launches}; "
           f"phase seconds {json.dumps(seconds)}; "
           f"summary {json.dumps(summary)}")
     for path in ("eval", "train", "search", "ppp_train", "ppp_search",
                  "chain", "lip_disk", "ppp_disk", "lip_fast_disk",
-                 "ddp_shared_card", "ddp_train", "ddp_search", "ddp_eval"):
+                 "ddp_shared_card", "ddp_train", "ddp_search", "ddp_eval",
+                 "sp_train"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")

@@ -20,6 +20,14 @@ so the mean of the ranks' losses is the global loss and DDP's mean of
 their gradients is its gradient. No gradient flows through the threshold
 or the counts. The pose MSE takes no group: every rank's batch has the
 same size, so the mean of the ranks' means is the global mean.
+
+Under spatial partitioning (``grid=``, ``parallel/spatial.py``) the
+group spans the ``data x space`` grid and each rank holds its rows of
+its data shard's maps and labels. The parsing counts and OHEM's values
+are then every rank's pixels, as before. The pose MSE still takes no
+group: every rank holds the same number of rows, so the mean of the
+ranks' means is the global mean again. The logits are resized to the
+label size from the whole maps (``spatial.resize_sharded``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 
 from npp_tpu_torch.ops.resize import resize_bilinear
 from npp_tpu_torch.parallel.mesh import all_concat, all_sum
+from npp_tpu_torch.parallel.spatial import resize_sharded
 
 # Per-class CE weights (npp_tpu/core/criterion.py:30-39).
 PASCAL_CLASS_WEIGHTS = (
@@ -62,17 +71,28 @@ def _mse(a, b):
     return torch.mean(torch.square(a.float() - b.float()))
 
 
+def _resize(x: torch.Tensor, like: torch.Tensor, align_corners: bool,
+            grid=None) -> torch.Tensor:
+    """``x`` (B, C, h, w) at the size of ``like`` (..., H, W); with
+    ``grid`` both are this rank's rows of the space axis."""
+    h, w = like.shape[-2], like.shape[-1]
+    if grid is None or grid.n_space == 1 or tuple(x.shape[-2:]) == (h, w):
+        return resize_bilinear(x, (h, w), align_corners=align_corners)
+    return resize_sharded(x, grid, (h * grid.n_space, w),
+                          align_corners=align_corners)
+
+
 def joint_mse_loss(output: torch.Tensor, target: torch.Tensor,
                    output_aux: torch.Tensor, target_aux: torch.Tensor,
-                   target_weight: torch.Tensor | None = None) -> torch.Tensor:
+                   target_weight: torch.Tensor | None = None,
+                   grid=None) -> torch.Tensor:
     """Per-joint heatmap MSE over (B, J, H, W) maps plus the aux head's.
     An optional ``target_weight`` (B, J) masks joints before the MSE."""
-    th, tw = target.shape[2], target.shape[3]
     w = (None if target_weight is None
          else target_weight.float()[:, :, None, None])
 
     def one(out, tgt_):
-        out = resize_bilinear(out, (th, tw), align_corners=False)
+        out = _resize(out, tgt_, False, grid)
         if w is None:
             return _mse(out, tgt_)
         return _mse(out.float() * w, tgt_.float() * w)
@@ -83,11 +103,13 @@ def joint_mse_loss(output: torch.Tensor, target: torch.Tensor,
 def pose_loss(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
               target: torch.Tensor, target_aux: torch.Tensor,
               lamda: torch.Tensor,
-              target_weight: torch.Tensor | None = None) -> torch.Tensor:
+              target_weight: torch.Tensor | None = None,
+              grid=None) -> torch.Tensor:
     """Deep-supervised pose loss over stages, weighted exp(-lam)*L + lam."""
     total = 0.0
     for i, (out, out_aux) in enumerate(outputs):
-        li = joint_mse_loss(out, target, out_aux, target_aux, target_weight)
+        li = joint_mse_loss(out, target, out_aux, target_aux, target_weight,
+                            grid)
         total = total + li * torch.exp(-lamda[i]) + lamda[i]
     return total
 
@@ -164,15 +186,13 @@ def single_parsing_loss(par_logits: torch.Tensor, edge_logits: torch.Tensor,
                         target_par: torch.Tensor, target_edge: torch.Tensor,
                         class_weights: Sequence[float],
                         ignore_index: int = 255, thres: float = 0.9,
-                        min_kept: int = 131072, group=None) -> torch.Tensor:
+                        min_kept: int = 131072, group=None,
+                        grid=None) -> torch.Tensor:
     """One refinement stage's parsing (OHEM) + edge loss; the edge class
     weights are the batch's edge / non-edge balance (with ``group``, the
-    global batch's)."""
-    h, w = target_par.shape[1], target_par.shape[2]
-    par_logits = resize_bilinear(par_logits.float(), (h, w),
-                                 align_corners=True)
-    edge_logits = resize_bilinear(edge_logits.float(), (h, w),
-                                  align_corners=True)
+    global batch's; with ``grid``, of every rank's rows)."""
+    par_logits = _resize(par_logits.float(), target_par, True, grid)
+    edge_logits = _resize(edge_logits.float(), target_par, True, grid)
     loss = ohem_cross_entropy(par_logits, target_par, class_weights,
                               ignore_index, thres, min_kept, group)
     counts = torch.stack([(target_edge == 1).float().sum(),
@@ -191,13 +211,14 @@ def parsing_loss(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
                  lamda: torch.Tensor,
                  class_weights: Sequence[float] = LIP_CLASS_WEIGHTS,
                  ignore_index: int = 255, thres: float = 0.9,
-                 min_kept: int = 131072, group=None) -> torch.Tensor:
+                 min_kept: int = 131072, group=None,
+                 grid=None) -> torch.Tensor:
     """Deep-supervised parsing loss over stages (with ``group``, of the
     global batch; the ``+ lamda`` terms are not scaled)."""
     total = 0.0
     for i, (par_logits, edge_logits) in enumerate(outputs):
         li = single_parsing_loss(par_logits, edge_logits, target_par,
                                  target_edge, class_weights, ignore_index,
-                                 thres, min_kept, group)
+                                 thres, min_kept, group, grid)
         total = total + li * torch.exp(-lamda[i]) + lamda[i]
     return total

@@ -10,6 +10,14 @@ window count, resized back to the image, and summed over the scales. The
 window grid keeps the reference's clipped tail: the last window starts at
 ``(n - 1) * stride`` and runs past the image edge, into padding that the
 accumulation then crops away.
+
+``mesh`` (a ``parallel.mesh.make_grid`` grid) splits the windows over the
+data axis: each data index runs a contiguous share of the windows (with
+their flips), accumulates their exp-logits into its own partial sum and
+the partial sums are added over the data group, so every rank returns
+the whole result. npp_tpu pads its one batched program's tile count to
+lcm(8, n_data); eager chunks have no fixed shape, so the port pads
+nothing. The ranks of a space axis run the same windows.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from npp_tpu_torch.ops.resize import resize_bilinear
+from npp_tpu_torch.parallel.mesh import all_sum
 
 
 def _tile_origins(length: int, crop: int, stride: int) -> list[int]:
@@ -60,7 +69,7 @@ def multi_scale_inference(apply_fn, image: torch.Tensor, *, num_classes: int,
                           scales=(0.5, 0.75, 1.0, 1.25, 1.5),
                           flip: bool = True, pad_value=0.0,
                           base_size: int | None = None,
-                          chunk: int = 16) -> torch.Tensor:
+                          chunk: int = 16, mesh=None) -> torch.Tensor:
     """``image``: (1, 3, H, W) normalised, on the model's device;
     ``apply_fn(tiles)`` maps (N, 3, ch, cw) windows to (N, num_classes, ch,
     cw) logits. ``crop_size`` is (height, width). Returns (1, num_classes,
@@ -69,7 +78,8 @@ def multi_scale_inference(apply_fn, image: torch.Tensor, *, num_classes: int,
     ``pad_value`` fills the windows' padding: a scalar pads with zeros, as
     the reference's windows; a 3-vector fills it with that pixel.
     ``base_size`` is the long side the scales multiply (default: the
-    image's own)."""
+    image's own). ``mesh`` splits the windows over its data axis (module
+    docstring)."""
     _, _, oh, ow = image.shape
     ch, cw = crop_size
     geo = _geometry(oh, ow, ch, cw, tuple(float(s) for s in scales),
@@ -89,23 +99,34 @@ def multi_scale_inference(apply_fn, image: torch.Tensor, *, num_classes: int,
                 scaled = scaled * mask + (1 - mask) * pad_pixel
         tiles.extend(scaled[0, :, y:y + ch, x:x + cw] for y in ys for x in xs)
     total = len(tiles)
-    tiles = torch.stack(tiles)
-    if flip:
-        tiles = torch.cat([tiles, tiles.flip(3)])
-    logits = torch.cat([apply_fn(tiles[i:i + chunk]).float()
-                        for i in range(0, tiles.shape[0], chunk)])
-    if flip:
-        logits = 0.5 * (logits[:total] + logits[total:].flip(3))
-    probs = torch.exp(logits)
+    first, last = 0, total
+    if mesh is not None and mesh.n_data > 1:
+        per = -(-total // mesh.n_data)
+        first, last = (min(mesh.d * per, total),
+                       min((mesh.d + 1) * per, total))
+    probs = None
+    if last > first:  # a data index may get no window of a small image
+        tiles = torch.stack(tiles[first:last])
+        if flip:
+            tiles = torch.cat([tiles, tiles.flip(3)])
+        logits = torch.cat([apply_fn(tiles[i:i + chunk]).float()
+                            for i in range(0, tiles.shape[0], chunk)])
+        if flip:
+            n_mine = last - first
+            logits = 0.5 * (logits[:n_mine] + logits[n_mine:].flip(3))
+        probs = torch.exp(logits)
     final = torch.zeros((1, num_classes, oh, ow), device=image.device)
     k = 0
     for nh, nw, eh, ew, ys, xs, inv_count in geo:
         preds = torch.zeros((num_classes, eh, ew), device=image.device)
         for y in ys:
             for x in xs:
-                preds[:, y:y + ch, x:x + cw] += probs[k]
+                if first <= k < last:
+                    preds[:, y:y + ch, x:x + cw] += probs[k - first]
                 k += 1
         preds = preds * torch.as_tensor(inv_count, device=image.device)
         final = final + resize_bilinear(preds[None, :, :nh, :nw], (oh, ow),
                                         align_corners=False)
+    if mesh is not None and mesh.n_data > 1:
+        final = all_sum(final, mesh.data_group)
     return final

@@ -12,11 +12,22 @@ parsing upsample, flip fusion, argmax and the pose decode run in float32.
 one batched forward and the heatmaps are fused on the base canvas
 (``inference.fuse_multiscale_pose``) before the decode.
 
-Not ported: int8 serving (``quantize``, ``calibrate_int8``), the fused
-neck and sibling-cell layouts and mesh serving.
+``mesh`` (a ``parallel.mesh.make_grid`` grid; npp_tpu's name for its
+``data x space`` mesh) serves over a grid of ranks: every rank preprocesses
+the whole request batch, pads it to a multiple of lcm(8, n_data), takes
+its data shard and, with n_space > 1, its rows of each canvas; the
+model runs on those rows (``spatial.convert_spatial``), the last stage's
+heatmaps and parsing are gathered along H inside the space group before
+the fusion and the decode, and the per-image labels and keypoints are
+gathered over the data group, so that every rank returns the full list
+in request order.
+
+Not ported: int8 serving (``quantize``, ``calibrate_int8``) and the fused
+neck and sibling-cell layouts.
 """
 from __future__ import annotations
 
+import math
 import queue
 import threading
 
@@ -30,6 +41,8 @@ from npp_tpu_torch.core.inference import (FLIPPED_POSEIDX,
                                           fuse_multiscale_pose)
 from npp_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
 from npp_tpu_torch.ops.resize import resize_bilinear
+from npp_tpu_torch.parallel.mesh import all_concat
+from npp_tpu_torch.parallel.spatial import convert_spatial, gather_rows
 
 
 def _cubic_taps(n_in: int, n_out: int, inv_scale: float):
@@ -93,15 +106,27 @@ class Predictor:
     def __init__(self, model, *, crop_size=(384, 384), flip_test: bool = True,
                  flip_pairs=((14, 15), (16, 17), (18, 19)),
                  blur_sigma: float = 3.0, dark_decode: bool = False,
-                 pose_scales: tuple = (1.0,)):
+                 pose_scales: tuple = (1.0,), mesh=None):
         """``crop_size`` is (width, height). ``dark_decode`` refines the
         keypoints with the DARK step (``inference.post_process_dark``).
         ``pose_scales`` lists the scale multipliers of scale-list pose
-        TTA and must hold 1.0; the parsing always comes from scale 1.0."""
+        TTA and must hold 1.0; the parsing always comes from scale 1.0.
+        ``mesh``: a grid of ranks to serve over (module docstring); with
+        n_space > 1 the crop height and height / 4 must divide by it, and
+        ``model`` is converted to run on rows in place."""
         self.pose_scales = tuple(float(s) for s in pose_scales)
         if 1.0 not in self.pose_scales:
             raise ValueError("pose_scales must contain the base scale 1.0")
         self._base_si = self.pose_scales.index(1.0)
+        self.mesh = mesh
+        self._n_data = 1 if mesh is None else mesh.n_data
+        if mesh is not None and mesh.n_space > 1:
+            ch_ = crop_size[1]
+            if ch_ % mesh.n_space or (ch_ // 4) % mesh.n_space:
+                raise ValueError(
+                    f"crop height {ch_} (and {ch_}//4) must divide "
+                    f"space={mesh.n_space} for spatial serving")
+            convert_spatial(model, mesh)
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.crop_size = tuple(crop_size)
@@ -117,9 +142,13 @@ class Predictor:
     # -- device side -----------------------------------------------------
 
     def _forward(self, x: torch.Tensor):
-        """Last-stage pose heatmaps and parsing logits in float32."""
+        """Last-stage pose heatmaps and parsing logits in float32 (whole
+        maps: on a space axis, gathered from every rank's rows)."""
         pose_list, par_list = self.model(x)
-        return pose_list[-1][0].float(), par_list[-1][0].float()
+        hm, par = pose_list[-1][0].float(), par_list[-1][0].float()
+        if self.mesh is not None and self.mesh.n_space > 1:
+            hm, par = gather_rows(hm, self.mesh), gather_rows(par, self.mesh)
+        return hm, par
 
     def _normalize(self, image_u8: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> ImageNet-normalised (B, 3, H, W) float32;
@@ -138,6 +167,9 @@ class Predictor:
         ch, cw = self.crop_size[1], self.crop_size[0]
         s = len(self.pose_scales)
         b = flat_u8.shape[0] // s
+        if self.mesh is not None and self.mesh.n_space > 1:
+            rows = ch // self.mesh.n_space
+            flat_u8 = flat_u8[:, self.mesh.s * rows:(self.mesh.s + 1) * rows]
         x = self._normalize(flat_u8)
         pose_hm, par_logits = self._forward(x)
 
@@ -218,7 +250,10 @@ class Predictor:
 
     def _predict_preprocessed(self, pre, images, pad_to_multiple):
         n = len(images)
-        padded = n if n == 1 else -(-n // pad_to_multiple) * pad_to_multiple
+        if self._n_data > 1:
+            pad_to_multiple = math.lcm(pad_to_multiple, self._n_data)
+        padded = (n if n == 1 and self._n_data == 1
+                  else -(-n // pad_to_multiple) * pad_to_multiple)
         canv_rows, cp_rows = [], []  # per scale, (padded, ...)
         for si, sm in enumerate(self.pose_scales):
             ps = (pre if si == self._base_si
@@ -230,9 +265,20 @@ class Predictor:
                             np.float32)
         stack = np.stack(canv_rows)                      # (S, B, ch, cw, 3)
         flat = stack.transpose(1, 0, 2, 3, 4).reshape((-1,) + stack.shape[2:])
+        cps = np.stack(cp_rows)
+        dev_scales = scales
+        if self._n_data > 1:  # this rank's images (image-major: all scales)
+            per = padded // self._n_data
+            mine = slice(self.mesh.d * per, (self.mesh.d + 1) * per)
+            s = len(self.pose_scales)
+            flat = flat[mine.start * s:mine.stop * s]
+            cps, dev_scales = cps[:, mine], scales[mine]
         par_crops, kp = self._serve(self._to_device(flat),
-                                    self._to_device(np.stack(cp_rows)),
-                                    self._to_device(scales))
+                                    self._to_device(cps),
+                                    self._to_device(dev_scales))
+        if self._n_data > 1:
+            par_crops = all_concat(par_crops, self.mesh.data_group)
+            kp = all_concat(kp, self.mesh.data_group)
         par_crops, kp = par_crops.cpu().numpy(), kp.cpu().numpy()
         base_cp = cp_rows[self._base_si]
         return [self._postprocess(images[i], par_crops[i], base_cp[i],

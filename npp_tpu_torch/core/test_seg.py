@@ -3,7 +3,8 @@
 Port of ``npp_tpu/core/test_seg.py``: ``testval`` runs the multi-scale
 sliding-window inference over a loader of single images and accumulates
 the confusion matrix on the device; ``test`` writes each image's labels
-as a palette PNG (``utils/vis.py``).
+as a palette PNG (``utils/vis.py``). ``mesh`` splits each image's
+windows over a grid's data axis (``multiscale.multi_scale_inference``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from npp_tpu_torch.core.multiscale import multi_scale_inference
 from npp_tpu_torch.ops.resize import resize_bilinear
+from npp_tpu_torch.parallel.mesh import is_primary
 from npp_tpu_torch.utils import metrics as M
 from npp_tpu_torch.utils.vis import save_parsing_png
 
@@ -43,7 +45,7 @@ def _image(batch) -> torch.Tensor:
 @torch.inference_mode()
 def testval(apply_fn, loader, *, num_classes: int,
             scales=(0.5, 0.75, 1.0, 1.25, 1.5), flip: bool = True,
-            crop_size=(384, 384), ignore: int = 255) -> dict:
+            crop_size=(384, 384), ignore: int = 255, mesh=None) -> dict:
     """Multi-scale parsing evaluation over a loader of single images;
     returns ``seg_metrics`` of the summed confusion matrix (also as
     ``cm``), fetched once at the end."""
@@ -52,7 +54,7 @@ def testval(apply_fn, loader, *, num_classes: int,
         pred = multi_scale_inference(apply_fn, _image(batch),
                                      num_classes=num_classes,
                                      crop_size=crop_size, scales=scales,
-                                     flip=flip)
+                                     flip=flip, mesh=mesh)
         c = M.confusion_matrix(batch["par"], pred.argmax(dim=1),
                                num_classes, ignore)
         cm = c if cm is None else cm + c
@@ -64,7 +66,7 @@ def testval(apply_fn, loader, *, num_classes: int,
 @torch.inference_mode()
 def test(apply_fn, loader, out_dir: str, *, num_classes: int,
          scales=(1.0,), flip: bool = False,
-         crop_size=(384, 384)) -> list[str]:
+         crop_size=(384, 384), mesh=None) -> list[str]:
     """Write ``<out_dir>/<name>.png`` palette parsings; returns the paths."""
     os.makedirs(out_dir, exist_ok=True)
     paths = []
@@ -72,10 +74,11 @@ def test(apply_fn, loader, out_dir: str, *, num_classes: int,
         pred = multi_scale_inference(apply_fn, _image(batch),
                                      num_classes=num_classes,
                                      crop_size=crop_size, scales=scales,
-                                     flip=flip)
+                                     flip=flip, mesh=mesh)
         labels = pred.argmax(dim=1).to(torch.uint8).cpu().numpy()
         for i, name in enumerate(batch["names"]):
             path = os.path.join(out_dir, f"{name}.png")
-            save_parsing_png(labels[i], path, num_classes)
+            if mesh is None or is_primary():  # every rank holds the labels
+                save_parsing_png(labels[i], path, num_classes)
             paths.append(path)
     return paths

@@ -29,6 +29,13 @@ bare module, so state_dict keys carry no ``module.``), the loss is the
 global batch's, and ``backward`` averages the lambdas' gradient of this
 step over the ranks before it joins their running sum. With ``zero``
 the optimizer is ZeRO-1 (``parallel/zero.py``).
+
+On a ``data x space`` grid (``init_train_state(grid=)``,
+``make_train_step(grid=)``, ``parallel/spatial.py``) the model runs on
+this rank's rows (``spatial.convert_spatial``), DDP, the cross-rank BN
+and the criterion span the grid's ranks, and each rank's batch is its
+data shard's rows (``spatial.shard_batch_spatial``); the step is
+npp_tpu's one-device step on the global batch, as under a data group.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from torch.optim.lr_scheduler import LambdaLR
 from npp_tpu_torch.core import criterion
 from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.parallel import mesh, zero as Z
+from npp_tpu_torch.parallel.spatial import convert_spatial
 from npp_tpu_torch.parallel.sync_bn import convert_sync_bn
 
 BACKBONE_LR_SCALE = 0.2     # augment_lip_sync.py:193-202 in the reference
@@ -143,17 +151,24 @@ def distribute(model: nn.Module, group):
 def init_train_state(*, generator: torch.Generator, device, base_lr: float,
                      lr_step: Sequence[int], lr_factor: float,
                      steps_per_epoch: int, criterion_grad_accum: bool = True,
-                     group=None, zero: bool = False,
+                     group=None, zero: bool = False, grid=None,
                      **model_kw) -> TrainState:
     """A fresh train state: NPPNet in train mode with weights drawn from
     ``generator`` (``build_nppnet``; channels_last on a card), the lambdas
     at their reference inits, and the optimizer over both. Under the
     process group ``group`` the model is distributed (``distribute``),
-    with ``zero`` the optimizer is ZeRO-1."""
+    with ``zero`` the optimizer is ZeRO-1. On a ``grid`` (``mesh.
+    make_grid``) the model runs on this rank's rows and is distributed
+    over the grid's ranks (``group`` must then be None)."""
+    if grid is not None:
+        if group is not None:
+            raise ValueError("give a grid or a group, not both")
+        group = grid.world
     model = build_nppnet(device=device, generator=generator, train=True,
                          **model_kw)
     if torch.device(device).type == "cuda":
         model = model.to(memory_format=torch.channels_last)
+    convert_spatial(model, grid)
     net, loss_group = distribute(model, group)
     init = criterion.init_criterion_params(model.refine_layers + 1, device)
     lamdas = {k: nn.Parameter(v) for k, v in init.items()}
@@ -189,10 +204,10 @@ def compute_losses(model: nn.Module, lamdas: dict, batch: dict, *,
                    class_weights, ignore_index: int = 255,
                    ohem_thres: float = 0.9, ohem_keep: int = 131072,
                    use_target_weight: bool = False, task: str = "both",
-                   group=None):
+                   group=None, grid=None):
     """Forward (in the model's current mode) + dual-task loss; with
-    ``group`` the parsing losses are the global batch's
-    (``core/criterion.py``).
+    ``group`` the parsing losses are the global batch's, with ``grid``
+    from every rank's rows (``core/criterion.py``).
 
     ``task`` is ``both`` (the joint loss), ``pose`` or ``par`` (the
     single-task variants). Returns (loss, metrics, (pose_list,
@@ -203,13 +218,13 @@ def compute_losses(model: nn.Module, lamdas: dict, batch: dict, *,
     tw = batch["pose_weight"] if use_target_weight else None
     loss_pose = criterion.pose_loss(pose_list, batch["pose"],
                                     batch["pose_aux"], lamdas["lamda_pose"],
-                                    target_weight=tw)
+                                    target_weight=tw, grid=grid)
     loss_par = criterion.parsing_loss(par_list, batch["par"], batch["edge"],
                                       lamdas["lamda_par"],
                                       class_weights=class_weights,
                                       ignore_index=ignore_index,
                                       thres=ohem_thres, min_kept=ohem_keep,
-                                      group=group)
+                                      group=group, grid=grid)
     loss = {"pose": loss_pose, "par": loss_par}.get(task,
                                                      loss_pose + loss_par)
     metrics = {"loss": loss.detach(), "loss_pose": loss_pose.detach(),
@@ -219,16 +234,19 @@ def compute_losses(model: nn.Module, lamdas: dict, batch: dict, *,
 
 def make_train_step(*, class_weights, ignore_index: int = 255,
                     ohem_thres: float = 0.9, ohem_keep: int = 131072,
-                    use_target_weight: bool = False, task: str = "both"):
+                    use_target_weight: bool = False, task: str = "both",
+                    grid=None):
     """Returns ``step(state, batch) -> metrics``: the model in train mode,
     the gradients zeroed (the model's; the lambdas' too without
     accumulation), forward, loss, backward, one Adam update and one
     schedule step. ``batch`` is a rendered device batch
-    (``data/loader.py``). ``use_target_weight`` masks the pose loss by
+    (``data/loader.py``; on a ``grid``, this rank's rows of it, as the
+    state's). ``use_target_weight`` masks the pose loss by
     ``pose_weight``; both released CLIs leave it off."""
     loss_kw = dict(class_weights=class_weights, ignore_index=ignore_index,
                    ohem_thres=ohem_thres, ohem_keep=ohem_keep,
-                   use_target_weight=use_target_weight, task=task)
+                   use_target_weight=use_target_weight, task=task,
+                   grid=grid)
 
     def step(state: TrainState, batch: dict) -> dict:
         state.net.train()

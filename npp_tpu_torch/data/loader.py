@@ -22,6 +22,7 @@ import torch
 from npp_tpu_torch.data import targets as tgt
 from npp_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
 from npp_tpu_torch.parallel import mesh
+from npp_tpu_torch.parallel.spatial import shard_batch_spatial
 
 
 def collate(samples: list[dict]) -> dict:
@@ -85,9 +86,13 @@ class DataLoader:
     ``batch_size`` is the per-process batch. With ``process_count`` > 1
     (by default the process group's rank and world size) each process
     takes a strided slice of the epoch's order, padded by wrapping to the
-    same count on every process, as torch's DistributedSampler does.
-    npp_tpu's batch caches (``cache_batches``, ``cache_on_device``) serve
-    only its scanned eval and are not ported."""
+    same count on every process, as torch's DistributedSampler does. On a
+    ``grid`` (``parallel/mesh.make_grid``) the shard is data index
+    ``grid.d`` of ``grid.n_data`` and, after the renderer, each image,
+    label, edge and heatmap keeps this rank's rows
+    (``spatial.shard_batch_spatial``). npp_tpu's batch caches
+    (``cache_batches``, ``cache_on_device``) serve only its scanned eval
+    and are not ported."""
 
     prefetch = 2  # host batches kept ready ahead of the consumer
 
@@ -95,7 +100,7 @@ class DataLoader:
                  shuffle: bool = False, drop_last: bool = False,
                  seed: int = 0, num_workers: int = 8, renderer=None,
                  process_index: int | None = None,
-                 process_count: int | None = None):
+                 process_count: int | None = None, grid=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -105,6 +110,9 @@ class DataLoader:
         self.epoch = 0
         self.num_workers = max(1, num_workers)
         self.renderer = renderer
+        self.grid = grid
+        if grid is not None:
+            process_index, process_count = grid.d, grid.n_data
         self.process_index = (mesh.rank() if process_index is None
                               else process_index)
         self.process_count = (mesh.world_size() if process_count is None
@@ -152,6 +160,8 @@ class DataLoader:
         if self.renderer is not None:
             out.update(self.renderer(out["image"], out["par"],
                                      out["joints"], out["visibility"]))
+        if self.grid is not None:
+            out = shard_batch_spatial(out, self.grid, data_sharded=True)
         out["names"] = names
         out["index"] = index
         return out

@@ -102,7 +102,10 @@ def encoder_plan(layers: int, init_channels: int, encoder: gt.Genotype,
 
 
 class NPPNet(nn.Module):
-    """Fixed dual-task network compiled from the released genotypes."""
+    """Fixed dual-task network compiled from the released genotypes.
+    ``parallel.spatial.convert_spatial`` runs it on H-sharded rows."""
+
+    space = None
 
     def __init__(self, num_classes: int = 20, num_joints: int = 16,
                  layers: int = 16, init_channels: int = 64,
@@ -245,15 +248,16 @@ class NPPNet(nn.Module):
             features2[-1] = out2
 
         # Multi-scale concat at 1/4 resolution.
+        sp = self.space
         x1 = torch.cat([
             features1[0], features1[6],
-            resize_scale(features1[5], 2.0, align_corners=True),
-            resize_scale(features1[4], 4.0, align_corners=True),
+            resize_scale(features1[5], 2.0, align_corners=True, space=sp),
+            resize_scale(features1[4], 4.0, align_corners=True, space=sp),
         ], dim=1)
         x2 = torch.cat([
             features2[0], features2[6],
-            resize_scale(features2[5], 2.0, align_corners=True),
-            resize_scale(features2[4], 4.0, align_corners=True),
+            resize_scale(features2[5], 2.0, align_corners=True, space=sp),
+            resize_scale(features2[4], 4.0, align_corners=True, space=sp),
         ], dim=1)
 
         input1 = self.pose_auxlayer(x1)

@@ -60,6 +60,8 @@ class UpsampleCell(nn.Module):
     (align_corners=True). Node width is ``c_prev // 4``, where ``c_prev``
     is the width of the skip feature ``s1``."""
 
+    space = None
+
     def __init__(self, edges: tuple[Edge, ...], concat: tuple[int, ...],
                  c_s0: int, c_prev: int):
         super().__init__()
@@ -71,7 +73,7 @@ class UpsampleCell(nn.Module):
 
     def _post(self, e, y):
         if self.edges[e][1] == 0:
-            return resize_scale(y, 2.0, align_corners=True)
+            return resize_scale(y, 2.0, align_corners=True, space=self.space)
         return y
 
     def forward(self, s0, s1):
@@ -112,6 +114,8 @@ class InterOp(nn.Module):
     bilinear resize (align_corners=True) and a 1x1 conv to the
     destination width."""
 
+    space = None
+
     def __init__(self, op_name: str, src_channels: int, dst_channels: int,
                  scale: float, adapt: bool):
         super().__init__()
@@ -124,7 +128,8 @@ class InterOp(nn.Module):
         y = self.op(x)
         if self.adapt:
             if self.scale != 1:
-                y = resize_scale(y, self.scale, align_corners=True)
+                y = resize_scale(y, self.scale, align_corners=True,
+                                 space=self.space)
             y = self.proj(y)
         return y
 

@@ -16,6 +16,12 @@ hand-rolled JAX BN (``npp_tpu/ops/primitives.py:24-82``) exists for.
 Pools are torch's own: ``F.max_pool2d`` pads with -inf, the 3x3 average
 pool leaves the padding out of its divisor (``count_include_pad=False``),
 ``F.avg_pool2d(2, 2)`` has no padding.
+
+The ops that read across rows other than through a conv module (the
+pools, the squeeze-excitation mean, ``FactorizedReduce``'s shift, the
+strided ``Zero``, ``PooledConv``'s resizes) run on H-sharded rows when
+``parallel.spatial.convert_spatial`` gives them a ``space``; with
+``space`` None (the default) they are the code below as it was.
 """
 from __future__ import annotations
 
@@ -42,14 +48,21 @@ def batch_norm(c: int, affine: bool = True) -> nn.BatchNorm2d:
 class Zero(nn.Module):
     """'none' op."""
 
+    space = None
+
     def __init__(self, stride: int):
         super().__init__()
         self.stride = stride
 
+    def _strided(self, x):
+        return x[:, :, ::self.stride, ::self.stride] * 0.0
+
     def forward(self, x):
         if self.stride == 1:
             return x * 0.0
-        return x[:, :, ::self.stride, ::self.stride] * 0.0
+        if self.space is not None:
+            return self.space.window(x, self._strided, 1, self.stride, 0)
+        return self._strided(x)
 
 
 class Identity(nn.Module):
@@ -60,18 +73,24 @@ class Identity(nn.Module):
 class PoolBN(nn.Module):
     """3x3 max or average pool + BN (``max_pool_3x3``, ``avg_pool_3x3``)."""
 
+    space = None
+
     def __init__(self, pool_type: str, c: int, stride: int,
                  affine: bool = True):
         super().__init__()
         self.pool_type, self.stride = pool_type, stride
         self.BatchNorm_0 = batch_norm(c, affine)
 
-    def forward(self, x):
+    def _pool(self, x):
         if self.pool_type == "max":
-            x = F.max_pool2d(x, 3, self.stride, 1)
-        else:
-            x = F.avg_pool2d(x, 3, self.stride, 1, count_include_pad=False)
-        return self.BatchNorm_0(x)
+            return F.max_pool2d(x, 3, self.stride, 1)
+        return F.avg_pool2d(x, 3, self.stride, 1, count_include_pad=False)
+
+    def forward(self, x):
+        if self.space is not None:
+            return self.BatchNorm_0(self.space.window(x, self._pool, 3,
+                                                      self.stride, 1))
+        return self.BatchNorm_0(self._pool(x))
 
 
 class ReLUConvBN(nn.Module):
@@ -121,6 +140,8 @@ class SEBlock(nn.Module):
     average pool and a BN, which is affine whatever ``affine`` says
     (``npp_tpu/ops/primitives.py:284-298``)."""
 
+    space = None
+
     def __init__(self, c_in: int, stride: int, affine: bool = True):
         super().__init__()
         self.stride = stride
@@ -130,11 +151,17 @@ class SEBlock(nn.Module):
             self.BatchNorm_0 = batch_norm(c_in)
 
     def forward(self, x):
-        w = x.mean(dim=(2, 3), keepdim=True)
+        if self.space is not None:
+            w = self.space.mean_hw(x)
+        else:
+            w = x.mean(dim=(2, 3), keepdim=True)
         w = torch.sigmoid(self.Conv_1(F.relu(self.Conv_0(w))))
         out = x * w
         if self.stride == 1:
             return out
+        if self.space is not None:
+            return self.BatchNorm_0(self.space.window(out, _avg_pool_2x2,
+                                                      2, 2, 0))
         return self.BatchNorm_0(F.avg_pool2d(out, 2, 2))
 
 
@@ -142,14 +169,27 @@ class FactorizedReduce(nn.Module):
     """Stride-2 factorized pointwise reduce; the second branch reads the
     input shifted by one pixel (``npp_tpu/ops/primitives.py:314``)."""
 
+    space = None
+
     def __init__(self, c_in: int, c_out: int, affine: bool = True):
         super().__init__()
         self.Conv_0 = conv(c_in, c_out // 2, 1, 2, bias=False)
         self.Conv_1 = conv(c_in, c_out // 2, 1, 2, bias=False)
         self.BatchNorm_0 = batch_norm(c_out, affine)
 
+    def _branches(self, x):
+        """Both branches with the convs' own arithmetic: output row o reads
+        input rows 2o and 2o + 1 (one window of 2 rows at stride 2)."""
+        c0, c1 = self.Conv_0, self.Conv_1
+        return torch.cat([F.conv2d(x, c0.weight, c0.bias, 2),
+                          F.conv2d(x[:, :, 1:, 1:], c1.weight, c1.bias, 2)],
+                         dim=1)
+
     def forward(self, x):
         x = F.relu(x)
+        if self.space is not None:
+            return self.BatchNorm_0(self.space.window(x, self._branches, 2,
+                                                      2, 0))
         out = torch.cat([self.Conv_0(x), self.Conv_1(x[:, :, 1:, 1:])], dim=1)
         return self.BatchNorm_0(out)
 
@@ -176,6 +216,8 @@ class PooledConv(nn.Module):
     (``poled_conv_x1``, ``poled_conv_x2``; the latter at stride 2 upsamples
     twice)."""
 
+    space = None
+
     def __init__(self, c_in: int, c_out: int, stride: int,
                  conv_nums: int = 1, affine: bool = True):
         super().__init__()
@@ -186,14 +228,21 @@ class PooledConv(nn.Module):
             setattr(self, f"BatchNorm_{i}", batch_norm(c_out, affine))
 
     def forward(self, x):
-        x = F.avg_pool2d(x, 2, 2)
+        if self.space is not None:
+            x = self.space.window(x, _avg_pool_2x2, 2, 2, 0)
+        else:
+            x = F.avg_pool2d(x, 2, 2)
         for i in range(self.conv_nums):
             x = getattr(self, f"Conv_{i}")(F.relu(x))
             x = getattr(self, f"BatchNorm_{i}")(x)
-        x = resize_scale(x, 2.0, align_corners=True)
+        x = resize_scale(x, 2.0, align_corners=True, space=self.space)
         if self.conv_nums == 2 and self.stride == 2:
-            x = resize_scale(x, 2.0, align_corners=True)
+            x = resize_scale(x, 2.0, align_corners=True, space=self.space)
         return x
+
+
+def _avg_pool_2x2(x):
+    return F.avg_pool2d(x, 2, 2)
 
 
 # The reference OPS table (``npp_tpu/ops/primitives.py:370-387``). Each

@@ -31,9 +31,12 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *,
 
 
 def resize_scale(x: torch.Tensor, scale: float, *,
-                 align_corners: bool = True) -> torch.Tensor:
+                 align_corners: bool = True, space=None) -> torch.Tensor:
     """``F.interpolate(x, scale_factor=scale, mode='bilinear')`` with the
-    output size made explicit."""
+    output size made explicit; with a ``space`` (``parallel/spatial.py``)
+    of the whole image, from this rank's rows."""
+    if space is not None:
+        return space.resize_scale(x, scale, align_corners=align_corners)
     h = scale_output_size(x.shape[-2], scale)
     w = scale_output_size(x.shape[-1], scale)
     return resize_bilinear(x, (h, w), align_corners=align_corners)

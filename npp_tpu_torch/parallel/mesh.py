@@ -23,6 +23,12 @@ At world size 1 the model keeps plain ``nn.BatchNorm2d`` and the
 criterion takes no group, so a step under a group is the step without
 one, bit for bit; DDP still wraps the model.
 
+``make_grid`` is the counterpart of ``make_mesh_2d``
+(``npp_tpu/parallel/spatial.py:40-50``): the ranks form a ``data x
+space`` grid, space minor (rank = d * n_space + s); a rank holds data
+shard d and rows [s * H / n_space, (s + 1) * H / n_space) of its images
+(``parallel/spatial.py``).
+
 Not ported: ``make_mesh``, ``batch_sharding``, ``replicated_sharding``,
 ``shard_batch`` and ``replicate``. A process holds one device and feeds
 it its own shard (``data/loader.py``), and DDP broadcasts rank 0's
@@ -30,6 +36,7 @@ weights at wrap time, so there is nothing to place.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -155,3 +162,49 @@ def all_gather_numpy(arr) -> list:
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, arr)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place in a ``data x space`` grid of ranks: its data
+    index ``d`` of ``n_data`` and space index ``s`` of ``n_space``, and
+    its groups: ``world`` (every rank of the grid; DDP, the cross-rank BN
+    and the criterion span it), ``data_group`` (the ranks with this
+    ``s``) and ``space_group`` (the ranks with this ``d``, which hold the
+    rows of the same images)."""
+    n_data: int
+    n_space: int
+    d: int
+    s: int
+    world: object
+    data_group: object
+    space_group: object
+
+
+def make_grid(n_data: int, n_space: int, ranks=None) -> Grid | None:
+    """The ``n_data x n_space`` grid over ``ranks`` (default: every rank
+    of the process group), space minor: ``ranks[d * n_space + s]`` holds
+    data shard d and row block s. Every process of the group must call
+    it with the same arguments (``torch.distributed.new_group`` is a
+    collective); a process outside ``ranks`` gets None."""
+    if not dist.is_initialized():
+        raise RuntimeError("a grid needs a process group; launch with "
+                           "python -m torch.distributed.run")
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    if n_data * n_space != len(ranks):
+        raise ValueError(
+            f"mesh {n_data}x{n_space} needs {n_data * n_space} devices, "
+            f"got {len(ranks)}")
+    at = lambda d, s: ranks[d * n_space + s]
+    world = (dist.group.WORLD if len(ranks) == dist.get_world_size()
+             else dist.new_group(ranks))
+    data_groups = [dist.new_group([at(d, s) for d in range(n_data)])
+                   for s in range(n_space)]
+    space_groups = [dist.new_group([at(d, s) for s in range(n_space)])
+                    for d in range(n_data)]
+    me = dist.get_rank()
+    if me not in ranks:
+        return None
+    d, s = divmod(ranks.index(me), n_space)
+    return Grid(n_data, n_space, d, s, world, data_groups[s],
+                space_groups[d])

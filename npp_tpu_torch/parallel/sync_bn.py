@@ -32,7 +32,7 @@ def _per_channel(v: torch.Tensor) -> torch.Tensor:
 class _SyncBatchNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, eps,
-                momentum, group):
+                momentum, group, replicas):
         c = x.shape[1]
         xf = x.float()
         stats = torch.cat([xf.sum(_DIMS), (xf * xf).sum(_DIMS),
@@ -43,10 +43,11 @@ class _SyncBatchNormFn(torch.autograd.Function):
         var = torch.clamp(stats[c:2 * c] / count - mean * mean, min=0.0)
         invstd = torch.rsqrt(var + eps)
         with torch.no_grad():
+            n = count / replicas  # each value once
             running_mean.copy_((1.0 - momentum) * running_mean
                                + momentum * mean)
             running_var.copy_((1.0 - momentum) * running_var
-                              + momentum * (var * (count / (count - 1))))
+                              + momentum * (var * (n / (n - 1))))
         scale = invstd if weight is None else invstd * weight
         shift = -mean * scale if bias is None else bias - mean * scale
         ctx.save_for_backward(x, weight, mean, invstd)
@@ -70,12 +71,25 @@ class _SyncBatchNormFn(torch.autograd.Function):
         dw = local[c:] if weight is not None and ctx.needs_input_grad[1] \
             else None
         db = local[:c] if ctx.needs_input_grad[2] else None
-        return dx, dw, db, None, None, None, None, None
+        return dx, dw, db, None, None, None, None, None, None
 
 
 class SyncBatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode moments span ``group``; its
-    state_dict keys are BatchNorm2d's."""
+    state_dict keys are BatchNorm2d's.
+
+    Under spatial partitioning (``space``, ``parallel/spatial.py``) each
+    rank of a space group holds its rows of the level, so the same sums
+    give the moments of the whole images; the count is each rank's
+    B * h_local * W, summed. A level held whole on every rank of a space
+    group of n ranks (``replicas`` n) enters the sums n times: the mean
+    and variance are the same, the running variance's unbiased factor
+    takes the count of distinct values, and the backward's sums of the
+    ranks' partial gradients over n times the count give each rank 1 / n
+    of the mean terms, which add up to the whole level's over the ranks.
+    """
+
+    space = None
 
     def __init__(self, num_features: int, *, eps: float, momentum: float,
                  affine: bool, group, device=None):
@@ -84,12 +98,18 @@ class SyncBatchNorm(nn.BatchNorm2d):
         self.group = group
 
     def forward(self, x):
+        replicas = 1
+        if self.space is not None:
+            height = self.space.height(x)
+            if height is not None and not self.space.is_sharded(height):
+                replicas = self.space.n
         if not self.training:
             return super().forward(x)
         self.num_batches_tracked.add_(1)
         return _SyncBatchNormFn.apply(x, self.weight, self.bias,
                                       self.running_mean, self.running_var,
-                                      self.eps, self.momentum, self.group)
+                                      self.eps, self.momentum, self.group,
+                                      replicas)
 
 
 def convert_sync_bn(module: nn.Module, group) -> nn.Module:

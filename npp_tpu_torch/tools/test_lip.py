@@ -11,12 +11,21 @@ annotation file over the val images and labels, its first ``--limit``
 entries, all for 0), unaugmented at batch 1, or with ``--synthetic``
 ``--limit`` synthetic images (4 for 0).
 
+``--mesh`` splits each image's multi-scale windows over the ranks of a
+``python -m torch.distributed.run`` launch (a data grid over the world,
+as npp_tpu's ``make_mesh()`` over its devices; ``core/multiscale.py``):
+every rank reads every image, the exp-logit sums are added over the
+ranks, and rank 0 prints the metrics or writes the PNGs. npp_tpu's CLI
+has no space flag, and neither has this one.
+
 Examples:
   python -m npp_tpu_torch.tools.test_lip --data-root data/LIP \\
       --ckpt output/lip/augment/flagship/checkpoints --mode testval
   python -m npp_tpu_torch.tools.test_lip --synthetic --mode testval --limit 2
   python -m npp_tpu_torch.tools.test_lip --synthetic --tiny --mode test \\
       --device cpu --dtype float32 --out preds/
+  python -m torch.distributed.run --standalone --nproc_per_node=2 \\
+      -m npp_tpu_torch.tools.test_lip --synthetic --tiny --mesh
 """
 from __future__ import annotations
 
@@ -30,7 +39,8 @@ from npp_tpu_torch.data.lip import dataset_for
 from npp_tpu_torch.data.loader import DataLoader
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.config import IGNORE, LIP, SIGMA
-from npp_tpu_torch.tools.augment_lip import data_source
+from npp_tpu_torch.parallel import mesh as M
+from npp_tpu_torch.tools.augment_lip import data_source, start_ranks
 
 TEST_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)
 TINY_SCALES = (0.5, 1.0)
@@ -57,15 +67,35 @@ def main(argv=None) -> dict:
                    choices=("bfloat16", "float32"),
                    help="model compute dtype (the flagship's is bfloat16)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh", action="store_true",
+                   help="split each image's multi-scale windows over the "
+                        "ranks of a torchrun launch (data axis)")
     args = p.parse_args(argv)
     data_root = data_source(p, args, LIP)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    if not args.mesh:
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise SystemExit("--device cuda: torch.cuda.is_available() is "
+                             "False")
+        if device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return run(args, data_root, device, None)
+    device, started = start_ranks(p, args)
+    if not torch.distributed.is_initialized():
+        p.error("--mesh splits the windows over the ranks: launch with "
+                "python -m torch.distributed.run")
+    try:
+        return run(args, data_root, device,
+                   M.make_grid(M.world_size(), 1))
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
+
+def run(args, data_root, device, grid) -> dict:
+    """The test of ``main``'s arguments on ``device``; with ``grid`` this
+    rank's windows of every image."""
     model, size, config = load_eval_model(
         args.ckpt, tiny=args.tiny, device=device,
         dtype=getattr(torch, args.dtype), seed=args.seed)
@@ -78,22 +108,26 @@ def main(argv=None) -> dict:
         ds = dataset_for(LIP.data, "test", data_root, crop_size=size,
                          sigma=SIGMA, is_train=False,
                          sample=args.limit or -1, **LIP.reader)
-    loader = DataLoader(ds, 1, device=device, num_workers=4)
+    loader = DataLoader(ds, 1, device=device, num_workers=4,
+                        process_index=0, process_count=1)
     apply_fn = test_seg.make_parsing_apply_fn(model)
     crop_hw = (size[1], size[0])
     if args.mode == "testval":
         metrics = test_seg.testval(
             apply_fn, loader, num_classes=config["num_classes"],
             scales=TINY_SCALES if args.tiny else TEST_SCALES, flip=True,
-            crop_size=crop_hw, ignore=IGNORE)
-        print(f"pixel_acc {metrics['pixel_acc']:.4f} "
-              f"mean_acc {metrics['mean_acc']:.4f} "
-              f"mIoU {metrics['mean_iou']:.4f} fwIoU {metrics['fw_iou']:.4f}")
+            crop_size=crop_hw, ignore=IGNORE, mesh=grid)
+        if M.is_primary():
+            print(f"pixel_acc {metrics['pixel_acc']:.4f} "
+                  f"mean_acc {metrics['mean_acc']:.4f} "
+                  f"mIoU {metrics['mean_iou']:.4f} "
+                  f"fwIoU {metrics['fw_iou']:.4f}")
         return metrics
     paths = test_seg.test(apply_fn, loader, args.out,
                           num_classes=config["num_classes"], scales=(1.0,),
-                          flip=True, crop_size=crop_hw)
-    print(f"wrote {len(paths)} parsing PNGs to {args.out}")
+                          flip=True, crop_size=crop_hw, mesh=grid)
+    if M.is_primary():
+        print(f"wrote {len(paths)} parsing PNGs to {args.out}")
     return {"paths": paths}
 
 

@@ -4,8 +4,8 @@ nor cv2, PIL or yaml, which the card machine lacks.
 Checked in a fresh interpreter, because this test process has imported
 jax already (tests/conftest.py). Importing also builds nothing: neither
 the heatmap kernel nor the readers' host library. The search,
-serving, PPP / chain, LIP reader, PPP reader / fused-warp and
-data-parallel slices' modules are also imported each on its own, so
+serving, PPP / chain, LIP reader, PPP reader / fused-warp,
+data-parallel and spatial slices' modules are also imported each on its own, so
 that none of them leans on another module having been imported first.
 """
 import os
@@ -62,7 +62,8 @@ DATA_MODULES = ("npp_tpu_torch.data.fast_aug",
                 "npp_tpu_torch.data.pascal")
 PARALLEL_MODULES = ("npp_tpu_torch.parallel.mesh",
                     "npp_tpu_torch.parallel.sync_bn",
-                    "npp_tpu_torch.parallel.zero")
+                    "npp_tpu_torch.parallel.zero",
+                    "npp_tpu_torch.parallel.spatial")
 
 
 def _run(code: str) -> str:
@@ -75,7 +76,7 @@ def _run(code: str) -> str:
 
 def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
     n_mods, bad = _run(PROBE).split(" ", 1)
-    assert int(n_mods) >= 48
+    assert int(n_mods) >= 49
     assert bad.strip() == "[]", bad
 
 
