@@ -70,7 +70,7 @@ the parity one and its uint8 path against its float32 one, the train CLI
 with ``--dataset ppp`` and with ``--fast-aug``), 17 data parallelism:
 17a two gloo ranks sharing the card (spawned processes, the tiny
 configuration in fp32 at batch 2 a rank) against one process at batch 4
-fed the ranks' batches in rank order (three DDP train steps, ZeRO-1
+fed the ranks' batches in rank order (two DDP train steps, ZeRO-1
 against plain DDP, a search pair, the arch step alone, the gathered
 validate and validate_ppp over a set the ranks do not divide), then
 each rank's flagship bf16 train step at bs8 timed and profiled, 17b
@@ -88,7 +88,14 @@ bf16 forward timed, profiled and its all-reduces counted,
 2x1 data grid (``Predictor(mesh=)``, multi-scale ``testval(mesh=)``) and
 ``test_lip --mesh`` under ``python -m torch.distributed.run``, 18c the
 1x2 grid training (a tiny fp32 step against one process's, the flagship
-bf16 step at bs2 timed and profiled).
+bf16 step at bs2 timed and profiled), 19 tensor parallelism, four gloo
+ranks sharing the card: 19c the hybrid ZeRO x TP layout on a 2x1x2 grid
+(tiny fp32; its consolidated moments against the TP step's without
+ZeRO), then on 1x1x2 grids 19a the tiny fp32 TP train and flip-TTA eval
+steps against one process's and 19b the flagship bf16 channels_last TP
+train step at bs2 (gathers and copies, all-reduces, device operations,
+busy time and idle share, peak memory, and the parameter and Adam-moment
+bytes a rank holds beside the unconverted model's).
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -137,9 +144,9 @@ from npp_tpu_torch.data.synthetic import (IMAGENET_MEAN, IMAGENET_STD,
                                           SyntheticDataset)
 from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
-from npp_tpu_torch.models.augment import build_nppnet
+from npp_tpu_torch.models.augment import NPPNet, build_nppnet
 from npp_tpu_torch.ops import heatmaps
-from npp_tpu_torch.parallel import mesh, spatial
+from npp_tpu_torch.parallel import mesh, spatial, tensor, zero
 from npp_tpu_torch.tools import (augment_lip, eval_lip, eval_ppp_map,
                                  predict, search_lip, test_lip)
 from npp_tpu_torch.utils import metrics as M
@@ -2162,7 +2169,7 @@ def ppp_and_fused_from_disk(tag: str, out_root: str, lip_root: str,
 # the train, eval and search CLIs under torchrun.
 SHARED_WORLD = 2          # gloo ranks on cuda:0
 SHARED_TIMEOUT_S = 420    # a rank that has not ended by then fails the phase
-SHARED_STEPS = 3          # DDP train steps against the one-process run
+SHARED_STEPS = 2          # DDP train steps against the one-process run
 # 17a's bounds are tests/test_torch_parallel.py's where they carry over:
 # the first step's losses and lambda gradients at rtol 1e-5, its running
 # stats at 1e-4 x max|ref| + STATS_ATOL, its weights by Adam's first step
@@ -2180,7 +2187,7 @@ SHARED_STEPS = 3          # DDP train steps against the one-process run
 # held to plain DDP by the same first-step rules and RESUME_RTOL after.
 N_SHARED_VAL = 5          # validate's set: two ranks do not divide it
 DDP_TIMED = 6             # timed DDP steps; the first is dropped as warm-up
-SHARED_TIMED = 4          # 17a's flagship steps a rank; the first is dropped
+SHARED_TIMED = 3          # 17a's flagship steps a rank; the first is dropped
 
 
 def shard_batch(device, seed: int, rank: int, world: int, n: int = 4):
@@ -2778,7 +2785,7 @@ SP_FWD_ATOL = 1e-4      # npp_tpu's bound for the sharded fp32 forward
 SP_FWD_BATCH = 2
 SP_SERVE_IMAGES = 8
 SP_POSE_SCALES = (1.0, 0.75)
-SP_TIMED = 3            # 18c's flagship steps a rank; the first is dropped
+SP_TIMED = 2            # 18c's flagship steps a rank; the first is dropped
 SP_MS_SCALES = (0.5, 1.0)
 
 
@@ -3075,6 +3082,374 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
         sum(r["launches"] for r in ranks)
 
 
+# Phase 19: tensor parallelism, four gloo ranks sharing cuda:0 (NCCL
+# refuses two ranks on one device). 19c: a 2x1x2 grid at the tiny width;
+# then two 1x1x2 grids side by side: 19a (ranks 2-3) the tiny fp32 TP
+# train and eval steps, 19b (ranks 0-1) the flagship bf16 step. 19a is
+# held to the one process by phase 6's rules and 18c's bounds (losses at
+# 1e-5, gradients by TINY_GRAD_TENSOR / TINY_GRAD_NORM, running stats,
+# lambda gradients at 1e-5), its eval step by its loss at 1e-5, the
+# confusion matrix's count and LABEL_SHARE of the labels (a near-tie
+# argmax may move); 19c's moments by phase 6's gradient rule on
+# m / (1 - beta1) and sqrt(v / (1 - beta2)) (each |g|: the card's backward
+# is not bit-stable, so ZeRO and plain TP agree by the rules, as in 17a).
+TP_WORLD = 4
+TP_TIMEOUT_S = 300      # a rank that has not ended by then fails the phase
+TP_TIMED = 2            # 19b's flagship steps a rank; the first is dropped
+TP_POSE_SHARE = 0.98    # 19a's decoded joints equal within KP_ATOL (ties)
+
+
+def tp_whole(state, grid) -> dict:
+    """A TP train state's gathered snapshot (``train_snapshot``'s keys)."""
+    tp = tensor.sharding_of(state.model)
+    cpu = lambda t: t.detach().float().cpu().clone()
+    whole = lambda k, t: cpu(mesh.all_concat(t, grid.model_group)
+                             if k in tp.sharded else t)
+    sd = tensor.whole_state_dict(state.model)
+    return {"params": {n: cpu(sd[n])
+                       for n, _ in state.model.named_parameters()},
+            "grads": {n: whole(n, p.grad)
+                      for n, p in state.model.named_parameters()},
+            "stats": {n: cpu(t) for n, t in sd.items() if "running" in n},
+            "lamdas": {k: cpu(p) for k, p in state.lamdas.items()},
+            "lamda_grads": {k: cpu(p.grad) for k, p in state.lamdas.items()}}
+
+
+def tp_tiny_step(device, grid=None, zero_=False) -> dict:
+    """One tiny fp32 train step on phase 6's batch (every model rank of a
+    data shard takes the same batch; with ``zero_`` the hybrid ZeRO x TP
+    optimizer): the gathered snapshot, the losses and the whole Adam
+    moments where this rank holds them (rank 0 alone under ZeRO)."""
+    hp = augment_lip.TINY_TRAIN
+    state = T.init_train_state(
+        generator=torch.Generator().manual_seed(SEED), device=device,
+        base_lr=hp["lr"], lr_step=hp["lr_step"], lr_factor=hp["lr_factor"],
+        steps_per_epoch=1, dtype=torch.float32, grid=grid, zero=zero_,
+        **eval_lip.TINY)
+    batch = tiny_batch(device)
+    if grid is not None:
+        batch = spatial.shard_batch_spatial(batch, grid)
+    step = T.make_train_step(class_weights=LIP_CLASS_WEIGHTS,
+                             ignore_index=eval_lip.IGNORE,
+                             ohem_thres=hp["ohem_thres"],
+                             ohem_keep=hp["ohem_keep"], grid=grid)
+    metrics = step(state, batch)
+    out = train_snapshot(state) if grid is None else tp_whole(state, grid)
+    out["losses"] = {k: v.item() for k, v in metrics.items()}
+    opt = zero.optimizer_state_dict(state.optimizer, state.model)
+    if opt is not None:
+        out["moments"] = {i: {k: v.float().cpu() for k, v in s.items()
+                              if k in ("exp_avg", "exp_avg_sq")}
+                          for i, s in opt["state"].items()}
+    return out
+
+
+def tp_tiny_eval(device, grid=None) -> dict:
+    """The tiny fp32 flip-TTA eval step on phase 6's batch (the model
+    converted on ``grid``): its loss, confusion matrix and predictions."""
+    model = build_nppnet(device=device, generator=torch.Generator()
+                         .manual_seed(SEED), dtype=torch.float32,
+                         **eval_lip.TINY)
+    tensor.convert_tensor_parallel(model, grid)
+    batch = tiny_batch(device)
+    ds = SyntheticDataset(length=len(batch["image"]), crop_size=(128, 128),
+                          seed=SEED, device_normalize=True)
+    host = L.collate([ds[i] for i in range(len(batch["image"]))])
+    batch.update(scale=torch.from_numpy(host["scale"]).to(device),
+                 crop_param=torch.from_numpy(host["crop_param"]).to(device))
+    step = E.make_eval_step(model, num_classes=20,
+                            class_weights=LIP_CLASS_WEIGHTS,
+                            ignore_index=eval_lip.IGNORE,
+                            decode_hw=(128, 128))
+    out = step(init_criterion_params(2, device), batch)
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def repeated_gathers(model, image) -> tuple[int, int]:
+    """(gathers, gathers of a ReLU or a channel mean of a tensor whose same
+    op an earlier gather of the forward moved) in one eval forward of a
+    TP ``model``: each edge that reads a cell node gathers its own ReLU of
+    it, each SE block its own squeeze. The autograd graph names each
+    gathered block's source, so the forward keeps it (no update follows).
+    """
+    seen, repeated, count = [], 0, 0
+    real = tensor._GatherChannels.forward
+
+    def forward(ctx, x, tp):
+        nonlocal repeated, count
+        count += 1
+        fn = x.grad_fn
+        if type(fn).__name__ in ("ReluBackward0", "MeanBackward1"):
+            key = (type(fn).__name__, fn.next_functions[0][0])
+            repeated += any(k[0] == key[0] and k[1] is key[1] for k in seen)
+            seen.append(key)
+        return real(ctx, x, tp)
+
+    tensor._GatherChannels.forward = staticmethod(forward)
+    model.eval()
+    try:
+        model(image)
+    finally:
+        tensor._GatherChannels.forward = staticmethod(real)
+        model.train()
+    return count, repeated
+
+
+def tp_flagship(device, grid) -> dict:
+    """19b: the flagship bf16 channels_last TP train step at bs2 (the whole
+    batch on both model ranks): timed and profiled (``timed_train_step``),
+    its gathers, copies and all-reduces a step (the mean over those
+    steps), and the parameter and Adam-moment bytes this rank holds."""
+    hp = dict(augment_lip.FLAGSHIP_TRAIN, batch_size=2)
+    renderer = L.make_target_renderer(stride=4, sigma=eval_lip.SIGMA,
+                                      num_joints=eval_lip.NUM_JOINTS,
+                                      ignore=eval_lip.IGNORE,
+                                      normalize_images=True)
+    loader = L.DataLoader(SyntheticDataset(length=8, crop_size=(384, 384),
+                                           device_normalize=True),
+                          2, device=device, shuffle=True, drop_last=True,
+                          num_workers=4, renderer=renderer, grid=grid)
+    batches = take(loader, 2)
+    state = T.init_train_state(
+        generator=torch.Generator().manual_seed(SEED), device=device,
+        base_lr=hp["lr"], lr_step=hp["lr_step"], lr_factor=hp["lr_factor"],
+        steps_per_epoch=len(loader), dtype=torch.bfloat16, grid=grid,
+        **eval_lip.FLAGSHIP)
+    step = T.make_train_step(class_weights=LIP_CLASS_WEIGHTS,
+                             ignore_index=eval_lip.IGNORE,
+                             ohem_thres=hp["ohem_thres"],
+                             ohem_keep=hp["ohem_keep"], grid=grid)
+    tp = tensor.sharding_of(state.model)
+    tp.counts.update(gather=0, copy=0)
+    out, all_reduces = count_collectives(
+        lambda: timed_train_step(step, state, batches, TP_TIMED))
+    steps = TP_TIMED + 2  # the warm-up, the timed and the profiled steps
+    out["all_reduces"] = all_reduces / steps
+    out["gathers"], out["copies"] = (tp.counts["gather"] / steps,
+                                     tp.counts["copy"] / steps)
+    # The leaves the model axis keeps whole, after the steps (the main
+    # process holds both model ranks' copies equal).
+    out["whole_leaves"] = [t.detach().float().cpu() for t in (
+        [p for k, p in state.model.named_parameters() if k not in tp.sharded]
+        + list(state.lamdas.values())
+        + [b for k, b in state.model.named_buffers()
+           if k not in tp.sharded and b.is_floating_point()])]
+    out["forward_gathers"], out["repeated_gathers"] = repeated_gathers(
+        state.model, batches[0]["image"])
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    out["param_bytes"] = nbytes(list(state.model.parameters()))
+    out["moment_bytes"] = nbytes([v for s in state.optimizer.state.values()
+                                  for k, v in s.items()
+                                  if k in ("exp_avg", "exp_avg_sq")])
+    return out
+
+
+def tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """A phase 19 rank (spawned): joins the gloo group of TP_WORLD ranks on
+    cuda:0, runs 19c on the 2x1x2 grid, then 19a (ranks 2-3) or 19b
+    (ranks 0-1) on its 1x1x2 grid, and saves its results and its heatmap
+    kernel launches."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not mesh.initialize_distributed("cuda:0", backend="gloo"):
+        raise RuntimeError("the gloo group did not start")
+    try:
+        heatmaps.render_heatmaps.launches = 0
+        hybrid = mesh.make_grid(2, 1, 2)
+        pairs = [mesh.make_grid(1, 1, 2, ranks=[0, 1]),
+                 mesh.make_grid(1, 1, 2, ranks=[2, 3])]
+        pair = pairs[0] or pairs[1]
+        out = {"d": hybrid.d, "m": hybrid.m,
+               "tp": tp_tiny_step("cuda:0", hybrid),
+               "hybrid": tp_tiny_step("cuda:0", hybrid, zero_=True)}
+        if rank >= 2:
+            out["tiny"] = tp_tiny_step("cuda:0", pair)
+            out["eval"] = tp_tiny_eval("cuda:0", pair)
+        else:
+            out["flagship"] = tp_flagship("cuda:0", pair)
+        out["launches"] = heatmaps.render_heatmaps.launches
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def moment_rule(got: dict, ref: dict) -> tuple:
+    """(worst tensor share, norm error) of phase 6's gradient rule on
+    Adam's first moments as gradients: m / (1 - beta1) and
+    sqrt(v / (1 - beta2)), each |g| after one step."""
+    as_grads = lambda ms: {
+        f"{i}.{k}": (v / 0.1 if k == "exp_avg" else (v / 1e-3).sqrt())
+        for i, s in ms.items() for k, v in s.items()}
+    worst, _, norm = grad_rule(as_grads(got), as_grads(ref))
+    return worst, norm
+
+
+def tensor_parallel(tag: str) -> tuple[dict, int]:
+    """Phase 19 (see the constants above). Returns the numbers and the
+    ranks' heatmap kernel launches on the TP train path."""
+    torch.backends.cudnn.allow_tf32 = False  # as in the ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    port = free_port()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=tp_rank, args=(r, port, tmp))
+                 for r in range(TP_WORLD)]
+        for p in procs:
+            p.start()
+        # The one process's references, meanwhile.
+        one = tp_tiny_step("cuda")
+        one_eval = tp_tiny_eval("cuda")
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * TP_WORLD:
+            raise AssertionError(f"phase 19: the ranks exited with {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(TP_WORLD)]
+    lr = augment_lip.TINY_TRAIN["lr"]
+
+    def held(got, ref, tp_ranks) -> dict:
+        """A tiny TP step (each rank's gathered snapshot and losses)
+        against ``ref`` by phase 6's and 18c's rules."""
+        first = got[0]
+        loss = {k: statistics.mean(g["losses"][k] for g in tp_ranks)
+                for k in ref["losses"]}
+        worst, key, norm = grad_rule(first["grads"], ref["grads"])
+        return dict(
+            loss_rel=max(abs(loss[k] - v) / abs(v)
+                         for k, v in ref["losses"].items()),
+            grad=(worst, key, norm), stats=stats_err(first["stats"],
+                                                     ref["stats"]),
+            lamda=max(((first["lamda_grads"][k] - v).abs() / v.abs())
+                      .max().item() for k, v in ref["lamda_grads"].items()),
+            weights=adam_first_step_err(first, ref, lr),
+            same=all(torch.equal(t, o[f][n]) for o in got[1:]
+                     for f in ("grads", "params", "stats")
+                     for n, t in first[f].items()))
+
+    def ok(h) -> bool:
+        return (h["loss_rel"] <= 1e-5 and h["grad"][0] <= TINY_GRAD_TENSOR
+                and h["grad"][2] <= TINY_GRAD_NORM and h["stats"] <= 1.0
+                and h["lamda"] <= 1e-5 and h["weights"] <= 1.0
+                and h["same"])
+
+    # 19c: the 2x1x2 TP step against the one process, and hybrid ZeRO x TP
+    # against it.
+    tp212 = held([r["tp"] for r in ranks], one,
+                 [r["tp"] for r in ranks if r["m"] == 0])
+    hyb, plain = ranks[0]["hybrid"], ranks[0]["tp"]
+    h_loss = max(abs(hyb["losses"][k] - v) / abs(v)
+                 for k, v in plain["losses"].items())
+    h_grad = grad_rule(hyb["grads"], plain["grads"])
+    h_moments = moment_rule(hyb["moments"], plain["moments"])
+    h_weights = adam_first_step_err(hyb, plain, lr)
+    only_rank0 = all("moments" not in r["hybrid"] for r in ranks[1:])
+    print(f"phase 19c: 2x1x2 grid, {TP_WORLD} gloo ranks sharing cuda:0, "
+          f"tiny fp32 step (L=8, C=8, 128x128, bs4, bs2 a data shard) vs "
+          f"one process: mean losses relative {tp212['loss_rel']:.3g} (<= "
+          f"1e-5), gradients (gathered) worst tensor {tp212['grad'][0]:.3g} "
+          f"(<= {TINY_GRAD_TENSOR}; {tp212['grad'][1]}), norm "
+          f"{tp212['grad'][2]:.3g} (<= {TINY_GRAD_NORM}), running stats "
+          f"{tp212['stats']:.3g}, lambda gradients {tp212['lamda']:.3g}, "
+          f"weights {tp212['weights']:.3g} of Adam's first-step bound, the "
+          f"ranks' state equal: {tp212['same']}; hybrid ZeRO x TP vs the TP "
+          f"step: losses relative {h_loss:.3g} (0), gradients "
+          f"{h_grad[0]:.3g} / norm {h_grad[2]:.3g}, consolidated moments "
+          f"(rank 0 only: {only_rank0}) as |g| {h_moments[0]:.3g} / norm "
+          f"{h_moments[1]:.3g} (<= {TINY_GRAD_TENSOR} / {TINY_GRAD_NORM}), "
+          f"weights {h_weights:.3g} of Adam's first-step bound {tag}")
+    # 19a: the tiny 1x1x2 steps against the one process.
+    tiny = held([r["tiny"] for r in ranks[2:]], one,
+                [r["tiny"] for r in ranks[2:]])
+    ev = ranks[2]["eval"]
+    e_loss = abs(ev["loss"].item() - one_eval["loss"].item()) / abs(
+        one_eval["loss"].item())
+    e_cm = ev["cm"].sum().item() == one_eval["cm"].sum().item()
+    e_labels = (ev["par_pred"] == one_eval["par_pred"]).float().mean().item()
+    e_pose = ((ev["pose_pred"][..., :2] - one_eval["pose_pred"][..., :2])
+              .abs().amax(-1) <= KP_ATOL).float().mean().item()
+    e_same = all(torch.equal(v, ranks[3]["eval"][k]) for k, v in ev.items())
+    print(f"phase 19a: 1x1x2 grid (2 of the gloo ranks), tiny fp32 TP train "
+          f"step vs one process: losses relative {tiny['loss_rel']:.3g} (<= "
+          f"1e-5), gradients worst tensor {tiny['grad'][0]:.3g} (<= "
+          f"{TINY_GRAD_TENSOR}; {tiny['grad'][1]}), norm "
+          f"{tiny['grad'][2]:.3g} (<= {TINY_GRAD_NORM}), running stats "
+          f"{tiny['stats']:.3g} of 1e-4 x max|ref| + {STATS_ATOL}, lambda "
+          f"gradients {tiny['lamda']:.3g} (<= 1e-5), weights "
+          f"{tiny['weights']:.3g} of Adam's first-step bound, the model "
+          f"ranks' state equal: {tiny['same']}; flip-TTA eval step: loss "
+          f"relative {e_loss:.3g} (<= 1e-5), confusion-matrix count equal "
+          f"{e_cm}, labels equal {e_labels:.7f} (>= {LABEL_SHARE}), joints "
+          f"within {KP_ATOL} px {e_pose:.4f} (>= {TP_POSE_SHARE}), both "
+          f"model ranks' outputs equal {e_same} {tag}")
+    # 19b: the flagship step on the other 1x1x2 grid.
+    fl = [r["flagship"] for r in ranks[:2]]
+    with torch.device("meta"):
+        flagship = NPPNet(**eval_lip.FLAGSHIP)
+    whole_params = sum(p.numel() * 4 for p in flagship.parameters())
+    whole_moments = 2 * (whole_params + 16)  # two fp32 moments, lambdas
+    share = [(f["param_bytes"] / whole_params,
+              f["moment_bytes"] / whole_moments) for f in fl]
+    whole_leaves = len(fl[0]["whole_leaves"])
+    whole_same = whole_leaves > 0 and all(
+        torch.equal(a, b) for a, b in zip(fl[0]["whole_leaves"],
+                                          fl[1]["whole_leaves"]))
+    print(f"phase 19b: 1x1x2 grid (2 of the gloo ranks), flagship bf16 "
+          f"channels_last TP train step at bs2 (L=16, C=64, 384x384; every "
+          f"model rank the whole batch): per rank one step's gathers "
+          f"{[f['gathers'] for f in fl]}, copies' all-reduces "
+          f"{[f['copies'] for f in fl]}, all-reduces in all "
+          f"{[f['all_reduces'] for f in fl]}; median "
+          f"{[round(f['step_ms'], 3) for f in fl]} ms over {TP_TIMED - 1} "
+          f"warm step, {[f['kernels'] for f in fl]} device operations, "
+          f"busy {[round(f['busy_ms'], 3) for f in fl]} ms, idle share "
+          f"{[round(f['idle_share'], 3) for f in fl]}, peak "
+          f"{[round(f['peak_gib'], 3) for f in fl]} GiB; parameter bytes "
+          f"{[f['param_bytes'] for f in fl]} and Adam-moment bytes "
+          f"{[f['moment_bytes'] for f in fl]} a rank beside the unconverted "
+          f"model's {whole_params} and {whole_moments} (shares "
+          f"{[(round(a, 4), round(b, 4)) for a, b in share]}); the "
+          f"{whole_leaves} leaves the model axis keeps whole equal on both "
+          f"model ranks after the steps: {whole_same}; one eval forward's "
+          f"gathers {[f['forward_gathers'] for f in fl]}, of which "
+          f"{[f['repeated_gathers'] for f in fl]} move a block an earlier "
+          f"gather moved; top by "
+          f"device time {fl[0]['top'][:4]} {tag}")
+    if not ok(tp212):
+        raise AssertionError("phase 19c: the 2x1x2 TP step disagrees")
+    if not (h_loss == 0.0 and h_grad[0] <= TINY_GRAD_TENSOR
+            and h_grad[2] <= TINY_GRAD_NORM and h_weights <= 1.0
+            and h_moments[0] <= TINY_GRAD_TENSOR
+            and h_moments[1] <= TINY_GRAD_NORM and only_rank0):
+        raise AssertionError("phase 19c: hybrid ZeRO x TP differs")
+    if not ok(tiny):
+        raise AssertionError("phase 19a: the TP train step disagrees")
+    if not (e_loss <= 1e-5 and e_cm and e_labels >= LABEL_SHARE
+            and e_pose >= TP_POSE_SHARE and e_same):
+        raise AssertionError("phase 19a: the TP eval step disagrees")
+    if not (whole_same and all(
+            math.isfinite(f["step_ms"]) and 0.45 <= a <= 0.55
+            and 0.45 <= b <= 0.55 for f, (a, b) in zip(fl, share))):
+        raise AssertionError("phase 19b: the flagship TP step failed, "
+                             "holds more than its share or let its whole "
+                             "leaves drift apart")
+    return dict(tiny=tiny, hybrid=dict(loss=h_loss, grad=h_grad[::2],
+                                       moments=h_moments),
+                grid_212=tp212, eval=dict(loss_rel=e_loss, labels=e_labels,
+                                          pose=e_pose),
+                flagship=[{k: v for k, v in f.items()
+                           if k not in ("top", "whole_leaves")} for f in fl],
+                whole_bytes=(whole_params, whole_moments)), \
+        sum(r["launches"] for r in ranks)
+
+
 class PhaseClock:
     """Prints each phase's wall time on the host clock, and the total."""
 
@@ -3247,6 +3622,10 @@ def main() -> int:
     # launches on the sp train path.
     sp, launches["sp_train"] = spatial_parallel(tag)
     clock.done(18)
+    # Phase 19: tensor parallelism; its ranks count the heatmap kernel's
+    # launches on the TP paths (19a-c's batches).
+    tp, launches["tp_train"] = tensor_parallel(tag)
+    clock.done(19)
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
     summary = {"tiny_train": tiny, "train_step": train,
                "tiny_search": tiny_search, "search_pair": search,
@@ -3254,14 +3633,14 @@ def main() -> int:
                "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
                "lip_disk": from_disk, "ppp_and_fused_disk": more_disk,
                "ddp_shared_card": shared, "ddp_nccl": nccl,
-               "spatial": sp}
-    print(f"phase 18: heatmap kernel launches on the main paths: {launches}; "
+               "spatial": sp, "tensor": tp}
+    print(f"summary: heatmap kernel launches on the main paths: {launches}; "
           f"phase seconds {json.dumps(seconds)}; "
           f"summary {json.dumps(summary)}")
     for path in ("eval", "train", "search", "ppp_train", "ppp_search",
                  "chain", "lip_disk", "ppp_disk", "lip_fast_disk",
                  "ddp_shared_card", "ddp_train", "ddp_search", "ddp_eval",
-                 "sp_train"):
+                 "sp_train", "tp_train"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")

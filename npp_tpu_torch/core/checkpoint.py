@@ -18,7 +18,11 @@ and a barrier follows; every rank restores from the shared files onto
 its own device. The blob holds the bare model's state_dict (never a DDP
 wrapper's ``module.`` keys) and the whole optimizer state, so a
 checkpoint written by N ranks, with or without ZeRO, restores in one
-process and the other way round.
+process and the other way round. A tensor-parallel model's channel
+blocks (``parallel/tensor.py``) and their Adam moments are gathered over
+its model group before rank 0 writes (every rank calls ``save``), so the
+blob holds whole tensors under the unchanged keys; a restore into such a
+model loads them and keeps this rank's blocks.
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ import torch
 
 from npp_tpu_torch.core.search import SearchState
 from npp_tpu_torch.core.train import TrainState
-from npp_tpu_torch.parallel import mesh
-from npp_tpu_torch.parallel.zero import optimizer_state_dict
+from npp_tpu_torch.parallel import mesh, tensor
+from npp_tpu_torch.parallel.zero import (load_optimizer_state_dict,
+                                         optimizer_state_dict)
 
 _STATE_FILE = "state.pt"
 _NAMED = ("best", "warmed", "final")
@@ -48,8 +53,8 @@ _STACKED_IN_JAX = re.compile(
 
 def state_dict(state: TrainState | SearchState) -> dict:
     """Everything a resumed run needs, as tensors and plain values. Under
-    ZeRO every rank calls it, and the optimizer entries are None off rank
-    0."""
+    ZeRO or tensor parallelism every rank calls it, and under ZeRO the
+    optimizer entries are None off rank 0."""
     if isinstance(state, SearchState):
         return {
             "model": state.model.state_dict(),
@@ -60,12 +65,12 @@ def state_dict(state: TrainState | SearchState) -> dict:
             "step": state.step,
         }
     return {
-        "model": state.model.state_dict(),
+        "model": tensor.whole_state_dict(state.model),
         "lamdas": {k: p.detach() for k, p in state.lamdas.items()},
         "crit_accum": {k: (torch.zeros_like(p) if p.grad is None
                            else p.grad.detach())
                        for k, p in state.lamdas.items()},
-        "optimizer": optimizer_state_dict(state.optimizer),
+        "optimizer": optimizer_state_dict(state.optimizer, state.model),
         "scheduler": state.scheduler.state_dict(),
         "step": state.step,
     }
@@ -73,7 +78,7 @@ def state_dict(state: TrainState | SearchState) -> dict:
 
 def load_state_dict(state: TrainState | SearchState, blob: dict):
     """Load ``blob`` (from ``state_dict``) into ``state`` in place."""
-    state.model.load_state_dict(blob["model"])
+    tensor.load_whole_state_dict(state.model, blob["model"])
     if isinstance(state, SearchState):
         with torch.no_grad():
             for k, p in state.lamdas.items():
@@ -87,7 +92,7 @@ def load_state_dict(state: TrainState | SearchState, blob: dict):
         for k, p in state.lamdas.items():
             p.copy_(blob["lamdas"][k])
             p.grad = blob["crit_accum"][k].to(p.device).clone()
-    state.optimizer.load_state_dict(blob["optimizer"])
+    load_optimizer_state_dict(state.optimizer, blob["optimizer"], state.model)
     state.scheduler.load_state_dict(blob["scheduler"])
     state.step = int(blob["step"])
     return state
@@ -200,7 +205,7 @@ class CheckpointManager:
         weights, meta = self.model_state()
         if weights is None:
             return None
-        model.load_state_dict(weights)
+        tensor.load_whole_state_dict(model, weights)
         return meta
 
     def restore_named(self, state, name: str = "best"):

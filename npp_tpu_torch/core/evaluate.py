@@ -18,6 +18,13 @@ dataset order by their indices with the wrap-padding duplicates dropped
 returns the same result; rank 0 alone writes ``pred_csv``. As in npp_tpu
 (and the reference's all-reduced matrix), the summed matrix counts the
 padding duplicates.
+
+A step runs on a tensor-parallel model (``parallel/tensor.py``, a grid
+without a space axis: the dry run's flip-TTA eval step,
+``__graft_entry__.py:176-200``): every model rank of a data shard
+evaluates the same batch and returns the same whole outputs. The passes
+refuse such a model, as they refuse a spatially converted one: they
+gather over every rank, and npp_tpu has no such path.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from npp_tpu_torch.core.inference import (FLIPPED_POSEIDX,
                                           decode_pose_validate,
                                           flip_parsing_fuse)
 from npp_tpu_torch.ops.resize import resize_bilinear
-from npp_tpu_torch.parallel import mesh
+from npp_tpu_torch.parallel import mesh, tensor
 from npp_tpu_torch.utils import metrics as M
 
 
@@ -47,6 +54,20 @@ def _parsing_pred(par_list, flip_par, labels: torch.Tensor, flip_pairs):
     return torch.argmax(par, dim=1)
 
 
+def _check_model(model) -> None:
+    """Refuse a model whose steps would read row shards as whole images."""
+    if getattr(model, "_sharding", None) is not None:
+        raise ValueError("the eval step reads whole images; it does not run "
+                         "on a spatially converted model (serve with "
+                         "Predictor(mesh=) or test_seg.testval(mesh=))")
+
+
+def _check_pass(eval_step) -> None:
+    if tensor.sharding_of(getattr(eval_step, "model", None)) is not None:
+        raise ValueError("validate gathers every rank's shard; it does not "
+                         "run a model split over a grid with n_model > 1")
+
+
 def make_eval_step(model, *, num_classes: int, class_weights,
                    flip_test: bool = True, ignore_index: int = 255,
                    ohem_thres: float = 0.9, ohem_keep: int = 131072,
@@ -61,7 +82,9 @@ def make_eval_step(model, *, num_classes: int, class_weights,
     parsing classes swapped under a flip (LIP's by default);
     ``pose_flip_idx`` remaps the joints (by default LIP's for 16 joints,
     PPP's for 14, none otherwise); the decode blurs with ``blur_sigma``
-    and, with ``dark``, refines the argmax by the DARK step."""
+    and, with ``dark``, refines the argmax by the DARK step. ``model``
+    may be split over a grid's model axis (module docstring)."""
+    _check_model(model)
 
     @torch.inference_mode()
     def step(criterion_params, batch):
@@ -99,6 +122,7 @@ def make_eval_step(model, *, num_classes: int, class_weights,
                 "loss_par": loss_par, "cm": cm, "pose_pred": pose_pred,
                 "par_pred": par_pred}
 
+    step.model = model
     return step
 
 
@@ -140,6 +164,7 @@ def validate(eval_step, criterion_params, loader, *, num_classes: int,
     predictions as a pose CSV holds them (integer pixels), so the numbers
     are the CSV protocol's. Under a process group, of every rank's shard
     (module docstring)."""
+    _check_pass(eval_step)
     cm_dev = None
     losses_dev, all_preds, all_names, all_idx = [], [], [], []
     for batch in loader:
@@ -190,6 +215,7 @@ def make_ppp_eval_step(model, *, num_classes: int, class_weights,
     flipped forward's averaged in after ``FLIPPED_POSEIDX_PPP`` and a
     horizontal unflip. npp_tpu keeps that unflip where the reference
     averaged mirror-image maps (PARITY.md, ``function_ppp.py`` row)."""
+    _check_model(model)
 
     @torch.inference_mode()
     def step(criterion_params, batch):
@@ -217,6 +243,7 @@ def make_ppp_eval_step(model, *, num_classes: int, class_weights,
         return {"loss": loss_pose + loss_par, "cm": cm, "pose_hm": hm,
                 "par_pred": par_pred}
 
+    step.model = model
     return step
 
 
@@ -234,6 +261,7 @@ def validate_ppp(eval_step, criterion_params, loader, *, num_classes: int,
     matrix are fetched once after the loop. Under a process group the
     matrices and the meters are summed over the ranks and the losses
     gathered."""
+    _check_pass(eval_step)
     cm_dev = None
     losses_dev = []
     acc = M.MulAverageMeter(num_joints + 1)

@@ -1,10 +1,10 @@
 """The serving and test CLIs' model loading: built-in configuration,
 optional searched genotype, weights.
 
-After ``npp_tpu/core/loading.py``, with the port's built-in
-configurations in place of the YAML: the LIP flagship NPPNet (L=16, C=64,
-384x384) or, with ``tiny``, the test one (L=8, C=8, 128x128)
-(``config.LIP``).
+After ``npp_tpu/core/loading.py``, with a preset in place of the YAML
+(``config.LIP`` by default, or ``config.load_preset``'s): its NPPNet (the
+LIP flagship: L=16, C=64, 384x384) or, with ``tiny``, the test one (L=8,
+C=8, 128x128).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from npp_tpu_torch.utils.convert import load_jax_variables, load_npz
 def load_eval_model(ckpt: str = "", *, tiny: bool = False,
                     genotype: str = "", device="cuda",
                     dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                    log_fn=print):
+                    log_fn=print, preset=LIP):
     """Returns ``(model, size, config)``: an eval-mode NPPNet on ``device``
     (channels_last on a card) with compute dtype ``dtype``, the crop
     ``(width, height)`` and the model's keyword arguments.
@@ -32,7 +32,7 @@ def load_eval_model(ckpt: str = "", *, tiny: bool = False,
     a checkpoint directory of the train CLI (the ``best`` checkpoint,
     else the latest epoch's) or a flax variable tree saved as ``.npz``;
     empty gives random weights drawn from ``seed``."""
-    config, hp = LIP.train_config(tiny)
+    config, hp = preset.train_config(tiny)
     size = hp["crop"]
     kw = dict(config)
     if genotype:

@@ -43,6 +43,7 @@ from npp_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
 from npp_tpu_torch.ops.resize import resize_bilinear
 from npp_tpu_torch.parallel.mesh import all_concat
 from npp_tpu_torch.parallel.spatial import convert_spatial, gather_rows
+from npp_tpu_torch.parallel.tensor import sharding_of
 
 
 def _cubic_taps(n_in: int, n_out: int, inv_scale: float):
@@ -113,7 +114,13 @@ class Predictor:
         TTA and must hold 1.0; the parsing always comes from scale 1.0.
         ``mesh``: a grid of ranks to serve over (module docstring); with
         n_space > 1 the crop height and height / 4 must divide by it, and
-        ``model`` is converted to run on rows in place."""
+        ``model`` is converted to run on rows in place. A grid with a model
+        axis, or a model split over one, is refused: npp_tpu serves over
+        ``data x space`` meshes only."""
+        if (mesh is not None and mesh.n_model > 1) or \
+                sharding_of(model) is not None:
+            raise ValueError("Predictor serves over a data x space grid; it "
+                             "does not run a model split over n_model > 1")
         self.pose_scales = tuple(float(s) for s in pose_scales)
         if 1.0 not in self.pose_scales:
             raise ValueError("pose_scales must contain the base scale 1.0")

@@ -35,7 +35,14 @@ On a ``data x space`` grid (``init_train_state(grid=)``,
 this rank's rows (``spatial.convert_spatial``), DDP, the cross-rank BN
 and the criterion span the grid's ranks, and each rank's batch is its
 data shard's rows (``spatial.shard_batch_spatial``); the step is
-npp_tpu's one-device step on the global batch, as under a data group.
+npp_tpu's one-device step on the global batch, as under a data group. On
+a ``data x space x model`` grid the model is built whole from the seed,
+converted to compute this rank's channel blocks
+(``tensor.convert_tensor_parallel``), and DDP, the cross-rank BN, the
+criterion and the lambdas' gradient mean span the grid's replica group
+(the ranks that hold the same blocks; the world at n_model 1); every
+model rank of a (d, s) takes the same batch. With ``zero`` on such a
+grid the optimizer is the hybrid ZeRO-1 of ``parallel/zero.py``.
 """
 from __future__ import annotations
 
@@ -51,6 +58,8 @@ from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.parallel import mesh, zero as Z
 from npp_tpu_torch.parallel.spatial import convert_spatial
 from npp_tpu_torch.parallel.sync_bn import convert_sync_bn
+from npp_tpu_torch.parallel.tensor import (convert_tensor_parallel,
+                                           share_replicated)
 
 BACKBONE_LR_SCALE = 0.2     # augment_lip_sync.py:193-202 in the reference
 CRITERION_LR = 1e-4         # search_lip_sync.py:277-278
@@ -83,10 +92,12 @@ def param_group(name: str) -> str:
 
 def make_train_optimizer(model: nn.Module, lamdas: dict, *, base_lr: float,
                          lr_step: Sequence[int], lr_factor: float,
-                         steps_per_epoch: int, zero: bool = False):
+                         steps_per_epoch: int, zero: bool = False,
+                         grid=None):
     """Adam over the ``weights``, ``backbone`` and ``criterion`` groups
-    (ZeRO-1 with ``zero``), and its per-iteration schedule. Returns
-    (optimizer, scheduler)."""
+    (ZeRO-1 with ``zero``; on a ``grid`` with a model axis, over its data
+    group), and its per-iteration schedule. Returns (optimizer,
+    scheduler)."""
     groups: dict[str, list] = {"weights": [], "backbone": []}
     for name, p in model.named_parameters():
         groups[param_group(name)].append(p)
@@ -96,7 +107,8 @@ def make_train_optimizer(model: nn.Module, lamdas: dict, *, base_lr: float,
           "name": "backbone"},
          {"params": list(lamdas.values()), "lr": CRITERION_LR,
           "name": "criterion"}],
-        zero=zero, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+        zero=zero, grid=grid, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=0.0)
     factor = multistep_lr(lr_step, lr_factor, steps_per_epoch)
     scheduler = LambdaLR(optimizer, [factor, factor, _constant])
     return optimizer, scheduler
@@ -158,23 +170,25 @@ def init_train_state(*, generator: torch.Generator, device, base_lr: float,
     at their reference inits, and the optimizer over both. Under the
     process group ``group`` the model is distributed (``distribute``),
     with ``zero`` the optimizer is ZeRO-1. On a ``grid`` (``mesh.
-    make_grid``) the model runs on this rank's rows and is distributed
-    over the grid's ranks (``group`` must then be None)."""
+    make_grid``) the model runs on this rank's rows and channel blocks and
+    is distributed over the grid's replica group (``group`` must then be
+    None)."""
     if grid is not None:
         if group is not None:
             raise ValueError("give a grid or a group, not both")
-        group = grid.world
+        group = grid.replica_group
     model = build_nppnet(device=device, generator=generator, train=True,
                          **model_kw)
     if torch.device(device).type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     convert_spatial(model, grid)
+    convert_tensor_parallel(model, grid)
     net, loss_group = distribute(model, group)
     init = criterion.init_criterion_params(model.refine_layers + 1, device)
     lamdas = {k: nn.Parameter(v) for k, v in init.items()}
     optimizer, scheduler = make_train_optimizer(
         model, lamdas, base_lr=base_lr, lr_step=lr_step, lr_factor=lr_factor,
-        steps_per_epoch=steps_per_epoch, zero=zero)
+        steps_per_epoch=steps_per_epoch, zero=zero, grid=grid)
     return TrainState(model=model, lamdas=lamdas, optimizer=optimizer,
                       scheduler=scheduler,
                       criterion_grad_accum=criterion_grad_accum, net=net,
@@ -254,6 +268,7 @@ def make_train_step(*, class_weights, ignore_index: int = 255,
         loss, metrics, _ = compute_losses(state.net, state.lamdas, batch,
                                           group=state.group, **loss_kw)
         backward(loss, state.lamdas, state.group)
+        share_replicated(state.model, state.lamdas.values())
         state.apply_update()
         return metrics
 

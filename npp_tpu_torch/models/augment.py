@@ -13,6 +13,9 @@ edge)`` for each refinement stage ``s``, at 1/4 of the input resolution.
 ``dtype`` is the compute dtype, as the flax module's: ``torch.bfloat16``
 runs the forward under autocast, except the last conv of every head,
 which stays in float32 (``npp_tpu/models/augment.py:87-89``).
+``parallel.tensor.convert_tensor_parallel`` splits its channels over a
+grid's model axis (``tp``): every head then returns its output whole,
+and the multi-scale concatenations take their pieces whole.
 """
 from __future__ import annotations
 
@@ -59,6 +62,8 @@ class _Head(nn.Module):
     """ReLU - conv - BN - ReLU - conv output head; the last conv runs in
     its weights' dtype (float32 under bf16 compute) with autocast off."""
 
+    tp = None
+
     def __init__(self, c_in: int, mid_features: int, out_features: int,
                  mid_kernel: int = 1, mid_bias: bool = True):
         super().__init__()
@@ -70,7 +75,10 @@ class _Head(nn.Module):
     def forward(self, x):
         x = F.relu(self.BatchNorm_0(self.Conv_0(F.relu(x))))
         with torch.autocast(device_type=x.device.type, enabled=False):
-            return self.Conv_1(x.to(self.Conv_1.weight.dtype))
+            y = self.Conv_1(x.to(self.Conv_1.weight.dtype))
+        if self.tp is not None:
+            y = self.tp.whole(y, self.Conv_1.out_channels)
+        return y
 
 
 def encoder_plan(layers: int, init_channels: int, encoder: gt.Genotype,
@@ -106,6 +114,7 @@ class NPPNet(nn.Module):
     ``parallel.spatial.convert_spatial`` runs it on H-sharded rows."""
 
     space = None
+    tp = None
 
     def __init__(self, num_classes: int = 20, num_joints: int = 16,
                  layers: int = 16, init_channels: int = 64,
@@ -141,6 +150,7 @@ class NPPNet(nn.Module):
         # Decoder-stage injections over the 7-slot pyramid.
         resolution = (1, 1 / 2, 1 / 4, 1 / 8, 1 / 4, 1 / 2, 1)
         channels7 = tuple(int(2 * c / r) for r in resolution)
+        self._widths = channels7  # of the pyramid's 7 slots
         uops1, self.up_inj_idx1 = compile_decoder_injections(
             inter.task3, resolution, channels7)
         uops2, self.up_inj_idx2 = compile_decoder_injections(
@@ -249,6 +259,10 @@ class NPPNet(nn.Module):
 
         # Multi-scale concat at 1/4 resolution.
         sp = self.space
+        if self.tp is not None:
+            features1, features2 = (
+                [self.tp.whole(t, w) for t, w in zip(f, self._widths)]
+                for f in (features1, features2))
         x1 = torch.cat([
             features1[0], features1[6],
             resize_scale(features1[5], 2.0, align_corners=True, space=sp),

@@ -6,6 +6,10 @@ layout; the sibling-fusion layout (``cells.py:34-290``) is not ported.
 Tensors are NCHW; channel concat is on dim 1. Each module takes its input
 widths at construction, where flax infers them. The child names
 (``preprocess0``, ``ops.<i>``, ``op``, ``proj``) follow the flax tree.
+Under tensor parallelism (``tp``, ``parallel/tensor.py``) a cell adds
+its node pairs in one layout, gathers each node whole before its
+concatenation, and an injection edge returns its output whole; with
+``tp`` None the code is as it was.
 """
 from __future__ import annotations
 
@@ -18,16 +22,26 @@ from npp_tpu_torch.ops.primitives import (FactorizedReduce, ReLUConvBN,
 from npp_tpu_torch.ops.resize import resize_scale
 
 
-def _run_steps(edges, ops, states, post=None):
+def _run_steps(edges, ops, states, post=None, tp=None, width=0):
     """DARTS steps: node k+len(inputs) = op(2k)(s) + op(2k+1)(s'), each edge
-    optionally post-processed by ``post(edge_index, y)``."""
+    optionally post-processed by ``post(edge_index, y)``; with ``tp`` the
+    pair is added in one layout of its ``width`` channels."""
     for i in range(len(edges) // 2):
         hs = []
         for e in (2 * i, 2 * i + 1):
             y = ops[e](states[edges[e][1]])
             hs.append(post(e, y) if post is not None else y)
+        if tp is not None:
+            hs = tp.aligned(hs[0], hs[1], width)
         states.append(hs[0] + hs[1])
     return states
+
+
+def _concat(states, tp, width):
+    """The channel concatenation of ``width``-channel nodes, each whole."""
+    if tp is not None:
+        states = [tp.whole(t, width) for t in states]
+    return torch.cat(states, dim=1)
 
 
 class Cell(nn.Module):
@@ -35,12 +49,14 @@ class Cell(nn.Module):
     widths of the two inputs; the output is ``len(concat) * channels``
     wide."""
 
+    tp = None
+
     def __init__(self, edges: tuple[Edge, ...], concat: tuple[int, ...],
                  c_pp: int, c_p: int, channels: int, reduction: bool,
                  reduction_prev: bool):
         super().__init__()
         c = channels
-        self.edges, self.concat = edges, concat
+        self.edges, self.concat, self.channels = edges, concat, c
         self.preprocess0 = (FactorizedReduce(c_pp, c) if reduction_prev
                             else ReLUConvBN(c_pp, c, 1, 1, 0))
         self.preprocess1 = ReLUConvBN(c_p, c, 1, 1, 0)
@@ -50,8 +66,10 @@ class Cell(nn.Module):
 
     def forward(self, s0, s1):
         states = _run_steps(self.edges, self.ops,
-                            [self.preprocess0(s0), self.preprocess1(s1)])
-        return torch.cat([states[i] for i in self.concat], dim=1)
+                            [self.preprocess0(s0), self.preprocess1(s1)],
+                            tp=self.tp, width=self.channels)
+        return _concat([states[i] for i in self.concat], self.tp,
+                       self.channels)
 
 
 class UpsampleCell(nn.Module):
@@ -61,12 +79,13 @@ class UpsampleCell(nn.Module):
     is the width of the skip feature ``s1``."""
 
     space = None
+    tp = None
 
     def __init__(self, edges: tuple[Edge, ...], concat: tuple[int, ...],
                  c_s0: int, c_prev: int):
         super().__init__()
         c = c_prev // 4
-        self.edges, self.concat = edges, concat
+        self.edges, self.concat, self.channels = edges, concat, c
         self.preprocess0 = ReLUConvBN(c_s0, c, 1, 1, 0)
         self.preprocess1 = ReLUConvBN(c_prev, c, 1, 1, 0)
         self.ops = nn.ModuleList(make_op(name, c, 1) for name, _ in edges)
@@ -79,8 +98,9 @@ class UpsampleCell(nn.Module):
     def forward(self, s0, s1):
         states = _run_steps(self.edges, self.ops,
                             [self.preprocess0(s0), self.preprocess1(s1)],
-                            self._post)
-        return torch.cat([states[i] for i in self.concat], dim=1)
+                            self._post, self.tp, self.channels)
+        return _concat([states[i] for i in self.concat], self.tp,
+                       self.channels)
 
 
 class FusionCell(nn.Module):
@@ -89,11 +109,13 @@ class FusionCell(nn.Module):
     concat of the three preprocessed inputs and the concat of the
     ``concat`` nodes."""
 
+    tp = None
+
     def __init__(self, edges: tuple[Edge, ...], concat: tuple[int, ...],
                  c_ins: tuple[int, int, int], channels: int):
         super().__init__()
         c = channels
-        self.edges, self.concat = edges, concat
+        self.edges, self.concat, self.channels = edges, concat, c
         self.preprocess0 = ReLUConvBN(c_ins[0], c, 1, 1, 0)
         self.preprocess1 = ReLUConvBN(c_ins[1], c, 1, 1, 0)
         self.preprocess2 = ReLUConvBN(c_ins[2], c, 1, 1, 0)
@@ -102,9 +124,11 @@ class FusionCell(nn.Module):
     def forward(self, s0, s1, s2):
         states = _run_steps(self.edges, self.ops,
                             [self.preprocess0(s0), self.preprocess1(s1),
-                             self.preprocess2(s2)])
-        fea1 = torch.cat(states[0:3], dim=1)
-        fea2 = torch.cat([states[i] for i in self.concat], dim=1)
+                             self.preprocess2(s2)], tp=self.tp,
+                            width=self.channels)
+        fea1 = _concat(states[0:3], self.tp, self.channels)
+        fea2 = _concat([states[i] for i in self.concat], self.tp,
+                       self.channels)
         return fea1, fea2
 
 
@@ -115,11 +139,13 @@ class InterOp(nn.Module):
     destination width."""
 
     space = None
+    tp = None
 
     def __init__(self, op_name: str, src_channels: int, dst_channels: int,
                  scale: float, adapt: bool):
         super().__init__()
         self.scale, self.adapt = scale, adapt
+        self.out_channels = dst_channels if adapt else src_channels
         self.op = make_op(op_name, src_channels, 1)
         if adapt:
             self.proj = conv(src_channels, dst_channels, 1, bias=True)
@@ -131,6 +157,8 @@ class InterOp(nn.Module):
                 y = resize_scale(y, self.scale, align_corners=True,
                                  space=self.space)
             y = self.proj(y)
+        if self.tp is not None:
+            y = self.tp.whole(y, self.out_channels)
         return y
 
 

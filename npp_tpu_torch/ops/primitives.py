@@ -21,7 +21,11 @@ The ops that read across rows other than through a conv module (the
 pools, the squeeze-excitation mean, ``FactorizedReduce``'s shift, the
 strided ``Zero``, ``PooledConv``'s resizes) run on H-sharded rows when
 ``parallel.spatial.convert_spatial`` gives them a ``space``; with
-``space`` None (the default) they are the code below as it was.
+``space`` None (the default) they are the code below as it was. The ops
+that read channels other than through a conv or a BN module
+(``SEBlock``'s product, ``FactorizedReduce``'s concatenation) run on a
+channel block when ``parallel.tensor.convert_tensor_parallel`` gives them
+a ``tp``; with ``tp`` None they are unchanged too.
 """
 from __future__ import annotations
 
@@ -141,6 +145,7 @@ class SEBlock(nn.Module):
     (``npp_tpu/ops/primitives.py:284-298``)."""
 
     space = None
+    tp = None
 
     def __init__(self, c_in: int, stride: int, affine: bool = True):
         super().__init__()
@@ -156,6 +161,8 @@ class SEBlock(nn.Module):
         else:
             w = x.mean(dim=(2, 3), keepdim=True)
         w = torch.sigmoid(self.Conv_1(F.relu(self.Conv_0(w))))
+        if self.tp is not None:
+            x, w = self.tp.aligned(x, w, self.Conv_1.out_channels)
         out = x * w
         if self.stride == 1:
             return out
@@ -170,6 +177,7 @@ class FactorizedReduce(nn.Module):
     input shifted by one pixel (``npp_tpu/ops/primitives.py:314``)."""
 
     space = None
+    tp = None
 
     def __init__(self, c_in: int, c_out: int, affine: bool = True):
         super().__init__()
@@ -179,19 +187,25 @@ class FactorizedReduce(nn.Module):
 
     def _branches(self, x):
         """Both branches with the convs' own arithmetic: output row o reads
-        input rows 2o and 2o + 1 (one window of 2 rows at stride 2)."""
+        input rows 2o and 2o + 1 (one window of 2 rows at stride 2). On a
+        channel block each branch is gathered whole: the concatenation of
+        two blocks is not the BN's block."""
         c0, c1 = self.Conv_0, self.Conv_1
-        return torch.cat([F.conv2d(x, c0.weight, c0.bias, 2),
-                          F.conv2d(x[:, :, 1:, 1:], c1.weight, c1.bias, 2)],
-                         dim=1)
+        y0 = F.conv2d(x, c0.weight, c0.bias, 2)
+        y1 = F.conv2d(x[:, :, 1:, 1:], c1.weight, c1.bias, 2)
+        if self.tp is not None:
+            y0 = self.tp.whole(y0, c0.out_channels)
+            y1 = self.tp.whole(y1, c1.out_channels)
+        return torch.cat([y0, y1], dim=1)
 
     def forward(self, x):
         x = F.relu(x)
+        if self.tp is not None:  # once for both convs
+            x = self.tp.conv_input(self.Conv_0, x)
         if self.space is not None:
             return self.BatchNorm_0(self.space.window(x, self._branches, 2,
                                                       2, 0))
-        out = torch.cat([self.Conv_0(x), self.Conv_1(x[:, :, 1:, 1:])], dim=1)
-        return self.BatchNorm_0(out)
+        return self.BatchNorm_0(self._branches(x))
 
 
 class FacConv(nn.Module):

@@ -24,10 +24,12 @@ criterion takes no group, so a step under a group is the step without
 one, bit for bit; DDP still wraps the model.
 
 ``make_grid`` is the counterpart of ``make_mesh_2d``
-(``npp_tpu/parallel/spatial.py:40-50``): the ranks form a ``data x
-space`` grid, space minor (rank = d * n_space + s); a rank holds data
-shard d and rows [s * H / n_space, (s + 1) * H / n_space) of its images
-(``parallel/spatial.py``).
+(``npp_tpu/parallel/spatial.py:40-50``) and of ``make_mesh_3d``
+(``npp_tpu/parallel/tensor.py:35-45``): the ranks form a ``data x space
+x model`` grid, model minor (rank = (d * n_space + s) * n_model + m); a
+rank holds data shard d, rows [s * H / n_space, (s + 1) * H / n_space)
+of its images (``parallel/spatial.py``) and channel block m of every
+conv and BN whose width n_model divides (``parallel/tensor.py``).
 
 Not ported: ``make_mesh``, ``batch_sharding``, ``replicated_sharding``,
 ``shard_batch`` and ``replicate``. A process holds one device and feeds
@@ -142,16 +144,29 @@ def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
-def all_concat(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Every rank's ``t`` (one shape on all ranks) concatenated along dim
-    0 in rank order: each rank writes its own slot of a zeroed buffer and
-    one all-reduce sums them, since gloo has no all-gather of CUDA
-    tensors. Adding zeros is exact."""
+def wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a dtype every backend all-reduces (bf16 / fp16 as fp32)."""
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
+def all_slots(t: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, *t.shape) in ``wire``'s dtype: every rank's ``t`` (one shape on
+    all ranks) in its slot, in rank order. Each rank writes its own slot
+    of a zeroed buffer and one all-reduce sums them, since gloo has no
+    all-gather of CUDA tensors. Adding zeros is exact."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    buf = t.new_zeros((n,) + tuple(t.shape))
+    buf = wire(t).new_zeros((n,) + tuple(t.shape))
     buf[r] = t
     dist.all_reduce(buf, group=group)
-    return buf.reshape((n * t.shape[0],) + tuple(t.shape[1:]))
+    return buf
+
+
+def all_concat(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along dim 0 in rank order
+    (``all_slots``), in ``t``'s dtype."""
+    buf = all_slots(t, group)
+    return buf.reshape((buf.shape[0] * t.shape[0],) + tuple(t.shape[1:])
+                       ).to(t.dtype)
 
 
 def all_gather_numpy(arr) -> list:
@@ -166,12 +181,16 @@ def all_gather_numpy(arr) -> list:
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """This rank's place in a ``data x space`` grid of ranks: its data
-    index ``d`` of ``n_data`` and space index ``s`` of ``n_space``, and
-    its groups: ``world`` (every rank of the grid; DDP, the cross-rank BN
-    and the criterion span it), ``data_group`` (the ranks with this
-    ``s``) and ``space_group`` (the ranks with this ``d``, which hold the
-    rows of the same images)."""
+    """This rank's place in a ``data x space x model`` grid of ranks: its
+    data index ``d`` of ``n_data``, space index ``s`` of ``n_space`` and
+    model index ``m`` of ``n_model``, and its groups: ``world`` (every
+    rank of the grid), ``data_group`` (the ranks with this ``s`` and
+    ``m``), ``space_group`` (the ranks with this ``d`` and ``m``, which
+    hold the rows of the same images), ``model_group`` (the ranks with
+    this ``d`` and ``s``, which hold the channel blocks of the same rows)
+    and ``replica_group`` (the ranks with this ``m``, which hold the same
+    channel block: DDP, the cross-rank BN and the criterion span it). At
+    ``n_model`` 1 the replica group is the world."""
     n_data: int
     n_space: int
     d: int
@@ -179,32 +198,60 @@ class Grid:
     world: object
     data_group: object
     space_group: object
+    n_model: int = 1
+    m: int = 0
+    model_group: object = None
+    replica_group: object = None
+
+    def __post_init__(self):
+        if self.replica_group is None and self.n_model == 1:
+            object.__setattr__(self, "replica_group", self.world)
 
 
-def make_grid(n_data: int, n_space: int, ranks=None) -> Grid | None:
-    """The ``n_data x n_space`` grid over ``ranks`` (default: every rank
-    of the process group), space minor: ``ranks[d * n_space + s]`` holds
-    data shard d and row block s. Every process of the group must call
-    it with the same arguments (``torch.distributed.new_group`` is a
-    collective); a process outside ``ranks`` gets None."""
+def make_grid(n_data: int, n_space: int, n_model: int | None = None,
+              ranks=None) -> Grid | None:
+    """The ``n_data x n_space x n_model`` grid over ``ranks`` (default:
+    every rank of the process group), model minor: ``ranks[(d * n_space
+    + s) * n_model + m]`` holds data shard d, row block s and channel
+    block m. Without ``n_model`` it is the ``data x space`` grid (and
+    its message names two axes, as ``make_mesh_2d``'s). Every process of
+    the group must call it with the same arguments
+    (``torch.distributed.new_group`` is a collective); a process outside
+    ``ranks`` gets None."""
     if not dist.is_initialized():
         raise RuntimeError("a grid needs a process group; launch with "
                            "python -m torch.distributed.run")
     ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
-    if n_data * n_space != len(ranks):
-        raise ValueError(
-            f"mesh {n_data}x{n_space} needs {n_data * n_space} devices, "
-            f"got {len(ranks)}")
-    at = lambda d, s: ranks[d * n_space + s]
+    shape = (n_data, n_space) if n_model is None else (n_data, n_space,
+                                                       n_model)
+    n_model = n_model or 1
+    size = n_data * n_space * n_model
+    if size != len(ranks):
+        raise ValueError(f"mesh {'x'.join(map(str, shape))} needs {size} "
+                         f"devices, got {len(ranks)}")
+    at = lambda d, s, m: ranks[(d * n_space + s) * n_model + m]
     world = (dist.group.WORLD if len(ranks) == dist.get_world_size()
              else dist.new_group(ranks))
-    data_groups = [dist.new_group([at(d, s) for d in range(n_data)])
-                   for s in range(n_space)]
-    space_groups = [dist.new_group([at(d, s) for s in range(n_space)])
-                    for d in range(n_data)]
+    data_groups = {(s, m): dist.new_group([at(d, s, m)
+                                           for d in range(n_data)])
+                   for s in range(n_space) for m in range(n_model)}
+    space_groups = {(d, m): dist.new_group([at(d, s, m)
+                                            for s in range(n_space)])
+                    for d in range(n_data) for m in range(n_model)}
+    model_groups, replica_groups = {}, {}
+    if n_model > 1:
+        model_groups = {(d, s): dist.new_group([at(d, s, m)
+                                                for m in range(n_model)])
+                        for d in range(n_data) for s in range(n_space)}
+        replica_groups = {m: dist.new_group([at(d, s, m)
+                                             for d in range(n_data)
+                                             for s in range(n_space)])
+                          for m in range(n_model)}
     me = dist.get_rank()
     if me not in ranks:
         return None
-    d, s = divmod(ranks.index(me), n_space)
-    return Grid(n_data, n_space, d, s, world, data_groups[s],
-                space_groups[d])
+    ds, m = divmod(ranks.index(me), n_model)
+    d, s = divmod(ds, n_space)
+    return Grid(n_data, n_space, d, s, world, data_groups[s, m],
+                space_groups[d, m], n_model, m, model_groups.get((d, s)),
+                replica_groups.get(m))

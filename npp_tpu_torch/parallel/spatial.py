@@ -43,9 +43,9 @@ forward then reads them back in the same order and checks each against
 the local height.
 
 Every exchange is an all-reduce over the space group of a zeroed buffer
-with a slot per rank, as ``mesh.all_concat`` does: gloo has no
-all-gather of CUDA tensors, and adding zeros is exact. bf16 and fp16
-travel as float32. One code path serves gloo and NCCL.
+with a slot per rank (``mesh.all_slots``): gloo has no all-gather of
+CUDA tensors, and adding zeros is exact. bf16 and fp16 travel as
+float32. One code path serves gloo and NCCL.
 """
 from __future__ import annotations
 
@@ -56,6 +56,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from npp_tpu_torch.ops.resize import resize_bilinear, scale_output_size
+from npp_tpu_torch.parallel.mesh import all_slots, wire
 from npp_tpu_torch.parallel.sync_bn import convert_sync_bn
 
 def check_divisibility(batch: int, height: int, n_data: int,
@@ -107,19 +108,6 @@ def shard_batch_spatial(batch: dict, grid, *, data_sharded: bool = False
 # -- collectives with autograd ------------------------------------------
 
 
-def _wire(t: torch.Tensor) -> torch.Tensor:
-    """``t`` in a dtype every backend all-reduces (bf16 / fp16 as fp32)."""
-    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
-
-
-def _all_slots(t: torch.Tensor, grid) -> torch.Tensor:
-    """(n_space, *t.shape): every space rank's ``t`` in its slot."""
-    buf = _wire(t).new_zeros((grid.n_space,) + tuple(t.shape))
-    buf[grid.s] = t
-    dist.all_reduce(buf, group=grid.space_group)
-    return buf
-
-
 class _AllReduceSum(torch.autograd.Function):
     """The sum over the space group; its gradient is too (every rank's
     result feeds that rank's rows)."""
@@ -127,13 +115,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, grid):
         ctx.grid = grid
-        t = _wire(x).clone()
+        t = wire(x).clone()
         dist.all_reduce(t, group=grid.space_group)
         return t.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        t = _wire(g).clone()
+        t = wire(g).clone()
         dist.all_reduce(t, group=ctx.grid.space_group)
         return t.to(g.dtype), None
 
@@ -150,13 +138,14 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, grid):
         ctx.grid, ctx.h = grid, x.shape[-2]
-        buf = _all_slots(x, grid).movedim(0, -3)  # (..., n, h, W)
+        # (..., n, h, W)
+        buf = all_slots(x, grid.space_group).movedim(0, -3)
         return buf.reshape(x.shape[:-2] + (grid.n_space * ctx.h,
                                            x.shape[-1])).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        t = _wire(g).contiguous().clone()
+        t = wire(g).contiguous().clone()
         dist.all_reduce(t, group=ctx.grid.space_group)
         s, h = ctx.grid.s, ctx.h
         return t[..., s * h:(s + 1) * h, :].to(g.dtype), None
@@ -189,8 +178,8 @@ class _HaloRows(torch.autograd.Function):
         n, s, h = grid.n_space, grid.s, x.shape[2]
         # Slot r: rank r's last ``above`` rows (for r + 1) and first
         # ``below`` rows (for r - 1).
-        buf = _all_slots(torch.cat([x[:, :, h - above:], x[:, :, :below]],
-                                   2), grid)
+        buf = all_slots(torch.cat([x[:, :, h - above:], x[:, :, :below]],
+                                  2), grid.space_group)
         ctx.grid, ctx.above, ctx.below, ctx.h = grid, above, below, h
         ctx.up, ctx.down = s > 0 and above > 0, s < n - 1 and below > 0
         parts = [x]
@@ -206,14 +195,14 @@ class _HaloRows(torch.autograd.Function):
         s = grid.s
         a = above if ctx.up else 0
         gx = g[:, :, a:a + h]
-        send = _wire(g).new_zeros((grid.n_space,) + tuple(gx.shape[:2])
+        send = wire(g).new_zeros((grid.n_space,) + tuple(gx.shape[:2])
                                   + (above + below, g.shape[3]))
         if ctx.up:  # to the rank above: the gradient of its last rows
             send[s - 1][:, :, :above] = g[:, :, :above]
         if ctx.down:  # to the rank below: that of its first rows
             send[s + 1][:, :, above:] = g[:, :, a + h:]
         dist.all_reduce(send, group=grid.space_group)
-        dx = _wire(gx).clone()
+        dx = wire(gx).clone()
         dx[:, :, h - above:] += send[s][:, :, :above]
         dx[:, :, :below] += send[s][:, :, above:]
         return dx.to(g.dtype), None, None, None
@@ -358,13 +347,20 @@ class Sharding:
                 m.training = training
 
 
-class SpatialConv2d(nn.Conv2d):
-    """``nn.Conv2d`` on H-sharded rows (``Sharding.window``); with
-    ``space`` None it is ``nn.Conv2d``."""
+class ShardedConv2d(nn.Conv2d):
+    """``nn.Conv2d`` on H-sharded rows (``space``, ``Sharding.window``)
+    and on a channel block (``tp``, ``parallel/tensor.py``: its input
+    brought to the layout it reads, ``tp_kind`` None, ``"dense"`` or
+    ``"depthwise"`` for a replicated, an output-sharded or a sharded
+    depthwise conv); with both None it is ``nn.Conv2d``."""
 
     space = None
+    tp = None
+    tp_kind = None
 
     def forward(self, x):
+        if self.tp is not None:
+            x = self.tp.conv_input(self, x)
         if self.space is None:
             return super().forward(x)
         extent = self.dilation[0] * (self.kernel_size[0] - 1) + 1
@@ -373,9 +369,10 @@ class SpatialConv2d(nn.Conv2d):
                                  extent, self.stride[0], self.padding[0])
 
 
-def _spatial_conv(conv: nn.Conv2d) -> SpatialConv2d:
+def sharded_conv(conv: nn.Conv2d) -> ShardedConv2d:
+    """A ``ShardedConv2d`` holding ``conv``'s parameter tensors."""
     with torch.device("meta"):
-        new = SpatialConv2d(conv.in_channels, conv.out_channels,
+        new = ShardedConv2d(conv.in_channels, conv.out_channels,
                             conv.kernel_size, conv.stride, conv.padding,
                             conv.dilation, conv.groups,
                             bias=conv.bias is not None,
@@ -397,8 +394,9 @@ def _known_modules() -> tuple:
 def convert_spatial(model: nn.Module, grid) -> nn.Module:
     """Make ``model`` (NPPNet, or one of its ops) run on this rank's rows
     of its input, in place, on the model of ``sync_bn.convert_sync_bn``:
-    every ``nn.Conv2d`` becomes a ``SpatialConv2d`` and every BN a
-    ``SyncBatchNorm`` over ``grid.world`` holding the same tensors, the
+    every ``nn.Conv2d`` becomes a ``ShardedConv2d`` and every BN a
+    ``SyncBatchNorm`` over ``grid.replica_group`` (the world at
+    ``n_model`` 1) holding the same tensors, the
     ops that read across rows get the grid (their ``space``), and the
     model's forward learns its plan at each new input height. Weights and
     state_dict keys stay as they were (the bridge and checkpoints work
@@ -421,12 +419,12 @@ def convert_spatial(model: nn.Module, grid) -> nn.Module:
     # NPPNet's outputs at 1/4 must split too; a lone op's need not.
     sharding = Sharding(grid, 4 if isinstance(model, known[0]) else 1)
 
-    convert_sync_bn(model, grid.world)
+    convert_sync_bn(model, grid.replica_group)
 
     def convert(module):
         for name, child in module.named_children():
             if type(child) is nn.Conv2d:
-                setattr(module, name, _spatial_conv(child))
+                setattr(module, name, sharded_conv(child))
             else:
                 convert(child)
 

@@ -87,9 +87,17 @@ class SyncBatchNorm(nn.BatchNorm2d):
     takes the count of distinct values, and the backward's sums of the
     ranks' partial gradients over n times the count give each rank 1 / n
     of the mean terms, which add up to the whole level's over the ranks.
+
+
+    Under tensor parallelism (``tp``, ``parallel/tensor.py``) it holds
+    this rank's block of its channels (or all of them where the model
+    axis does not divide them), takes its input in that layout, and
+    ``group`` is the grid's replica group; a ``group`` of None (a replica
+    group of one rank) normalises alone, as ``nn.BatchNorm2d``.
     """
 
     space = None
+    tp = None
 
     def __init__(self, num_features: int, *, eps: float, momentum: float,
                  affine: bool, group, device=None):
@@ -98,12 +106,14 @@ class SyncBatchNorm(nn.BatchNorm2d):
         self.group = group
 
     def forward(self, x):
+        if self.tp is not None:
+            x = self.tp.bn_input(self, x)
         replicas = 1
         if self.space is not None:
             height = self.space.height(x)
             if height is not None and not self.space.is_sharded(height):
                 replicas = self.space.n
-        if not self.training:
+        if not self.training or self.group is None:
             return super().forward(x)
         self.num_batches_tracked.add_(1)
         return _SyncBatchNormFn.apply(x, self.weight, self.bias,
@@ -114,8 +124,8 @@ class SyncBatchNorm(nn.BatchNorm2d):
 
 def convert_sync_bn(module: nn.Module, group) -> nn.Module:
     """Swap every ``nn.BatchNorm2d`` of ``module`` (affine or not) for a
-    ``SyncBatchNorm`` over ``group`` that holds the same parameter and
-    buffer tensors, in place; returns ``module``."""
+    ``SyncBatchNorm`` over ``group`` (None: normalising alone) that holds
+    the same parameter and buffer tensors, in place; returns ``module``."""
     for name, child in module.named_children():
         if isinstance(child, nn.BatchNorm2d) and \
                 not isinstance(child, SyncBatchNorm):

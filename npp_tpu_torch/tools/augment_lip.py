@@ -1,7 +1,12 @@
 """Training CLI (augment phase): the fixed NPPNet on LIP or synthetic data.
 
 Port of ``tools/augment_lip.py``. The configurations are built in
-(``config.py``), so no YAML is read. ``--dataset lip`` (the default) is
+(``config.py``); ``--cfg`` takes npp_tpu's experiment YAML instead
+(``experiments/lip/384_384.yaml`` or ``experiments/pascal/384_384.yaml``,
+read by ``config.load_preset``): its ``DATASET.DATASET`` picks the
+preset and its values set it, and a ``--dataset`` that contradicts it is
+refused. Trailing ``opts`` are accepted and read nowhere, as in npp_tpu.
+``--dataset lip`` (the default) is
 the LIP flagship: the NPPNet of L=16, C=64, one refinement stage, 20
 classes, 16 joints, 384x384 crops at batch 16, bf16 compute with the
 last head conv in fp32 (channels_last on the card), and
@@ -54,6 +59,9 @@ writes the checkpoints, which hold no ``module.`` key and restore in one
 process. The returned dict is the same on every rank.
 
 Examples:
+  python -m npp_tpu_torch.tools.augment_lip \\
+      --cfg experiments/lip/384_384.yaml --synthetic --tiny --steps 2 \\
+      --epochs 1
   python -m npp_tpu_torch.tools.augment_lip --data-root data/LIP \\
       --gt-csv data/LIP/pose_csv/pose_gt.csv
   python -m npp_tpu_torch.tools.augment_lip --synthetic --steps 20 \\
@@ -79,7 +87,7 @@ import os
 import torch
 
 from npp_tpu_torch import engine
-from npp_tpu_torch.config import IGNORE, LIP, PRESETS, SIGMA
+from npp_tpu_torch.config import IGNORE, LIP, PRESETS, SIGMA, load_preset
 from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import train as T
 from npp_tpu_torch.core.checkpoint import (CheckpointManager,
@@ -132,6 +140,43 @@ def build_loaders(hp: dict, device, preset=LIP, data_root: str | None = None,
     val = DataLoader(val_ds, bs, device=device, num_workers=hp["workers"],
                      renderer=renderer)
     return train, val
+
+
+def add_cfg_argument(p: argparse.ArgumentParser, datasets: bool = True,
+                     opts: bool = False) -> None:
+    """``--cfg`` (and, with ``datasets``, ``--dataset``; with ``opts``,
+    npp_tpu's trailing ``opts``) on a CLI's parser."""
+    p.add_argument("--cfg", default="",
+                   help="npp_tpu experiment YAML (e.g. "
+                        "experiments/lip/384_384.yaml): its DATASET.DATASET "
+                        "picks the preset and its values set it (default: "
+                        "the built-in preset)")
+    if datasets:
+        p.add_argument("--dataset", choices=sorted(PRESETS), default=None,
+                       help="the built-in configuration: LIP (the default) "
+                            "or Pascal-Person-Part; must agree with --cfg")
+    if opts:
+        p.add_argument("opts", nargs=argparse.REMAINDER,
+                       help="accepted and read nowhere, as in npp_tpu")
+
+
+def resolve_preset(p: argparse.ArgumentParser, args, lip_only=False):
+    """The preset of ``--cfg`` (``config.load_preset``; an unknown key
+    raises ``ValueError``), else of ``--dataset``; refuses a
+    ``--dataset`` that contradicts the file, and with ``lip_only`` any
+    preset but LIP's."""
+    dataset = getattr(args, "dataset", None)
+    if args.cfg:
+        preset = load_preset(args.cfg)
+        if dataset and dataset != preset.name:
+            p.error(f"--dataset {dataset} contradicts {args.cfg}, whose "
+                    f"DATASET.DATASET is {preset.name!r}")
+    else:
+        preset = PRESETS[dataset or "lip"]
+    if lip_only and preset.name != "lip":
+        p.error(f"{args.cfg} is a {preset.name.upper()} configuration; this "
+                f"CLI runs LIP's protocol only, as npp_tpu's")
+    return preset
 
 
 def data_source(p: argparse.ArgumentParser, args, preset) -> str | None:
@@ -266,8 +311,9 @@ def start_ranks(p: argparse.ArgumentParser, args) -> tuple:
     return mesh.local_device(device), started
 
 
-def main(argv=None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_cfg_argument(p, opts=True)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data shaped as the dataset's")
     p.add_argument("--data-root", default="",
@@ -276,14 +322,11 @@ def main(argv=None) -> dict:
     p.add_argument("--gt-csv", default="",
                    help="LIP pose ground-truth CSV: adds PCKh to each "
                         "validation")
-    p.add_argument("--dataset", choices=sorted(PRESETS), default="lip",
-                   help="the built-in configuration: LIP or "
-                        "Pascal-Person-Part")
     p.add_argument("--steps", type=int, default=0,
                    help="limit steps per epoch (0 = full)")
     p.add_argument("--epochs", type=int, default=0,
-                   help="number of epochs (0 = the dataset's: 190 for LIP, "
-                        "150 for PPP)")
+                   help="number of epochs (0 = the configuration's: 190 for "
+                        "LIP, 150 for PPP)")
     p.add_argument("--tiny", action="store_true",
                    help="L=8, C=8, 128x128, batch 4")
     p.add_argument("--fast-aug", action="store_true",
@@ -308,8 +351,13 @@ def main(argv=None) -> dict:
                         "data-parallel ranks (parallel/zero.py); frees ~2 "
                         "param copies per card at one parameter broadcast "
                         "per step")
+    return p
+
+
+def main(argv=None) -> dict:
+    p = build_parser()
     args = p.parse_args(argv)
-    preset = PRESETS[args.dataset]
+    preset = resolve_preset(p, args)
     data_root = data_source(p, args, preset)
     if args.fast_aug and (data_root is None or preset.name != "lip"):
         p.error("--fast-aug is the LIP directory's fused-warp reader: drop "

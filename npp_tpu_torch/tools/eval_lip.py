@@ -1,20 +1,22 @@
 """Evaluation CLI: the LIP flip-TTA val protocol on the port.
 
-Port of ``tools/eval_lip.py``. The LIP flagship configuration is built in
-(``config.LIP``), so no YAML is read: L=16 cells, C=64, one refinement
-stage, 20 classes, 16 joints, 384x384 crops, bf16 compute (channels_last
-on the card). ``--tiny`` is the small test configuration (L=8, C=8,
-128x128). Without ``--ckpt`` the weights are random, drawn from
-``--seed``; ``--ckpt`` takes a train-CLI checkpoint directory (its
-``best`` checkpoint, else the latest epoch's) or a flax variable tree
-saved as ``.npz`` with '/'-joined keys (``core/loading.load_eval_model``),
-and ``--genotype`` a search's ``best_genotype.json`` to build the net
-from. The loss lambdas are the initial ones, as in the JAX CLI.
-Data: the val set of a LIP directory (``--data-root``, by default the
-YAML's ``data/LIP/``; its first ``--n`` entries, by default
-TRAIN.NUM_SAMPLES = 5000) or, with ``--synthetic``, ``--n`` synthetic
-images (default 16). ``--gt-csv`` adds the PCKh table against that LIP
-pose CSV (of the predictions as the LIP pose CSV holds them);
+Port of ``tools/eval_lip.py``. The LIP flagship configuration is built
+in (``config.LIP``); ``--cfg`` takes npp_tpu's LIP experiment YAML
+instead (``config.load_preset``; a PPP file is refused): L=16 cells,
+C=64, one refinement stage, 20 classes, 16 joints, 384x384 crops, bf16
+compute (channels_last on the card). ``--tiny`` is the small test
+configuration (L=8, C=8, 128x128). Without ``--ckpt`` the weights are
+random, drawn from ``--seed``; ``--ckpt`` takes a train-CLI checkpoint
+directory (its ``best`` checkpoint, else the latest epoch's) or a flax
+variable tree saved as ``.npz`` with '/'-joined keys
+(``core/loading.load_eval_model``), and ``--genotype`` a search's
+``best_genotype.json`` to build the net from. The loss lambdas are the
+initial ones, as in the JAX CLI. Data: the val set of a LIP directory
+(``--data-root``, by default the YAML's ``data/LIP/``; its first
+``--sample`` entries, by default TRAIN.NUM_SAMPLES = 5000) or, with
+``--synthetic``, 2 x ``--batch`` synthetic images, as the JAX CLI's.
+``--gt-csv`` adds the PCKh table against that LIP pose CSV (of the
+predictions as the LIP pose CSV holds them);
 ``--pred-csv`` writes that CSV, ``--json-out`` the metrics as JSON.
 LIP only, as the JAX CLI is: it fixes LIP's class weights and flip
 pairs. Under ``python -m torch.distributed.run --nproc_per_node=N`` each
@@ -26,10 +28,11 @@ Examples:
   python -m npp_tpu_torch.tools.eval_lip --data-root data/LIP \\
       --gt-csv data/LIP/pose_csv/pose_gt.csv \\
       --ckpt output/lip/augment/flagship/checkpoints
-  python -m npp_tpu_torch.tools.eval_lip --synthetic --batch 8 --n 16 \\
-      --device cuda
-  python -m npp_tpu_torch.tools.eval_lip --synthetic --tiny --n 4 \\
-      --batch 2 --device cpu --dtype float32
+  python -m npp_tpu_torch.tools.eval_lip --cfg experiments/lip/384_384.yaml \\
+      --synthetic --batch 8 --device cuda
+  python -m npp_tpu_torch.tools.eval_lip --data-root data/LIP --sample 500
+  python -m npp_tpu_torch.tools.eval_lip --synthetic --tiny --batch 2 \\
+      --device cpu --dtype float32
   python -m npp_tpu_torch.tools.eval_lip --synthetic \\
       --ckpt output/lip/augment/flagship/checkpoints \\
       --genotype best_genotype.json --pred-csv pred.csv --json-out m.json
@@ -49,7 +52,8 @@ from npp_tpu_torch.data.lip import dataset_for
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.parallel import mesh
-from npp_tpu_torch.tools.augment_lip import data_source, start_ranks
+from npp_tpu_torch.tools.augment_lip import (add_cfg_argument, data_source,
+                                             resolve_preset, start_ranks)
 from npp_tpu_torch.utils.metrics import per_class_table
 
 NUM_CLASSES, NUM_JOINTS = LIP.num_classes, LIP.num_joints
@@ -107,23 +111,24 @@ def metrics_json(result: dict) -> dict:
             if k not in ("pose_preds", "names", "pck", "cm")}
 
 
-def run(args, data_root: str | None, device) -> dict:
+def run(args, data_root: str | None, device, preset=LIP) -> dict:
     """The CLI's work on this rank: load the model, evaluate, and on rank
     0 print the tables and write ``--json-out``."""
     model, crop, _ = load_eval_model(
         args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
-        dtype=getattr(torch, args.dtype), seed=args.seed)
+        dtype=getattr(torch, args.dtype), seed=args.seed, preset=preset)
     pred_csv = args.pred_csv or None
     if data_root is None:
-        result = evaluate_synthetic(model, n=args.n or 16, batch=args.batch,
-                                    crop_size=crop, device=device,
-                                    seed=args.seed, pred_csv=pred_csv)
+        result = evaluate_synthetic(model, n=2 * args.batch,
+                                    batch=args.batch, crop_size=crop,
+                                    device=device, seed=args.seed,
+                                    pred_csv=pred_csv)
     else:
+        sample = args.sample or preset.train_config()[1]["num_samples"] or -1
         ds = dataset_for(
-            LIP.data, "val", data_root, crop_size=crop, sigma=SIGMA,
-            is_train=False, device_normalize=True,
-            sample=args.n or LIP.train_config()[1]["num_samples"],
-            **LIP.reader)
+            preset.data, "val", data_root, crop_size=crop, sigma=SIGMA,
+            is_train=False, device_normalize=True, sample=sample,
+            **preset.reader)
         result = evaluate(model, ds, batch=args.batch, crop_size=crop,
                           device=device, pred_csv=pred_csv,
                           gt_csv=args.gt_csv or None)
@@ -138,8 +143,9 @@ def run(args, data_root: str | None, device) -> dict:
     return result
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_cfg_argument(p, datasets=False)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic LIP-shaped data")
     p.add_argument("--data-root", default="",
@@ -156,21 +162,28 @@ def main(argv=None):
                    help="write the LIP-protocol pose CSV here")
     p.add_argument("--json-out", default="",
                    help="also dump the metric dict as JSON")
-    p.add_argument("--n", type=int, default=0,
-                   help="images to evaluate (0 = 16 synthetic ones, or the "
-                        "first 5000 LIP val entries)")
+    p.add_argument("--sample", type=int, default=0,
+                   help="evaluate the first N val samples (0 = the "
+                        "configuration's TRAIN.NUM_SAMPLES, the 5000 "
+                        "protocol); --synthetic evaluates 2 x --batch")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
                    help="model compute dtype (the flagship's is bfloat16)")
     p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def main(argv=None):
+    p = build_parser()
     args = p.parse_args(argv)
-    data_root = data_source(p, args, LIP)
+    preset = resolve_preset(p, args, lip_only=True)
+    data_root = data_source(p, args, preset)
 
     device, started = start_ranks(p, args)
     try:
-        result = run(args, data_root, device)
+        result = run(args, data_root, device, preset)
     finally:
         if started:
             torch.distributed.destroy_process_group()

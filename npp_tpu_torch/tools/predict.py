@@ -10,10 +10,14 @@ RGB; any other file named by ``--images`` is refused with the format
 named, and so is a JPEG the decoder does not read (progressive,
 arithmetic-coded, 12-bit, CMYK, a turning EXIF orientation). The
 flagship model is built in (bf16 + channels_last on the card);
-``--tiny`` is the test one. Not ported: ``--int8`` and the fused layouts
+``--cfg`` takes npp_tpu's LIP experiment YAML instead
+(``config.load_preset``; a PPP file is refused), and ``--tiny`` is the
+test one. Not ported: ``--int8`` and the fused layouts
 (``--fuse-necks``, ``--fuse-cells``, ``--no-fuse``).
 
 Examples:
+  python -m npp_tpu_torch.tools.predict --cfg experiments/lip/384_384.yaml \\
+      --synthetic 4 --tiny --out preds/ --batch 2
   python -m npp_tpu_torch.tools.predict --ckpt output/lip/augment/flagship/checkpoints \\
       --images demo/ --out preds/
   python -m npp_tpu_torch.tools.predict --synthetic 4 --tiny --device cpu \\
@@ -30,6 +34,7 @@ import torch
 
 from npp_tpu_torch.core.loading import load_eval_model
 from npp_tpu_torch.core.predictor import Predictor
+from npp_tpu_torch.tools.augment_lip import add_cfg_argument, resolve_preset
 from npp_tpu_torch.utils.metrics import save_pose_csv
 from npp_tpu_torch.utils.vis import (check_readable, read_image,
                                      save_parsing_png)
@@ -79,6 +84,7 @@ def synthetic_images(n: int, seed: int = 0) -> list[np.ndarray]:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_cfg_argument(p, datasets=False)
     p.add_argument("--ckpt", default="",
                    help="train-CLI checkpoint directory or flax .npz (empty "
                         "= random weights from --seed, smoke only)")
@@ -107,7 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    preset = resolve_preset(p, args, lip_only=True)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is False")
@@ -137,7 +145,7 @@ def main(argv=None) -> dict:
 
     model, size, config = load_eval_model(
         args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
-        dtype=getattr(torch, args.dtype), seed=args.seed)
+        dtype=getattr(torch, args.dtype), seed=args.seed, preset=preset)
     pred = Predictor(model, crop_size=size, flip_test=not args.no_flip,
                      dark_decode=args.dark, pose_scales=pose_scales)
     os.makedirs(args.out, exist_ok=True)

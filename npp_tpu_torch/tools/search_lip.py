@@ -2,7 +2,9 @@
 data.
 
 Port of ``tools/search_lip.py``. The reference search scale is built in
-(``config.py``), so no YAML is read: for ``--dataset lip`` (the default)
+(``config.py``); ``--cfg`` takes npp_tpu's experiment YAML instead, as
+the train CLI does (``augment_lip.resolve_preset``), and trailing
+``opts`` are accepted and read nowhere. For ``--dataset lip`` (the default)
 the supernet at L=16, C=32, one refinement stage, 20 classes, 16 joints,
 384x384 crops at batch 7, bf16 compute (channels_last on the card), and
 ``experiments/lip/384_384.yaml``'s ``SEARCH`` / ``LOSS``:
@@ -71,7 +73,7 @@ import os
 import torch
 
 from npp_tpu_torch import engine
-from npp_tpu_torch.config import IGNORE, LIP, PRESETS, SIGMA
+from npp_tpu_torch.config import IGNORE, LIP, SIGMA
 from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import search as S
 from npp_tpu_torch.core.checkpoint import CheckpointManager
@@ -81,7 +83,9 @@ from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import save_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.parallel import mesh
-from npp_tpu_torch.tools.augment_lip import (LimitedLoader, data_source,
+from npp_tpu_torch.tools.augment_lip import (LimitedLoader,
+                                             add_cfg_argument, data_source,
+                                             resolve_preset,
                                              make_lip_eval_step, start_ranks)
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
@@ -160,8 +164,9 @@ def validate(state: S.SearchState, eval_step, val_loader, preset=LIP,
                       pred_csv=pred_csv, log_fn=log_fn)
 
 
-def main(argv=None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_cfg_argument(p, opts=True)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data shaped as the dataset's")
     p.add_argument("--data-root", default="",
@@ -169,9 +174,6 @@ def main(argv=None) -> dict:
     p.add_argument("--gt-csv", default="",
                    help="LIP pose ground-truth CSV: adds PCKh to each "
                         "validation")
-    p.add_argument("--dataset", choices=sorted(PRESETS), default="lip",
-                   help="the built-in configuration: LIP or "
-                        "Pascal-Person-Part")
     p.add_argument("--steps", type=int, default=0,
                    help="limit steps (pairs) per epoch (0 = full)")
     p.add_argument("--epochs", type=int, default=0,
@@ -193,10 +195,15 @@ def main(argv=None) -> dict:
     p.add_argument("--zero", action="store_true",
                    help="ZeRO-1: shard both Adam moment trees over the "
                         "data-parallel ranks (parallel/zero.py)")
+    return p
+
+
+def main(argv=None) -> dict:
+    p = build_parser()
     args = p.parse_args(argv)
-    preset = PRESETS[args.dataset]
+    preset = resolve_preset(p, args)
     if preset.name == "ppp" and not args.synthetic:
-        p.error("--dataset ppp searches on --synthetic data only: npp_tpu's "
+        p.error("the PPP preset searches on --synthetic data only: npp_tpu's "
                 "search reads the PPP YAML's SEARCH sets, which are LIP "
                 "annotation JSONs, not a PPP directory")
     data_root = data_source(p, args, preset)

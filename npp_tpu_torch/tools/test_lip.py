@@ -5,7 +5,9 @@ sliding-window evaluation with flips at the scales (0.5, 0.75, 1.0, 1.25, 1.5)
 (``experiments/lip/384_384.yaml`` ``TEST``; (0.5, 1.0) under ``--tiny``)
 and prints the parsing metrics; ``--mode test`` writes palette PNGs at
 scale 1.0. The flagship model is built in (bf16 + channels_last on the
-card); ``--tiny`` is the test one. Data: the test set of a LIP
+card); ``--cfg`` takes npp_tpu's LIP experiment YAML instead
+(``config.load_preset``; a PPP file is refused), and ``--tiny`` is the
+test one. Data: the test set of a LIP
 directory (``--data-root``, by default the YAML's ``data/LIP/``; TEST's
 annotation file over the val images and labels, its first ``--limit``
 entries, all for 0), unaugmented at batch 1, or with ``--synthetic``
@@ -38,16 +40,18 @@ from npp_tpu_torch.core.loading import load_eval_model
 from npp_tpu_torch.data.lip import dataset_for
 from npp_tpu_torch.data.loader import DataLoader
 from npp_tpu_torch.data.synthetic import SyntheticDataset
-from npp_tpu_torch.config import IGNORE, LIP, SIGMA
+from npp_tpu_torch.config import IGNORE, SIGMA
 from npp_tpu_torch.parallel import mesh as M
-from npp_tpu_torch.tools.augment_lip import data_source, start_ranks
+from npp_tpu_torch.tools.augment_lip import (add_cfg_argument, data_source,
+                                             resolve_preset, start_ranks)
 
 TEST_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)
 TINY_SCALES = (0.5, 1.0)
 
 
-def main(argv=None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_cfg_argument(p, datasets=False)
     p.add_argument("--mode", choices=("testval", "test"), default="testval")
     p.add_argument("--ckpt", default="",
                    help="train-CLI checkpoint directory or flax .npz (empty "
@@ -70,8 +74,14 @@ def main(argv=None) -> dict:
     p.add_argument("--mesh", action="store_true",
                    help="split each image's multi-scale windows over the "
                         "ranks of a torchrun launch (data axis)")
+    return p
+
+
+def main(argv=None) -> dict:
+    p = build_parser()
     args = p.parse_args(argv)
-    data_root = data_source(p, args, LIP)
+    args.preset = resolve_preset(p, args, lip_only=True)
+    data_root = data_source(p, args, args.preset)
     if not args.mesh:
         device = torch.device(args.device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -98,16 +108,16 @@ def run(args, data_root, device, grid) -> dict:
     rank's windows of every image."""
     model, size, config = load_eval_model(
         args.ckpt, tiny=args.tiny, device=device,
-        dtype=getattr(torch, args.dtype), seed=args.seed)
+        dtype=getattr(torch, args.dtype), seed=args.seed, preset=args.preset)
     if data_root is None:
         ds = SyntheticDataset(length=args.limit or 4, crop_size=size,
                               num_joints=config["num_joints"],
                               num_classes=config["num_classes"],
                               is_train=False)
     else:  # host-normalised images, as the JAX CLI's
-        ds = dataset_for(LIP.data, "test", data_root, crop_size=size,
-                         sigma=SIGMA, is_train=False,
-                         sample=args.limit or -1, **LIP.reader)
+        ds = dataset_for(args.preset.data, "test", data_root,
+                         crop_size=size, sigma=SIGMA, is_train=False,
+                         sample=args.limit or -1, **args.preset.reader)
     loader = DataLoader(ds, 1, device=device, num_workers=4,
                         process_index=0, process_count=1)
     apply_fn = test_seg.make_parsing_apply_fn(model)

@@ -5,8 +5,9 @@ Checked in a fresh interpreter, because this test process has imported
 jax already (tests/conftest.py). Importing also builds nothing: neither
 the heatmap kernel nor the readers' host library. The search,
 serving, PPP / chain, LIP reader, PPP reader / fused-warp,
-data-parallel and spatial slices' modules are also imported each on its own, so
-that none of them leans on another module having been imported first.
+data-parallel, spatial and tensor-parallel slices' modules are also
+imported each on its own, so that none of them leans on another module
+having been imported first.
 """
 import os
 import subprocess
@@ -63,7 +64,8 @@ DATA_MODULES = ("npp_tpu_torch.data.fast_aug",
 PARALLEL_MODULES = ("npp_tpu_torch.parallel.mesh",
                     "npp_tpu_torch.parallel.sync_bn",
                     "npp_tpu_torch.parallel.zero",
-                    "npp_tpu_torch.parallel.spatial")
+                    "npp_tpu_torch.parallel.spatial",
+                    "npp_tpu_torch.parallel.tensor")
 
 
 def _run(code: str) -> str:

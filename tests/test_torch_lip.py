@@ -448,7 +448,7 @@ def test_train_and_eval_clis_read_the_lip_tree(png_tree, tmp_path):
     assert np.isfinite(out["result"]["pck_avg"])
     assert len(out["result"]["names"]) == 4  # one val batch of the tiny bs4
     res = eval_lip.main(["--data-root", root, "--gt-csv", gt, "--ckpt",
-                         out["checkpoints"], "--n", "6", "--batch", "4",
+                         out["checkpoints"], "--sample", "6", "--batch", "4",
                          "--pred-csv", str(tmp_path / "p.csv"), *CPU])
     assert res["names"] == [f"val_{i:03d}" for i in range(6)]
     assert np.isfinite(res["loss"]) and np.isfinite(res["mean_iou"])

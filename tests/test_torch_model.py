@@ -297,9 +297,10 @@ def test_eval_step_matches_jax(bundle):
 
 
 def test_eval_cli_runs_tiny_on_cpu(capsys):
-    result = eval_lip.main(["--synthetic", "--tiny", "--n", "3", "--batch",
-                            "2", "--device", "cpu", "--dtype", "float32"])
+    # --synthetic evaluates 2 x --batch images, as npp_tpu's CLI.
+    result = eval_lip.main(["--synthetic", "--tiny", "--batch", "2",
+                            "--device", "cpu", "--dtype", "float32"])
     assert np.isfinite(result["loss"])
-    assert result["pose_preds"].shape == (3, 16, 3)
-    assert result["cm"].sum() == 3 * 128 * 128
-    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("n=3 ")
+    assert result["pose_preds"].shape == (4, 16, 3)
+    assert result["cm"].sum() == 4 * 128 * 128
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("n=4 ")

@@ -702,7 +702,7 @@ def test_train_cli_under_torchrun_and_its_checkpoint_in_eval_lip(runs, cli):
     for name in ("0", "best", "final"):
         blob = torch.load(ckpt / name / "state.pt", weights_only=True)
         assert not any(k.startswith("module.") for k in blob["model"])
-    result = eval_lip.main(["--synthetic", "--tiny", "--n", "2", "--batch",
-                            "2", "--device", "cpu", "--dtype", "float32",
+    result = eval_lip.main(["--synthetic", "--tiny", "--batch", "2",
+                            "--device", "cpu", "--dtype", "float32",
                             "--ckpt", str(ckpt)])
-    assert np.isfinite(result["loss"]) and len(result["names"]) == 2
+    assert np.isfinite(result["loss"]) and len(result["names"]) == 4

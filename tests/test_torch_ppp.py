@@ -641,7 +641,7 @@ def test_search_train_eval_chain_tiny_on_cpu(ppp_search, tmp_path, capsys):
     shapes = lambda m: {k: v.shape for k, v in m.state_dict().items()}
     assert shapes(train["state"].model) == shapes(searched)
     csv, js = str(tmp_path / "pred.csv"), str(tmp_path / "m.json")
-    res = eval_lip.main(["--synthetic", *CPU, "--n", "3", "--batch", "2",
+    res = eval_lip.main(["--synthetic", *CPU, "--batch", "2",
                          "--ckpt", train["checkpoints"], "--genotype",
                          genotype, "--pred-csv", csv, "--json-out", js])
     with open(js) as f:
@@ -651,5 +651,5 @@ def test_search_train_eval_chain_tiny_on_cpu(ppp_search, tmp_path, capsys):
     assert not set(blob) & {"pose_preds", "names", "cm"}
     with open(csv) as f:
         rows = f.read().splitlines()
-    assert len(rows) == 3 and rows[0].startswith("synthetic_000000,")
+    assert len(rows) == 4 and rows[0].startswith("synthetic_000000,")
     assert len(rows[0].split(",")) == 1 + 2 * 16
