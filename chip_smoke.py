@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written CUDA kernel from the sources in this
-checkout, checks it against its plain PyTorch version on the card, then
+Builds the port's hand-written CUDA kernels from the sources in this
+checkout (one nvcc each, side by side), checks the heatmap kernel
+against its plain PyTorch version on the card (the int8 conv is checked
+in phase 20, on the activations of the flagship forward), then
 drives the port's three paths with random weights from a seed on
 synthetic data: at the flagship's width (L=16, C=64, 384x384) the NPPNet
 flip-TTA evaluation (16 images at batch 8, loader -> heatmap kernel ->
@@ -41,7 +43,8 @@ parity reader, the flagship train step fed by it, the train CLI with
 ``--fast-aug``). Any failure raises, so the exit code is non-zero;
 without CUDA it exits non-zero before printing any result.
 
-Phases: 1 device, 2 build, 3 kernel vs plain version (seven shapes) and
+Phases: 1 device, 2 build both kernels, 3 the heatmap kernel vs its
+plain version (twelve shapes) and
 the device time of both by many launches, beside the kernel's bound, at
 the eval, the train, the search, the PPP train and the PPP search
 shapes, 4 the eval slice in fp32, 5
@@ -95,7 +98,18 @@ ZeRO), then on 1x1x2 grids 19a the tiny fp32 TP train and flip-TTA eval
 steps against one process's and 19b the flagship bf16 channels_last TP
 train step at bs2 (gathers and copies, all-reduces, device operations,
 busy time and idle share, peak memory, and the parameter and Adam-moment
-bytes a rank holds beside the unconverted model's).
+bytes a rank holds beside the unconverted model's), 20 (run right after
+11, on its model and images) npp_tpu's serving layouts: 20a the int8
+conv kernel against its plain version (int32 accumulators and outputs,
+max |diff| 0.0) at every dense-conv shape class of the unfused and fused
+int8 flagship forwards at bs8, each class timed beside its bound, the
+``torch._int_mm`` yardstick and the bf16 cuDNN conv; 20b the Predictor
+unfused and with fused necks + cells (in turns), int8 dynamic and int8
+calibrated: img/s, device operations, busy, idle, peak, fused against
+unfused labels in fp32 (>= 0.999) and int8 against bf16 (no bar); 20c
+the predict CLI with its fused defaults and ``--int8``, and ``eval_lip
+--synthetic --int8``; the int8 kernel's launches by path (> 0 on the
+int8 paths, 0 on every fp path).
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -107,6 +121,7 @@ import collections
 import copy
 import hashlib
 import importlib
+import itertools
 import json
 import math
 import os
@@ -117,10 +132,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch.nn.parallel import DistributedDataParallel
 
 from npp_tpu_torch import engine
@@ -146,6 +163,7 @@ from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.models.augment import NPPNet, build_nppnet
 from npp_tpu_torch.ops import heatmaps
+from npp_tpu_torch.ops import quantize as Q
 from npp_tpu_torch.parallel import mesh, spatial, tensor, zero
 from npp_tpu_torch.tools import (augment_lip, eval_lip, eval_ppp_map,
                                  predict, search_lip, test_lip)
@@ -215,8 +233,8 @@ ENTROPY_RTOL = 1e-6
 STATS_ATOL = 1e-6
 ARCH_TIE = 0.1
 ARCH_ATOL = 1e-6
-SEARCH_TIMED = 4         # timed bi-level pairs; the first is dropped as warm-up
-                         # (4, not 6, so that the script stays near 700 s)
+SEARCH_TIMED = 3         # timed bi-level pairs; the first is dropped as warm-up
+                         # (3, not 6, so that the script stays near 800 s)
 # Phase 10, the tiny Predictor on the card against the CPU (fp32, TF32
 # off): labels agree on LABEL_SHARE of the pixels (an argmax whose top two
 # logits are within rounding may part), keypoints to KP_ATOL px wherever
@@ -253,6 +271,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TIMED_CALLS = 200          # calls per timed run
 COLD_RING = 8              # calls whose outputs stay referenced: 8 x 10 MB > 50 MB L2
+# Phase 20: npp_tpu's serving layouts at the flagship width.
+INT8_CALLS = 40          # timed calls per shape class (cold L2 ring as phase 3)
+INT8_PLAIN_CALLS = 10    # the plain version's (its float64 conv is slow)
+COLD_BYTES = 64 * 2**20  # input copies cycled per class: > the 50 MB L2
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+CALIB_IMAGES = 16        # images of the int8 calibration
+FUSED_LABEL_SHARE = 0.999  # fused vs unfused labels, fp32, TF32 off
+LAYOUT_IMAGES = 16       # images of the layout comparisons
 TIMING = (f"CUDA events around {TIMED_CALLS} calls queued behind a "
           f"torch.cuda._sleep, over the count; the outputs of the last "
           f"{COLD_RING} calls kept referenced (cold L2)")
@@ -266,9 +292,9 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_us(fn) -> tuple[float, bool]:
+def device_us(fn, calls: int = TIMED_CALLS) -> tuple[float, bool]:
     """Device time of one call of ``fn``, in us: a sleep kernel holds the
-    stream while the host queues ``TIMED_CALLS`` calls behind it, and CUDA
+    stream while the host queues ``calls`` calls behind it, and CUDA
     events around those calls give their time over the count. The outputs
     of the last ``COLD_RING`` calls stay referenced, so the caching
     allocator hands each call memory that is not hot in the L2. Also
@@ -278,20 +304,21 @@ def device_us(fn) -> tuple[float, bool]:
     ring = collections.deque(maxlen=COLD_RING)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED_CALLS):  # warm-up, and the host's enqueue time
+    for _ in range(calls):  # warm-up, and the host's enqueue time
         ring.append(fn())
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4e9 * host_s) + 10**6)  # > 2x that at <= 2 GHz
+    # > 2x that at <= 2 GHz, and 5 ms more against a slower second loop
+    torch.cuda._sleep(int(4e9 * host_s) + 10**7)
     start.record()
-    for _ in range(TIMED_CALLS):
+    for _ in range(calls):
         ring.append(fn())
     end.record()
     queued = not start.query()
     end.synchronize()
-    return start.elapsed_time(end) * 1e3 / TIMED_CALLS, queued
+    return start.elapsed_time(end) * 1e3 / calls, queued
 
 
 def bound_us(b: int, j: int, gy: int, gx: int) -> tuple[float, str]:
@@ -1049,12 +1076,14 @@ def check_tiny_serve(tag: str) -> dict:
     return out
 
 
-def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> dict:
+def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> tuple:
     """Phase 11: the serving slice at the flagship width (L=16, C=64,
     384x384, bf16 + channels_last, flip TTA): the Predictor's stream at
     batch 8 and its latency at batch 1, bf16 against fp32, the pose-scale
     identity, the multi-scale parsing test, and the predict and test_lip
-    CLIs (with the train CLI's checkpoint and the search CLI's genotype)."""
+    CLIs (with the train CLI's checkpoint and the search CLI's genotype).
+    Returns (its numbers, what phase 20 reuses: the model, the unfused
+    Predictor, the images and the stream's results)."""
     model = build_nppnet(device="cuda", generator=torch.Generator()
                          .manual_seed(SEED), dtype=torch.bfloat16,
                          **eval_lip.FLAGSHIP)
@@ -1157,7 +1186,7 @@ def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> dict:
     if int(seg["cm"].sum()) != n_valid:
         raise AssertionError("phase 11: testval's confusion matrix misses "
                              "pixels")
-    del model, pred, one
+    del one
     torch.cuda.empty_cache()
 
     # The CLIs: train -> serve, search -> serve, and the test CLI.
@@ -1187,13 +1216,396 @@ def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> dict:
     print(f"phase 11: python -m npp_tpu_torch.tools.test_lip --synthetic "
           f"--mode testval --limit 2: mIoU {res['mean_iou']:.4f}, cm.sum "
           f"{int(res['cm'].sum())} {tag}")
-    return dict(img_per_s=len(ims) / stream_s, stream_ms=stream_s * 1e3,
-                batch_ms=batch_s * 1e3, peak_gib=peak / 2**30,
-                idle_share=idle, preprocess_ms=pre_s * 1e3,
-                postprocess_ms=post_s * 1e3,
-                latency_median_ms=statistics.median(lat)
-                * 1e3, latency_max_ms=max(lat) * 1e3, bf16_rel=rel,
-                testval_ms_per_image=per_image * 1e3, cli=cli, **prof)
+    out = dict(img_per_s=len(ims) / stream_s, stream_ms=stream_s * 1e3,
+               batch_ms=batch_s * 1e3, peak_gib=peak / 2**30,
+               idle_share=idle, preprocess_ms=pre_s * 1e3,
+               postprocess_ms=post_s * 1e3,
+               latency_median_ms=statistics.median(lat)
+               * 1e3, latency_max_ms=max(lat) * 1e3, bf16_rel=rel,
+               testval_ms_per_image=per_image * 1e3, cli=cli, **prof)
+    # Phase 20 serves the same model and images in npp_tpu's layouts.
+    return out, dict(model=model, pred=pred, ims=ims, results=results)
+
+
+def int8_classes(model, x) -> dict:
+    """The dense-conv shape classes of one int8 forward of ``model`` (a
+    prepared NPPNet) on ``x``: (input shape, weight shape, geometry, bias,
+    output dtype) -> [the operands of its first call, the geometry, calls
+    in the forward]. ``quantize.int8_conv`` is wrapped for the forward."""
+    seen = {}
+    orig = Q.int8_conv
+
+    def record(x, conv, *, act_scale=None):
+        q_x, a_scale = Q.quantize_act(x, act_scale)
+        kw = Q._s8_args(conv, x)
+        args = (q_x, conv.qweight, conv.wscale, a_scale, Q._bias(conv))
+        key = (tuple(q_x.shape), tuple(conv.qweight.shape),
+               kw["kernel_size"], kw["stride"], kw["padding"],
+               kw["dilation"], conv.bias is not None,
+               str(kw["out_dtype"]).replace("torch.", ""))
+        if key not in seen:
+            seen[key] = [args, kw, 0]
+        seen[key][2] += 1
+        return Q.conv_s8(*args, **kw)
+
+    Q.int8_conv = record
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        Q.int8_conv = orig
+    return seen
+
+
+def int_mm_conv(q_x, qweight, w_scale, a_scale, bias, *, kernel_size,
+                stride, padding, dilation, out_dtype):
+    """The library's yardstick for ``conv_s8``: an im2col copy of the int8
+    input (pad + unfold + one copy), ``torch._int_mm`` (cuBLASLt int8 x
+    int8 -> int32; operands zero-padded to its shape rules: M > 16, K
+    and N multiples of 8), then the same epilogue. The port never calls
+    it."""
+    n, c, h, w = q_x.shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = (kernel_size, stride, padding,
+                                              dilation)
+    xp = F.pad(q_x, (pw, pw, ph, ph))
+    cols = xp.unfold(2, dh * (kh - 1) + 1, sh).unfold(
+        3, dw * (kw - 1) + 1, sw)[..., ::dh, ::dw]  # (N, C, Ho, Wo, kh, kw)
+    ho, wo = cols.shape[2], cols.shape[3]
+    a = cols.permute(0, 2, 3, 4, 5, 1).reshape(n * ho * wo, kh * kw * c)
+    m, k = a.shape
+    cout = qweight.shape[0]
+    mp, kp, np_ = max(m, 32), -(-k // 8) * 8, -(-cout // 8) * 8
+    a = F.pad(a, (0, kp - k, 0, mp - m))
+    b = F.pad(qweight, (0, kp - k, 0, np_ - cout)).t()
+    acc = torch._int_mm(a, b)[:m, :cout]
+    if out_dtype == torch.int32:
+        return acc
+    out = acc.to(torch.float32) * (a_scale * w_scale)
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype).reshape(n, ho, wo, cout).permute(0, 3, 1, 2)
+
+
+def cold_copies(t: torch.Tensor, n: int):
+    """An endless cycle over ``n`` copies of ``t`` (``t`` itself first)."""
+    return itertools.cycle([t] + [t.clone() for _ in range(n - 1)])
+
+
+def int8_bound_us(key, out_bytes: int) -> tuple[float, float]:
+    """(bytes time, operations time) in us of one class: the int8 input
+    and weights read once, the scales and bias read, the output written
+    once; 2 M N K int8 operations at the data sheet's dense rate."""
+    (n, c, h, w), (cout, k) = key[0], key[1]
+    kh, kw = key[2]
+    ho = (h + 2 * key[4][0] - key[5][0] * (kh - 1) - 1) // key[3][0] + 1
+    wo = (w + 2 * key[4][1] - key[5][1] * (kw - 1) - 1) // key[3][1] + 1
+    m = n * ho * wo
+    nbytes = (n * c * h * w + cout * k + 4 * cout * (2 if key[6] else 1) + 4
+              + m * cout * out_bytes)
+    return (nbytes / HBM_BYTES_PER_S * 1e6,
+            2 * m * cout * k / INT8_OPS_PER_S * 1e6)
+
+
+def check_int8_kernel(classes: dict, tag: str) -> dict:
+    """Phase 20a: at every shape class, the kernel's int32 accumulators
+    and outputs against its plain version's (max |diff| must be 0.0), and
+    the device time per call of the kernel, its plain version, the
+    library's ``_int_mm`` yardstick and the bf16 cuDNN conv of the same
+    shape, beside the bound."""
+    rows, worst = [], 0.0
+    for key, ((q_x, qw, ws, a_s, bias), kw, count) in classes.items():
+        ref_kw = dict(kw, out_dtype=torch.int32)
+        acc_k = Q.conv_s8(q_x, qw, ws, a_s, bias, **ref_kw)
+        acc_p = Q.conv_s8_reference(q_x, qw, ws, a_s, bias, **ref_kw)
+        out_k = Q.conv_s8(q_x, qw, ws, a_s, bias, **kw)
+        out_p = Q.conv_s8_reference(q_x, qw, ws, a_s, bias, **kw)
+        lib = int_mm_conv(q_x, qw, ws, a_s, bias, **ref_kw)
+        torch.cuda.synchronize()
+        err_acc = (acc_k.double() - acc_p.double()).abs().max().item()
+        err_out = (out_k.double() - out_p.double()).abs().max().item()
+        lib_same = bool(torch.equal(lib.reshape(acc_k.shape[0], -1,
+                                                acc_k.shape[1]),
+                                    acc_k.permute(0, 2, 3, 1).reshape(
+                                        acc_k.shape[0], -1, acc_k.shape[1])))
+        worst = max(worst, err_acc, err_out)
+        if not (err_acc == 0.0 and err_out == 0.0):
+            raise AssertionError(f"phase 20a: the int8 kernel disagrees with "
+                                 f"its plain version at {key}: accumulators "
+                                 f"{err_acc}, outputs {err_out}")
+        kh, kwid = kw["kernel_size"]
+        cin = q_x.shape[1]
+        w_bf16 = (qw.reshape(-1, kh, kwid, cin).permute(0, 3, 1, 2)
+                  .to(torch.bfloat16)
+                  .contiguous(memory_format=torch.channels_last))
+        b_bf16 = None if bias is None else bias.to(torch.bfloat16)
+        # Each call reads another copy of the input, so that the input
+        # too is cold in the L2 (up to 64 copies: the smallest stay warm).
+        n_copies = min(64, -(-COLD_BYTES // max(q_x.numel(), 1)))
+        xs = cold_copies(q_x, n_copies)
+        xs_bf16 = cold_copies(q_x.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last), n_copies)
+        k_us, queued = device_us(lambda: Q.conv_s8(next(xs), qw, ws, a_s,
+                                                   bias, **kw), INT8_CALLS)
+        if not queued:
+            raise AssertionError("phase 20a: the timed kernel calls were "
+                                 "not all queued behind the sleep")
+        p_us, _ = device_us(lambda: Q.conv_s8_reference(
+            next(xs), qw, ws, a_s, bias, **kw), INT8_PLAIN_CALLS)
+        l_us, _ = device_us(lambda: int_mm_conv(next(xs), qw, ws, a_s, bias,
+                                                **kw), INT8_CALLS)
+        c_us, _ = device_us(lambda: F.conv2d(
+            next(xs_bf16), w_bf16, b_bf16, kw["stride"], kw["padding"],
+            kw["dilation"]), INT8_CALLS)
+        del xs, xs_bf16
+        t_bytes, t_ops = int8_bound_us(key, out_k.element_size())
+        b_us = max(t_bytes, t_ops)
+        rows.append(dict(
+            shape=json.loads(class_key(key)),
+            calls_per_forward=count, device_us=k_us, plain_us=p_us,
+            library_us=l_us, cudnn_bf16_us=c_us, bound_us=b_us,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes_us=t_bytes, operations_us=t_ops,
+            share_of_bound=b_us / k_us, library_equal=lib_same))
+        print(f"phase 20a: int8 conv x{tuple(key[0])} w{tuple(key[1])} "
+              f"k{key[2]} s{key[3]} p{key[4]} d{key[5]} bias={key[6]} "
+              f"{key[7]} (x{count} a forward): max|diff| acc {err_acc} out "
+              f"{err_out}; kernel {k_us:.3f} us, plain {p_us:.3f}, _int_mm "
+              f"{l_us:.3f} (equal accumulators {lib_same}), bf16 cuDNN "
+              f"{c_us:.3f}; bound {b_us:.3f} us ({rows[-1]['bound_by']}), "
+              f"share {b_us / k_us:.4f} {tag}")
+        del acc_k, acc_p, out_k, out_p, lib, w_bf16
+    return dict(rows=rows, max_abs_err=worst)
+
+
+def per_forward(rows, counts) -> dict:
+    """The kernel's, plain version's, library's, cuDNN's and bound's time
+    summed over one forward's calls (``counts``: shape class -> calls)."""
+    by = {json.dumps(r["shape"]): r for r in rows}
+    tot = collections.Counter()
+    for key, n in counts.items():
+        r = by[key]
+        for f in ("device_us", "plain_us", "library_us", "cudnn_bf16_us",
+                  "bound_us", "bytes_us", "operations_us"):
+            tot[f] += n * r[f]
+        tot["calls"] += n
+    return dict(tot)
+
+
+def class_key(key) -> str:
+    return json.dumps([list(key[0]), list(key[1]), list(key[2]),
+                       list(key[3]), list(key[4]), list(key[5]), key[6],
+                       key[7]])
+
+
+def serve_layout(pred, ims) -> dict:
+    """One layout's stream over ``ims`` at bs8 (img/s, peak memory) and
+    one profiled batch (device operations, busy, idle share); the
+    int8 kernel's launches over the stream alone."""
+    pred.predict_batch(ims[:SERVE_BATCH])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Q.conv_s8.launches = 0
+    t0 = time.perf_counter()
+    results = list(pred.predict_stream(iter(ims), batch_size=SERVE_BATCH))
+    stream_s = time.perf_counter() - t0
+    launches = Q.conv_s8.launches
+    peak = torch.cuda.max_memory_allocated()
+    if len(results) != len(ims) or not all(
+            np.isfinite(r["keypoints"]).all() for r in results):
+        raise AssertionError("phase 20b: a layout's stream is incomplete")
+    if results[0]["keypoints"].shape != (16, 3):
+        raise AssertionError("phase 20b: keypoints of another shape")
+    prof = profile_step(lambda _, b: pred.predict_batch(b), None,
+                        ims[:SERVE_BATCH])
+    batch_s = stream_s / (len(ims) / SERVE_BATCH)
+    return dict(img_per_s=len(ims) / stream_s, batch_ms=batch_s * 1e3,
+                peak_gib=peak / 2**30,
+                idle_share=1.0 - prof["busy_ms"] / (batch_s * 1e3),
+                int8_launches=launches, results=results, **prof)
+
+
+def agreement(got: list, ref: list, unique=None) -> dict:
+    """Share of equal crop labels and the largest keypoint difference (px;
+    over the joints whose reference peak is unique, with ``unique``)."""
+    share = float(np.mean([np.mean(x["parsing_crop"] == y["parsing_crop"])
+                           for x, y in zip(got, ref)]))
+    kp = np.stack([np.abs(x["keypoints"][:, :2] - y["keypoints"][:, :2])
+                   .max(axis=1) for x, y in zip(got, ref)])
+    out = dict(label_share=share, kp_max=float(kp.max()))
+    if unique is not None:
+        out["kp_max_unique"] = float(kp[unique].max()) if unique.any() else 0.0
+    return out
+
+
+def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
+    """Phase 20: npp_tpu's serving layouts on phase 11's flagship model and
+    images. 20a the hand-written int8 conv against its plain version at
+    every dense-conv shape class of the unfused and fused int8 forwards at
+    bs8, timed beside its bound, ``_int_mm`` and bf16 cuDNN; 20b the
+    Predictor in four layouts (unfused, as phase 11; fused necks + cells,
+    in turns with it; int8 dynamic; int8 calibrated on CALIB_IMAGES
+    images): img/s,
+    device operations, busy, idle and peak, fused against unfused in fp32
+    and int8 against bf16; 20c the predict CLI (its fused default and
+    ``--int8``) and ``eval_lip --synthetic --int8``. Returns (its numbers,
+    the int8 kernel's entry of the kernels line)."""
+    model, base, ims = ctx["model"], ctx["pred"], ctx["ims"]
+    if Q.conv_s8.launches != 0:
+        raise AssertionError("an fp path of phases 3-11 launched the int8 "
+                             "kernel")
+    # 20a: the shape classes of both int8 forwards, from real activations.
+    canv = torch.from_numpy(np.stack([base.preprocess(im)[0]
+                                      for im in ims[:SERVE_BATCH]]))
+    x = base._normalize(canv.to(base.device))
+    pred_q = Predictor(model, crop_size=(384, 384), quantize="int8")
+    classes = int8_classes(pred_q.model, x)
+    fq = Predictor(model, crop_size=(384, 384), quantize="int8",
+                   fuse_necks=True, fuse_cells=True)
+    fused_classes = int8_classes(fq.model, x)
+    del fq
+    counts = {class_key(k): v[2] for k, v in classes.items()}
+    fused_counts = {class_key(k): v[2] for k, v in fused_classes.items()}
+    merged = dict(fused_classes)
+    merged.update(classes)
+    print(f"phase 20a: {len(classes)} dense-conv shape classes in the unfused int8 forward at bs"
+          f"{SERVE_BATCH} ({sum(counts.values())} calls), {len(fused_classes)}"
+          f" in the fused one ({sum(fused_counts.values())} calls), "
+          f"{len(merged)} in all; timing: CUDA events around {INT8_CALLS} "
+          f"calls queued behind a torch.cuda._sleep, the outputs of the last "
+          f"{COLD_RING} kept referenced, each call on another of up to 64 "
+          f"copies of the input ({COLD_BYTES >> 20} MiB of them) {tag}")
+    kernel = check_int8_kernel(merged, tag)
+    del merged, classes, fused_classes
+    one = per_forward(kernel["rows"], counts)
+    one_fused = per_forward(kernel["rows"], fused_counts)
+    print(f"phase 20a: per unfused int8 forward at bs{SERVE_BATCH} "
+          f"({one['calls']} calls): kernel {one['device_us'] / 1e3:.4f} ms, "
+          f"plain {one['plain_us'] / 1e3:.4f}, _int_mm "
+          f"{one['library_us'] / 1e3:.4f}, bf16 cuDNN "
+          f"{one['cudnn_bf16_us'] / 1e3:.4f}, bound "
+          f"{one['bound_us'] / 1e3:.4f} ms (bytes {one['bytes_us'] / 1e3:.4f}"
+          f", operations {one['operations_us'] / 1e3:.4f}); fused forward "
+          f"({one_fused['calls']} calls): kernel "
+          f"{one_fused['device_us'] / 1e3:.4f} ms, bound "
+          f"{one_fused['bound_us'] / 1e3:.4f} ms {tag}")
+
+    # 20b: the layouts, unfused and fused in turns (unfused, fused, fused,
+    # unfused: the host clock drifts between calls), then int8.
+    fused = Predictor(model, crop_size=(384, 384), fuse_necks=True,
+                      fuse_cells=True)
+    runs = {"unfused": base, "fused": fused, "int8_dynamic": pred_q}
+    layouts, results, launches = {}, {"unfused": ctx["results"]}, {}
+    for name in ("unfused", "fused", "fused", "unfused", "int8_dynamic",
+                 "int8_calibrated"):
+        if name == "int8_calibrated":
+            pred_q.calibrate_int8(ims[:CALIB_IMAGES])
+            runs[name] = pred_q
+        got = serve_layout(runs[name], ims)
+        results.setdefault(name, got.pop("results"))
+        launches[f"serve_{name}"] = max(launches.get(f"serve_{name}", 0),
+                                        got["int8_launches"])
+        if name in layouts:  # the second of a pair: both runs kept
+            layouts[name]["img_per_s_runs"].append(got["img_per_s"])
+            layouts[name]["busy_ms_runs"].append(got["busy_ms"])
+        else:
+            layouts[name] = dict(got, img_per_s_runs=[got["img_per_s"]],
+                                 busy_ms_runs=[got["busy_ms"]])
+        print(f"phase 20b: {name}: {got['img_per_s']:.3f} img/s over "
+              f"{len(ims)} images at bs{SERVE_BATCH} (phase 11 unfused "
+              f"{serve['img_per_s']:.3f}); one profiled batch: "
+              f"{got['kernels']} device operations, busy "
+              f"{got['busy_ms']:.3f} ms, idle {got['idle_share']:.3f}; peak "
+              f"{got['peak_gib']:.3f} GiB; int8 kernel launches over the "
+              f"stream {got['int8_launches']}; top {got['top'][:4]} {tag}")
+    for name in ("int8_dynamic", "int8_calibrated"):
+        a = agreement(results[name], results["unfused"])
+        layouts[name]["vs_bf16"] = a
+        print(f"phase 20b: {name} against the bf16 unfused stream (seeded "
+              f"weights, no bar): crop labels agree on {a['label_share']:.6f}"
+              f", keypoints max|diff| {a['kp_max']:.3f} px {tag}")
+    a = agreement(results["fused"], results["unfused"])
+    layouts["fused"]["vs_unfused_bf16"] = a
+    print(f"phase 20b: fused against unfused, bf16: labels "
+          f"{a['label_share']:.6f}, keypoints max|diff| {a['kp_max']:.3f} px "
+          f"{tag}")
+    # Fused against unfused in fp32 (TF32 off since phase 4).
+    sub = ims[:LAYOUT_IMAGES]
+    model.dtype = fused.model.dtype = torch.float32
+    try:
+        ref32 = base.predict_batch(sub)
+        got32 = fused.predict_batch(sub)
+        unique = peak_is_unique(base, sub)
+    finally:
+        model.dtype = fused.model.dtype = torch.bfloat16
+    a = agreement(got32, ref32, unique)
+    layouts["fused"]["vs_unfused_fp32"] = a
+    print(f"phase 20b: fused against unfused in fp32 on {len(sub)} images: "
+          f"crop labels agree on {a['label_share']:.6f} (>= "
+          f"{FUSED_LABEL_SHARE}); keypoints max|diff| {a['kp_max']:.3g} px, "
+          f"{a['kp_max_unique']:.3g} over the {int(unique.sum())} of "
+          f"{unique.size} joints with a unique peak {tag}")
+    if not a["label_share"] >= FUSED_LABEL_SHARE:
+        raise AssertionError("phase 20b: the fused layout's labels disagree "
+                             "with the unfused ones")
+    del fused, pred_q, runs, results, got32, ref32
+    torch.cuda.empty_cache()
+
+    # 20c: the CLIs.
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("predict", []), ("predict_int8", ["--int8"])):
+            Q.conv_s8.launches = 0
+            out = predict.main(["--synthetic", "4", "--out",
+                                os.path.join(tmp, name), *extra])
+            launches[name] = Q.conv_s8.launches
+            ok = (len(out["parsings"]) == 4 and all(
+                np.isfinite(k).all() for k in out["keypoints"]))
+            print(f"phase 20c: python -m npp_tpu_torch.tools.predict "
+                  f"--synthetic 4 {' '.join(extra)}: 4 parsings {ok}; int8 "
+                  f"kernel launches {launches[name]} {tag}")
+            if not ok:
+                raise AssertionError(f"phase 20c: {name} failed")
+            cli[name] = dict(parsings=len(out["parsings"]))
+    Q.conv_s8.launches = 0
+    heat0 = heatmaps.render_heatmaps.launches
+    res = eval_lip.main(["--synthetic", "--int8"])
+    launches["eval_int8"] = Q.conv_s8.launches
+    heat = heatmaps.render_heatmaps.launches - heat0
+    n_valid = valid_pixels()
+    print(f"phase 20c: python -m npp_tpu_torch.tools.eval_lip --synthetic "
+          f"--int8: {eval_lip.result_line(res)} cm.sum={int(res['cm'].sum())}"
+          f" == valid pixels {n_valid}; int8 kernel launches "
+          f"{launches['eval_int8']}, heatmap kernel launches {heat} {tag}")
+    if not (math.isfinite(res["loss"]) and int(res["cm"].sum()) == n_valid):
+        raise AssertionError("phase 20c: the int8 eval CLI failed")
+    cli["eval_int8"] = dict(loss=res["loss"], mean_iou=res["mean_iou"])
+    for path in ("serve_int8_dynamic", "serve_int8_calibrated",
+                 "predict_int8", "eval_int8"):
+        if launches[path] == 0:
+            raise AssertionError(f"the {path} path never launched the int8 "
+                                 f"kernel")
+    for path in ("serve_unfused", "serve_fused", "predict"):
+        if launches[path] != 0:
+            raise AssertionError(f"the fp path {path} launched the int8 "
+                                 f"kernel")
+    entry = {
+        "name": "int8_conv", "route": "cuda",
+        "source": "npp_tpu_torch/ops/csrc/int8_conv.cu",
+        "replaces": "npp_tpu/ops/quantize.py:113 (XLA int8 conv; not a "
+                    "Pallas kernel)",
+        "launches_by_path": launches,
+        "max_abs_err": kernel["max_abs_err"],
+        "ms": one["device_us"] / 1e3, "plain_ms": one["plain_us"] / 1e3,
+        "bound_ms": one["bound_us"] / 1e3,
+        "bound_by": ("bytes" if one["bytes_us"] >= one["operations_us"]
+                     else "operations"),
+        "library_ms": one["library_us"] / 1e3,
+        "library": "torch._int_mm on an im2col copy, plus the epilogue",
+        "cudnn_bf16_ms": one["cudnn_bf16_us"] / 1e3,
+        "unit": f"one unfused flagship int8 forward at bs{SERVE_BATCH} "
+                f"({one['calls']} calls)",
+        "fused_forward": one_fused, "shapes": kernel["rows"]}
+    return dict(layouts=layouts, cli=cli, heatmap_launches=heat), entry
 
 
 def ppp_batches(device, n_batches: int = 2) -> list:
@@ -3480,13 +3892,18 @@ def main() -> int:
           f"nvidia-smi: {smi}")
     clock.done(1)
 
-    # Phase 2: build the kernel from this checkout's sources.
+    # Phase 2: build the kernels from this checkout's sources, one nvcc
+    # each, side by side.
     t0 = time.perf_counter()
-    lib, log = heatmaps.build_kernels()
-    print(f"phase 2: built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.strip().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"phase 2: ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(lambda build: build(), (
+            heatmaps.build_kernels, Q.build_kernels)))
+    for lib, log in builds:
+        print(f"phase 2: built {lib.name} ({time.perf_counter() - t0:.2f} s "
+              f"for both)")
+        for line in log.strip().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"phase 2: ptxas: {line.strip()}")
     clock.done(2)
 
     # Phase 3: the kernel against its plain version on the card.
@@ -3569,9 +3986,20 @@ def main() -> int:
     # Phase 11: the serving slice at the flagship width. It renders no
     # targets, so the heatmap kernel must not run on it.
     heatmaps.render_heatmaps.launches = 0  # the serving path's count
-    serve = flagship_serve(tag, train["checkpoints"], search["genotype"])
+    serve, serve_ctx = flagship_serve(tag, train["checkpoints"],
+                                      search["genotype"])
     launches["serve"] = heatmaps.render_heatmaps.launches
     clock.done(11)
+
+    # Phase 20: npp_tpu's serving layouts on phase 11's model and images;
+    # it counts the int8 kernel's launches by path itself, and the eval
+    # CLI's heatmap kernel launches.
+    layouts, int8_entry = serving_layouts(tag, serve_ctx, serve)
+    launches["eval_int8"] = layouts.pop("heatmap_launches")
+    del serve_ctx
+    torch.cuda.empty_cache()
+    clock.done(20)
+    Q.conv_s8.launches = 0  # phases 12-19 are fp paths
 
     # Phase 12: the tiny PPP eval and merge, card against CPU (fp32, TF32
     # off).
@@ -3626,10 +4054,15 @@ def main() -> int:
     # launches on the TP paths (19a-c's batches).
     tp, launches["tp_train"] = tensor_parallel(tag)
     clock.done(19)
+    int8_entry["launches_by_path"]["phases_12_19"] = Q.conv_s8.launches
+    if Q.conv_s8.launches != 0:
+        raise AssertionError("an fp path of phases 12-19 launched the int8 "
+                             "kernel")
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
     summary = {"tiny_train": tiny, "train_step": train,
                "tiny_search": tiny_search, "search_pair": search,
                "tiny_serve": tiny_serve, "serve": serve,
+               "serving_layouts": layouts,
                "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
                "lip_disk": from_disk, "ppp_and_fused_disk": more_disk,
                "ddp_shared_card": shared, "ddp_nccl": nccl,
@@ -3640,7 +4073,7 @@ def main() -> int:
     for path in ("eval", "train", "search", "ppp_train", "ppp_search",
                  "chain", "lip_disk", "ppp_disk", "lip_fast_disk",
                  "ddp_shared_card", "ddp_train", "ddp_search", "ddp_eval",
-                 "sp_train", "tp_train"):
+                 "sp_train", "tp_train", "eval_int8"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")
@@ -3652,7 +4085,9 @@ def main() -> int:
         "source": "npp_tpu_torch/ops/csrc/render_heatmaps.cu",
         "replaces": "npp_tpu/ops/pallas_kernels.py:71",
         "launches": sum(launches.values()), "launches_by_path": launches,
-        **kernel}]}))
+        **kernel}, {
+        "launches": sum(int8_entry["launches_by_path"].values()),
+        **int8_entry}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

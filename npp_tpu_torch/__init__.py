@@ -6,8 +6,9 @@ module of the same name there and is held against it by the CPU tests
 the model runs in ``channels_last`` memory format under bf16 autocast.
 
 The package imports torch and numpy only, never jax. Importing it builds
-nothing: the one hand-written CUDA kernel (``ops/csrc/``) is compiled
-with ``nvcc`` at its first launch on a CUDA tensor.
+nothing: the hand-written CUDA kernels (``ops/csrc/``: the heatmap
+renderer and the int8 conv) are compiled with ``nvcc`` at their first
+launch on a CUDA tensor.
 
 The slices ported so far: the flagship NPPNet flip-TTA evaluation
 (``python -m npp_tpu_torch.tools.eval_lip --synthetic``), the

@@ -25,8 +25,15 @@ without a space axis: the dry run's flip-TTA eval step,
 evaluates the same batch and returns the same whole outputs. The passes
 refuse such a model, as they refuse a spatially converted one: they
 gather over every rank, and npp_tpu has no such path.
+
+``make_eval_step(quantize="int8")`` runs both forwards with int8 dense
+convs (``ops/quantize.py``) on a copy of the model whose weights are
+quantized when the step is made; the losses, the decode and the metrics
+stay float32. It refuses a tensor-parallel or spatially converted model.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -36,6 +43,7 @@ from npp_tpu_torch.core.inference import (FLIPPED_POSEIDX,
                                           FLIPPED_POSEIDX_PPP,
                                           decode_pose_validate,
                                           flip_parsing_fuse)
+from npp_tpu_torch.ops.quantize import prepare_int8
 from npp_tpu_torch.ops.resize import resize_bilinear
 from npp_tpu_torch.parallel import mesh, tensor
 from npp_tpu_torch.utils import metrics as M
@@ -74,7 +82,8 @@ def make_eval_step(model, *, num_classes: int, class_weights,
                    flip_pairs=((14, 15), (16, 17), (18, 19)),
                    pose_flip_idx=None,
                    decode_hw: tuple[int, int] = (384, 384),
-                   blur_sigma: float = 3.0, dark: bool = False):
+                   blur_sigma: float = 3.0, dark: bool = False,
+                   quantize: str | None = None):
     """Returns ``step(criterion_params, batch) -> {loss, loss_pose,
     loss_par, cm (C, C), pose_pred (B, J, 3), par_pred (B, H, W)}``, with
     ``criterion_params`` = {"lamda_pose", "lamda_par"} and ``batch`` a
@@ -83,8 +92,16 @@ def make_eval_step(model, *, num_classes: int, class_weights,
     ``pose_flip_idx`` remaps the joints (by default LIP's for 16 joints,
     PPP's for 14, none otherwise); the decode blurs with ``blur_sigma``
     and, with ``dark``, refines the argmax by the DARK step. ``model``
-    may be split over a grid's model axis (module docstring)."""
+    may be split over a grid's model axis (module docstring), except
+    with ``quantize="int8"``."""
     _check_model(model)
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if quantize is not None:
+        if tensor.sharding_of(model) is not None:
+            raise ValueError("the int8 eval step runs an unsharded model; "
+                             "this one is split over a grid's model axis")
+        model = prepare_int8(copy.deepcopy(model))
 
     @torch.inference_mode()
     def step(criterion_params, batch):

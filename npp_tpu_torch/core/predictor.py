@@ -22,11 +22,18 @@ the fusion and the decode, and the per-image labels and keypoints are
 gathered over the data group, so that every rank returns the full list
 in request order.
 
-Not ported: int8 serving (``quantize``, ``calibrate_int8``) and the fused
-neck and sibling-cell layouts.
+``fuse_necks`` / ``fuse_cells`` serve npp_tpu's fused layouts
+(``models/augment.py``): the caller's model is left as it is, and a twin
+in the fused layout, holding its weights through the state transforms,
+serves. ``quantize="int8"`` serves every dense conv in int8
+(``ops/quantize.py``; on the card, the hand-written int8 conv) on a copy
+of the model whose weights are quantized at construction; activation
+scales are dynamic until ``calibrate_int8`` installs static ones. A
+``mesh`` refuses int8, and the fused cells on a space axis.
 """
 from __future__ import annotations
 
+import copy
 import math
 import queue
 import threading
@@ -40,6 +47,8 @@ from npp_tpu_torch.core.inference import (FLIPPED_POSEIDX,
                                           flip_parsing_fuse,
                                           fuse_multiscale_pose)
 from npp_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
+from npp_tpu_torch.models.augment import fused_twin
+from npp_tpu_torch.ops.quantize import calibrate_acts, prepare_int8
 from npp_tpu_torch.ops.resize import resize_bilinear
 from npp_tpu_torch.parallel.mesh import all_concat
 from npp_tpu_torch.parallel.spatial import convert_spatial, gather_rows
@@ -107,20 +116,45 @@ class Predictor:
     def __init__(self, model, *, crop_size=(384, 384), flip_test: bool = True,
                  flip_pairs=((14, 15), (16, 17), (18, 19)),
                  blur_sigma: float = 3.0, dark_decode: bool = False,
-                 pose_scales: tuple = (1.0,), mesh=None):
+                 pose_scales: tuple = (1.0,), mesh=None,
+                 quantize: str | None = None, fuse_necks: bool = False,
+                 fuse_cells: bool = False):
         """``crop_size`` is (width, height). ``dark_decode`` refines the
         keypoints with the DARK step (``inference.post_process_dark``).
         ``pose_scales`` lists the scale multipliers of scale-list pose
         TTA and must hold 1.0; the parsing always comes from scale 1.0.
         ``mesh``: a grid of ranks to serve over (module docstring); with
         n_space > 1 the crop height and height / 4 must divide by it, and
-        ``model`` is converted to run on rows in place. A grid with a model
-        axis, or a model split over one, is refused: npp_tpu serves over
-        ``data x space`` meshes only."""
+        the served model is converted to run on rows in place. A grid with
+        a model axis, or a model split over one, is refused: npp_tpu
+        serves over ``data x space`` meshes only. ``fuse_necks`` /
+        ``fuse_cells`` serve a fused twin of ``model`` (the sibling
+        families are the model's ``sibling_families``);
+        ``quantize="int8"`` serves int8 dense convs (module docstring)."""
         if (mesh is not None and mesh.n_model > 1) or \
                 sharding_of(model) is not None:
             raise ValueError("Predictor serves over a data x space grid; it "
                              "does not run a model split over n_model > 1")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if mesh is not None and quantize is not None:
+            raise ValueError("Predictor(mesh=) does not serve int8 yet: "
+                             "serve the mesh in floating point, or int8 on "
+                             "one device")
+        if (mesh is not None and mesh.n_space > 1
+                and (fuse_cells or model.fused_cells)):
+            raise ValueError("Predictor(mesh=) does not serve the fused "
+                             "sibling cells on a space axis yet: pass "
+                             "fuse_cells=False")
+        necks = fuse_necks or model.fused_necks
+        cells = fuse_cells or model.fused_cells
+        if (necks, cells) != (model.fused_necks, model.fused_cells):
+            model = fused_twin(model, fused_necks=necks, fused_cells=cells)
+        elif quantize is not None:
+            model = copy.deepcopy(model)
+        if quantize is not None:
+            prepare_int8(model)
+        self.quantize = quantize
         self.pose_scales = tuple(float(s) for s in pose_scales)
         if 1.0 not in self.pose_scales:
             raise ValueError("pose_scales must contain the base scale 1.0")
@@ -207,6 +241,26 @@ class Predictor:
                                blur_sigma=self.blur_sigma,
                                dark=self.dark_decode)
         return par.argmax(dim=1).to(torch.uint8), kp
+
+    def calibrate_int8(self, images, *, batch_size: int = 8) -> None:
+        """Static int8 activation scales from ``images`` (raw RGB, through
+        the serving preprocess), in batches of ``batch_size`` with the
+        last one repeat-padded as npp_tpu's: the int8 forward records
+        each dense conv input's absmax (``ops/quantize.calibrate_acts``),
+        and later batches quantize with absmax / 127, clipped."""
+        if self.quantize != "int8":
+            raise ValueError("calibrate_int8 requires quantize='int8'")
+        if not images:
+            raise ValueError("calibrate_int8 needs at least one image")
+        pre = np.stack([self.preprocess(im)[0] for im in images])
+        n = len(images)
+        padded = -(-n // batch_size) * batch_size
+        if padded != n:
+            pre = np.concatenate(
+                [pre, np.repeat(pre[-1:], padded - n, axis=0)])
+        calibrate_acts(self.model, (
+            self._normalize(self._to_device(pre[i:i + batch_size]))
+            for i in range(0, padded, batch_size)))
 
     # -- host side -------------------------------------------------------
 

@@ -1,11 +1,16 @@
 """NPPNet, the fixed dual-task network compiled from the released genotypes.
 
-Port of ``npp_tpu/models/augment.py:39-390`` in its standard layout: two
-encoder streams (pose / parsing) of DARTS cells with cross-task
-injections at four scales, decoder upsample cells with decoder-stage
-injections, four projection necks, the chain of refinement cells and the
-per-stage heads. The ``merged_streams``, ``fused_necks`` and
-``fused_cells`` layouts are not ported.
+Port of ``npp_tpu/models/augment.py:39-440, 494-610``: two encoder
+streams (pose / parsing) of DARTS cells with cross-task injections at
+four scales, decoder upsample cells with decoder-stage injections, four
+projection necks, the chain of refinement cells and the per-stage heads.
+Two serving layouts of npp_tpu are ported: ``fused_necks`` (each
+stream's two necks as one conv + BN, aux / edge channels first, split
+3:4) and ``fused_cells`` (the sibling groups of every genotype-compiled
+cell, ``models/cells.py``). Both are exact in floating point, and their
+``state_dict`` maps onto the standard one by a split of a concatenation
+(``fuse_neck_state`` / ``fuse_sibling_state`` and their inverses). The
+``merged_streams`` layout is not ported.
 
 Tensors are NCHW. ``forward`` returns ``(pose_list, par_list)`` with
 ``pose_list[s] = (pose_map, pose_aux)`` and ``par_list[s] = (par_map,
@@ -24,9 +29,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from npp_tpu_torch import genotypes as gt
-from npp_tpu_torch.models.cells import (Cell, FusionCell, UpsampleCell,
+from npp_tpu_torch.models.cells import (DEFAULT_SIBLING_FAMILIES, Cell,
+                                        FusionCell, UpsampleCell,
                                         compile_decoder_injections,
-                                        compile_encoder_injections)
+                                        compile_encoder_injections,
+                                        sibling_groups)
 from npp_tpu_torch.ops.primitives import batch_norm, conv
 from npp_tpu_torch.ops.resize import resize_scale
 
@@ -122,11 +129,24 @@ class NPPNet(nn.Module):
                  decoder: gt.GenotypeUp2 = gt.DECODER,
                  inter: gt.GenotypeInter = gt.INTER,
                  fusion: gt.GenotypeFuse = gt.FUSION, multiplier: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 fused_necks: bool = False, fused_cells: bool = False,
+                 sibling_families=DEFAULT_SIBLING_FAMILIES):
         super().__init__()
+        # The arguments, from which a twin in another layout is built.
+        self.config = dict(
+            num_classes=num_classes, num_joints=num_joints, layers=layers,
+            init_channels=init_channels, refine_layers=refine_layers,
+            encoder=encoder, decoder=decoder, inter=inter, fusion=fusion,
+            multiplier=multiplier, dtype=dtype, fused_necks=fused_necks,
+            fused_cells=fused_cells,
+            sibling_families=tuple(sibling_families))
         c = init_channels
         self.layers, self.refine_layers, self.dtype = (layers, refine_layers,
                                                        dtype)
+        self.fused_necks, self.fused_cells = fused_necks, fused_cells
+        fuse = dict(fuse_siblings=fused_cells,
+                    sibling_families=tuple(sibling_families))
         cell_args, self._boundaries, shallow_first = encoder_plan(
             layers, c, encoder, multiplier)
 
@@ -136,8 +156,8 @@ class NPPNet(nn.Module):
         self.stem3 = _Stem(3, c, 2)
         self.stem4 = _Stem(c, 2 * c, 2)
         self.stem5 = _Stem(2 * c, 2 * c, 1, final_relu=False)
-        self.cells1 = nn.ModuleList(Cell(*a) for a in cell_args)
-        self.cells2 = nn.ModuleList(Cell(*a) for a in cell_args)
+        self.cells1 = nn.ModuleList(Cell(*a, **fuse) for a in cell_args)
+        self.cells2 = nn.ModuleList(Cell(*a, **fuse) for a in cell_args)
         # Deep-to-shallow widths [16C, 8C, 4C, 2C].
         nc = shallow_first[::-1]
 
@@ -162,27 +182,34 @@ class NPPNet(nn.Module):
         # skip feature (nc[j+1] wide).
         self.upsamples1 = nn.ModuleList(
             UpsampleCell(decoder.upsample1, decoder.upsample_concat1, nc[j],
-                         nc[j + 1]) for j in range(len(nc) - 1))
+                         nc[j + 1], **fuse) for j in range(len(nc) - 1))
         self.upsamples2 = nn.ModuleList(
             UpsampleCell(decoder.upsample2, decoder.upsample_concat2, nc[j],
-                         nc[j + 1]) for j in range(len(nc) - 1))
+                         nc[j + 1], **fuse) for j in range(len(nc) - 1))
 
-        # Necks read the 1/4-res concat [f0, f6, up2(f5), up4(f4)].
+        # Necks read the 1/4-res concat [f0, f6, up2(f5), up4(f4)]; fused,
+        # each stream's aux (edge) and main necks are one of 7 * nc[3]
+        # channels, aux first.
         c_cat = 2 * nc[3] + nc[2] + nc[1]
-        self.pose_layer = _Neck(c_cat, 4 * nc[3])
-        self.pose_auxlayer = _Neck(c_cat, 3 * nc[3])
-        self.par_layer = _Neck(c_cat, 4 * nc[3])
-        self.edge_layer = _Neck(c_cat, 3 * nc[3])
+        self._neck_cut = 3 * nc[3]
+        if fused_necks:
+            self.neck1 = _Neck(c_cat, 7 * nc[3])
+            self.neck2 = _Neck(c_cat, 7 * nc[3])
+        else:
+            self.pose_layer = _Neck(c_cat, 4 * nc[3])
+            self.pose_auxlayer = _Neck(c_cat, 3 * nc[3])
+            self.par_layer = _Neck(c_cat, 4 * nc[3])
+            self.edge_layer = _Neck(c_cat, 3 * nc[3])
 
         # Refinement cells: the count the stage indexing needs
         # (npp_tpu/models/augment.py:232-236). Inputs are (3c, 4c, 4c).
         n_cells = 2 * max(refine_layers - 1, 0) + 3
         c_fuse = (3 * nc[3], 4 * nc[3], 4 * nc[3])
         self.pose_net = nn.ModuleList(
-            FusionCell(fusion.pose, fusion.pose_concat, c_fuse, nc[3])
-            for _ in range(n_cells))
+            FusionCell(fusion.pose, fusion.pose_concat, c_fuse, nc[3],
+                       **fuse) for _ in range(n_cells))
         self.par_net = nn.ModuleList(
-            FusionCell(fusion.par, fusion.par_concat, c_fuse, nc[3])
+            FusionCell(fusion.par, fusion.par_concat, c_fuse, nc[3], **fuse)
             for _ in range(n_cells))
 
         n_stages = refine_layers + 1
@@ -274,10 +301,16 @@ class NPPNet(nn.Module):
             resize_scale(features2[4], 4.0, align_corners=True, space=sp),
         ], dim=1)
 
-        input1 = self.pose_auxlayer(x1)
-        input2 = self.edge_layer(x2)
-        input3 = self.pose_layer(x1)
-        input4 = self.par_layer(x2)
+        if self.fused_necks:
+            cut = self._neck_cut
+            y1, y2 = self.neck1(x1), self.neck2(x2)
+            input1, input3 = y1[:, :cut], y1[:, cut:]
+            input2, input4 = y2[:, :cut], y2[:, cut:]
+        else:
+            input1 = self.pose_auxlayer(x1)
+            input2 = self.edge_layer(x2)
+            input3 = self.pose_layer(x1)
+            input4 = self.par_layer(x2)
 
         pose_list = [(self.pose_head[0](input3), self.pose_auxnet[0](input1))]
         par_list = [(self.par_head[0](input4), self.edge_head[0](input2))]
@@ -292,6 +325,160 @@ class NPPNet(nn.Module):
             par_list.append((self.par_head[i](input4),
                              self.edge_head[i](input2)))
         return pose_list, par_list
+
+
+_NECKS = (("neck1", "pose_auxlayer", "pose_layer"),
+          ("neck2", "edge_layer", "par_layer"))
+
+
+def _cat_leaves(state: dict, fused: str, parts: list) -> dict:
+    """Each leaf under the ``parts`` prefixes concatenated along dim 0 (a
+    conv's output channels; a bias's and a BN vector's channels) under
+    ``fused``, the parts' keys dropped. A BN's 0-d batch counter is the
+    first part's."""
+    out = {k: v for k, v in state.items()
+           if not k.startswith(tuple(parts))}
+    for k in state:
+        if k.startswith(parts[0]):
+            suffix = k[len(parts[0]):]
+            leaves = [state[p + suffix] for p in parts]
+            out[fused + suffix] = (leaves[0] if leaves[0].ndim == 0
+                                   else torch.cat(leaves, dim=0))
+    return out
+
+
+def _split_leaves(state: dict, fused: str, parts: list, sizes) -> dict:
+    """The inverse of ``_cat_leaves``: each leaf under ``fused`` split
+    along dim 0 in proportion to ``sizes``."""
+    out = {k: v for k, v in state.items() if not k.startswith(fused)}
+    total = sum(sizes)
+    for k, v in state.items():
+        if not k.startswith(fused):
+            continue
+        suffix = k[len(fused):]
+        if v.ndim == 0:
+            for p in parts:
+                out[p + suffix] = v.clone()
+            continue
+        cuts = [v.shape[0] * s // total for s in sizes]
+        for p, piece in zip(parts, torch.split(v, cuts, dim=0)):
+            out[p + suffix] = piece.clone()
+    return out
+
+
+def fuse_neck_state(state: dict) -> dict:
+    """An NPPNet ``state_dict`` with ``pose_auxlayer`` + ``pose_layer`` ->
+    ``neck1`` and ``edge_layer`` + ``par_layer`` -> ``neck2``, each leaf
+    concatenated along its channel dim, aux first
+    (``npp_tpu/models/augment.py:393-416``)."""
+    for fused, aux, main in _NECKS:
+        if any(k.startswith(aux + ".") for k in state):
+            state = _cat_leaves(state, fused + ".", [aux + ".", main + "."])
+    return state
+
+
+def unfuse_neck_state(state: dict) -> dict:
+    """The exact inverse of ``fuse_neck_state``: split at 3:4."""
+    for fused, aux, main in _NECKS:
+        if any(k.startswith(fused + ".") for k in state):
+            state = _split_leaves(state, fused + ".", [aux + ".", main + "."],
+                                  (3, 4))
+    return state
+
+
+def cell_specs(model: NPPNet) -> dict:
+    """(edges, reduction) of every genotype-compiled cell, by its
+    ``state_dict`` prefix (``npp_tpu/models/augment.py:494-513``)."""
+    cfg = model.config
+    L, enc, dec, fus = (cfg["layers"], cfg["encoder"], cfg["decoder"],
+                        cfg["fusion"])
+    reductions = {L // 4, 2 * L // 4, 3 * L // 4}
+    specs = {}
+    for i in range(L):
+        red = i in reductions
+        for stream in ("cells1", "cells2"):
+            specs[f"{stream}.{i}"] = (enc.reduce if red else enc.normal, red)
+    for j in range(3):
+        specs[f"upsamples1.{j}"] = (dec.upsample1, False)
+        specs[f"upsamples2.{j}"] = (dec.upsample2, False)
+    for k in range(2 * max(cfg["refine_layers"] - 1, 0) + 3):
+        specs[f"pose_net.{k}"] = (fus.pose, False)
+        specs[f"par_net.{k}"] = (fus.par, False)
+    return specs
+
+
+def _renumber(state: dict, cell: str, moves: dict) -> dict:
+    """``{cell}.ops.{a}.*`` -> ``{cell}.ops.{b}.*`` for a -> b in moves."""
+    out = {}
+    for k, v in state.items():
+        head = f"{cell}.ops."
+        if k.startswith(head):
+            a, rest = k[len(head):].split(".", 1)
+            if int(a) in moves:
+                k = f"{head}{moves[int(a)]}.{rest}"
+        out[k] = v
+    return out
+
+
+def fuse_sibling_state(state: dict, model: NPPNet) -> dict:
+    """A standard-layout ``state_dict`` of ``model`` -> the
+    ``fused_cells`` one (``npp_tpu/models/augment.py:516-566``): per cell,
+    each sibling group's edge subtrees concatenated leaf by leaf along dim
+    0 into ``sib.{g}``, the other edges renumbered densely. The groups
+    are those of ``model.config["sibling_families"]``."""
+    families = model.config["sibling_families"]
+    for cell, (edges, red) in cell_specs(model).items():
+        groups = sibling_groups(edges, red, families)
+        for g, (_, es) in enumerate(groups):
+            state = _cat_leaves(state, f"{cell}.sib.{g}.",
+                                [f"{cell}.ops.{e}." for e in es])
+        grouped = {e for _, es in groups for e in es}
+        rest = [e for e in range(len(edges)) if e not in grouped]
+        state = _renumber(state, cell, {e: j for j, e in enumerate(rest)})
+    return state
+
+
+def unfuse_sibling_state(state: dict, model: NPPNet) -> dict:
+    """The exact inverse of ``fuse_sibling_state``."""
+    families = model.config["sibling_families"]
+    for cell, (edges, red) in cell_specs(model).items():
+        groups = sibling_groups(edges, red, families)
+        grouped = {e for _, es in groups for e in es}
+        rest = [e for e in range(len(edges)) if e not in grouped]
+        state = _renumber(state, cell, {j: e for j, e in enumerate(rest)})
+        for g, (_, es) in enumerate(groups):
+            state = _split_leaves(state, f"{cell}.sib.{g}.",
+                                  [f"{cell}.ops.{e}." for e in es],
+                                  (1,) * len(es))
+    return state
+
+
+def fused_twin(model: NPPNet, *, fused_necks: bool,
+               fused_cells: bool) -> NPPNet:
+    """A new NPPNet in the given layout holding ``model``'s weights and
+    statistics (standard or fused, on its device, in its mode, memory
+    format and dtype), through the state transforms. ``model`` is left
+    as it is."""
+    cfg = model.config
+    state = model.state_dict()
+    if cfg["fused_cells"] and not fused_cells:
+        state = unfuse_sibling_state(state, model)
+    if cfg["fused_necks"] and not fused_necks:
+        state = unfuse_neck_state(state)
+    with torch.device("meta"):
+        twin = NPPNet(**{**cfg, "fused_necks": fused_necks,
+                         "fused_cells": fused_cells})
+    if fused_necks and not cfg["fused_necks"]:
+        state = fuse_neck_state(state)
+    if fused_cells and not cfg["fused_cells"]:
+        state = fuse_sibling_state(state, twin)
+    weight = next(p for p in model.parameters() if p.ndim == 4)
+    twin = twin.to_empty(device=weight.device).to(weight.dtype)
+    twin.load_state_dict(state)
+    if weight.is_contiguous(memory_format=torch.channels_last):
+        twin = twin.to(memory_format=torch.channels_last)
+    twin.dtype = model.dtype
+    return twin.train(model.training)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -133,36 +133,41 @@ def cut_threshold(two_sig2: float) -> float:
     return float(t_f)
 
 
-def _nvcc() -> str:
+def _nvcc(source: Path) -> str:
     found = shutil.which("nvcc")
     if found:
         return found
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the heatmap kernel is built from "
-                       f"{_CSRC} with the CUDA toolkit's nvcc")
+    raise RuntimeError(f"nvcc not found: the kernel is built from {source} "
+                       f"with the CUDA toolkit's nvcc")
 
 
-def build_kernels() -> tuple[Path, str]:
-    """Compile ``csrc/render_heatmaps.cu`` into a shared library under
-    ``BUILD_DIR`` (named by a hash of the source and flags, so an edit
-    rebuilds). Returns (library path, compiler output; empty when the
-    library was already built). Raises on a failed build."""
-    src = _CSRC.read_bytes()
+def nvcc_build(source: Path, stem: str) -> tuple[Path, str]:
+    """Compile the CUDA ``source`` into a shared library under
+    ``BUILD_DIR``, ``<stem>_<hash>.so`` (the hash of the source and flags,
+    so an edit rebuilds). Returns (library path, compiler output; empty
+    when the library was already built). Raises on a failed build."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"librender_heatmaps_{tag[:16]}.so"
+    out = BUILD_DIR / f"{stem}_{tag[:16]}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC)]
+    cmd = [_nvcc(source), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                            f"\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
+
+
+def build_kernels() -> tuple[Path, str]:
+    """``csrc/render_heatmaps.cu`` through ``nvcc_build``."""
+    return nvcc_build(_CSRC, "librender_heatmaps")
 
 
 def _library() -> ctypes.CDLL:

@@ -25,7 +25,9 @@ strided ``Zero``, ``PooledConv``'s resizes) run on H-sharded rows when
 that read channels other than through a conv or a BN module
 (``SEBlock``'s product, ``FactorizedReduce``'s concatenation) run on a
 channel block when ``parallel.tensor.convert_tensor_parallel`` gives them
-a ``tp``; with ``tp`` None they are unchanged too.
+a ``tp``; with ``tp`` None they are unchanged too. Every dense conv
+(groups 1) serves in int8 once ``ops/quantize.prepare_int8`` has made it
+an ``Int8Conv2d``; grouped and depthwise convs stay floating point.
 """
 from __future__ import annotations
 
@@ -189,10 +191,12 @@ class FactorizedReduce(nn.Module):
         """Both branches with the convs' own arithmetic: output row o reads
         input rows 2o and 2o + 1 (one window of 2 rows at stride 2). On a
         channel block each branch is gathered whole: the concatenation of
-        two blocks is not the BN's block."""
+        two blocks is not the BN's block. ``_conv_forward`` is the conv
+        alone, without a sharded conv's input handling; for an int8 conv
+        (``ops/quantize.prepare_int8``) it is the int8 route."""
         c0, c1 = self.Conv_0, self.Conv_1
-        y0 = F.conv2d(x, c0.weight, c0.bias, 2)
-        y1 = F.conv2d(x[:, :, 1:, 1:], c1.weight, c1.bias, 2)
+        y0 = c0._conv_forward(x, c0.weight, c0.bias)
+        y1 = c1._conv_forward(x[:, :, 1:, 1:], c1.weight, c1.bias)
         if self.tp is not None:
             y0 = self.tp.whole(y0, c0.out_channels)
             y1 = self.tp.whole(y1, c1.out_channels)

@@ -391,6 +391,21 @@ def _known_modules() -> tuple:
             P.PooledConv, nn.Conv2d, nn.BatchNorm2d, nn.ModuleList)
 
 
+def refuse_serving_layouts(model: nn.Module, what: str, *,
+                           fused_necks: bool = False) -> None:
+    """Raise if ``model`` serves in int8 (``ops/quantize.prepare_int8``)
+    or in the fused sibling-cell layout (or, unless ``fused_necks``, the
+    fused-neck one): ``what`` does not split those over a grid."""
+    from npp_tpu_torch.ops.quantize import is_int8
+    if is_int8(model):
+        raise ValueError(f"{what}: the int8 serving layout runs unsharded; "
+                         f"split the fp model, not a prepared one")
+    if getattr(model, "fused_cells", False) or (
+            getattr(model, "fused_necks", False) and not fused_necks):
+        raise ValueError(f"{what}: the fused serving layout is not split "
+                         f"over a grid; serve the standard layout")
+
+
 def convert_spatial(model: nn.Module, grid) -> nn.Module:
     """Make ``model`` (NPPNet, or one of its ops) run on this rank's rows
     of its input, in place, on the model of ``sync_bn.convert_sync_bn``:
@@ -411,6 +426,7 @@ def convert_spatial(model: nn.Module, grid) -> nn.Module:
         if model._sharding.grid is not grid:
             raise ValueError("the model is converted for another grid")
         return model
+    refuse_serving_layouts(model, "convert_spatial", fused_necks=True)
     known = _known_modules()
     for m in model.modules():
         if not isinstance(m, known):

@@ -281,7 +281,9 @@ def convert_tensor_parallel(model: nn.Module, grid) -> nn.Module:
             raise ValueError("the model is converted for another grid")
         return model
     from npp_tpu_torch.parallel.spatial import (ShardedConv2d, _known_modules,
+                                                refuse_serving_layouts,
                                                 sharded_conv)
+    refuse_serving_layouts(model, "convert_tensor_parallel")
     known = _known_modules()
     for mod in model.modules():
         if not isinstance(mod, known):

@@ -17,7 +17,9 @@ initial ones, as in the JAX CLI. Data: the val set of a LIP directory
 ``--synthetic``, 2 x ``--batch`` synthetic images, as the JAX CLI's.
 ``--gt-csv`` adds the PCKh table against that LIP pose CSV (of the
 predictions as the LIP pose CSV holds them);
-``--pred-csv`` writes that CSV, ``--json-out`` the metrics as JSON.
+``--pred-csv`` writes that CSV, ``--json-out`` the metrics as JSON;
+``--int8`` runs the forwards with int8 dense convs
+(``make_eval_step(quantize="int8")``).
 LIP only, as the JAX CLI is: it fixes LIP's class weights and flip
 pairs. Under ``python -m torch.distributed.run --nproc_per_node=N`` each
 rank evaluates its strided shard of the set and ``validate`` gathers the
@@ -62,12 +64,14 @@ TINY = LIP.train_config(tiny=True)[0]
 
 
 def evaluate(model, ds, *, batch: int, crop_size, device,
-             pred_csv: str | None = None, gt_csv: str | None = None) -> dict:
+             pred_csv: str | None = None, gt_csv: str | None = None,
+             quantize: str | None = None) -> dict:
     """Flip-TTA validation of ``model`` over the dataset ``ds`` (uint8
     images): the loader renders the targets on ``device`` (the heatmap
     kernel on a card), then ``make_eval_step`` + ``validate`` with the
     initial loss lambdas; ``pred_csv`` writes the LIP pose CSV, and with
-    ``gt_csv`` the PCKh against it is added."""
+    ``gt_csv`` the PCKh against it is added; ``quantize``: as
+    ``make_eval_step``'s."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
                                     num_joints=NUM_JOINTS, ignore=IGNORE,
                                     normalize_images=True)
@@ -76,20 +80,22 @@ def evaluate(model, ds, *, batch: int, crop_size, device,
     step = E.make_eval_step(model, num_classes=NUM_CLASSES,
                             class_weights=LIP.class_weights, flip_test=True,
                             ignore_index=IGNORE, flip_pairs=LIP.flip_pairs,
-                            decode_hw=(crop_size[1], crop_size[0]))
+                            decode_hw=(crop_size[1], crop_size[0]),
+                            quantize=quantize)
     crit = init_criterion_params(model.refine_layers + 1, device)
     return E.validate(step, crit, loader, num_classes=NUM_CLASSES,
                       pred_csv=pred_csv, gt_csv=gt_csv)
 
 
 def evaluate_synthetic(model, *, n: int, batch: int, crop_size, device,
-                       seed: int = 0, pred_csv: str | None = None) -> dict:
+                       seed: int = 0, pred_csv: str | None = None,
+                       quantize: str | None = None) -> dict:
     """``evaluate`` over ``n`` synthetic images drawn from ``seed``."""
     ds = SyntheticDataset(length=n, crop_size=crop_size,
                           num_joints=NUM_JOINTS, num_classes=NUM_CLASSES,
                           seed=seed, device_normalize=True)
     return evaluate(model, ds, batch=batch, crop_size=crop_size,
-                    device=device, pred_csv=pred_csv)
+                    device=device, pred_csv=pred_csv, quantize=quantize)
 
 
 def result_line(result: dict) -> str:
@@ -118,11 +124,12 @@ def run(args, data_root: str | None, device, preset=LIP) -> dict:
         args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
         dtype=getattr(torch, args.dtype), seed=args.seed, preset=preset)
     pred_csv = args.pred_csv or None
+    quantize = "int8" if args.int8 else None
     if data_root is None:
         result = evaluate_synthetic(model, n=2 * args.batch,
                                     batch=args.batch, crop_size=crop,
                                     device=device, seed=args.seed,
-                                    pred_csv=pred_csv)
+                                    pred_csv=pred_csv, quantize=quantize)
     else:
         sample = args.sample or preset.train_config()[1]["num_samples"] or -1
         ds = dataset_for(
@@ -131,7 +138,7 @@ def run(args, data_root: str | None, device, preset=LIP) -> dict:
             **preset.reader)
         result = evaluate(model, ds, batch=args.batch, crop_size=crop,
                           device=device, pred_csv=pred_csv,
-                          gt_csv=args.gt_csv or None)
+                          gt_csv=args.gt_csv or None, quantize=quantize)
     if not mesh.is_primary():
         return result
     print(per_class_table(result["per_class_iou"], result["per_class_acc"]))
@@ -167,6 +174,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "configuration's TRAIN.NUM_SAMPLES, the 5000 "
                         "protocol); --synthetic evaluates 2 x --batch")
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--int8", action="store_true",
+                   help="serve the forwards through int8 dense convs")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),

@@ -12,8 +12,10 @@ arithmetic-coded, 12-bit, CMYK, a turning EXIF orientation). The
 flagship model is built in (bf16 + channels_last on the card);
 ``--cfg`` takes npp_tpu's LIP experiment YAML instead
 (``config.load_preset``; a PPP file is refused), and ``--tiny`` is the
-test one. Not ported: ``--int8`` and the fused layouts
-(``--fuse-necks``, ``--fuse-cells``, ``--no-fuse``).
+test one. As npp_tpu's, it serves the fused-neck and fused sibling-cell
+layouts by default (``--no-fuse-necks``, ``--no-fuse-cells``, or
+``--no-fuse`` for both, serve the standard graph); ``--int8`` serves the
+dense convs in int8 with dynamic activation scales.
 
 Examples:
   python -m npp_tpu_torch.tools.predict --cfg experiments/lip/384_384.yaml \\
@@ -22,6 +24,7 @@ Examples:
       --images demo/ --out preds/
   python -m npp_tpu_torch.tools.predict --synthetic 4 --tiny --device cpu \\
       --dtype float32 --out preds/
+  python -m npp_tpu_torch.tools.predict --synthetic 4 --int8 --no-fuse
 """
 from __future__ import annotations
 
@@ -94,6 +97,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--images", default="", help="image directory or glob")
     p.add_argument("--out", default="predictions")
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--int8", action="store_true",
+                   help="serve the dense convs in int8")
+    p.add_argument("--fuse-necks", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="serve through the fused-neck graph (exact; on by "
+                        "default, as npp_tpu's)")
+    p.add_argument("--fuse-cells", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="merge same-input sibling edges inside cells into "
+                        "K-wide ops (exact; on by default, as npp_tpu's)")
+    p.add_argument("--no-fuse", action="store_true",
+                   help="neither fusion (--no-fuse-necks --no-fuse-cells)")
     p.add_argument("--no-flip", action="store_true", help="no flip TTA")
     p.add_argument("--dark", action="store_true",
                    help="DARK sub-pixel keypoint decode (arXiv:1910.06278)")
@@ -125,6 +140,8 @@ def main(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     pose_scales = (parse_pose_scales(args.pose_scales)
                    if args.pose_scales else (1.0,))
+    if args.no_fuse:
+        args.fuse_necks = args.fuse_cells = False
 
     if args.synthetic:
         names = [f"synthetic_{i:03d}" for i in range(args.synthetic)]
@@ -147,7 +164,10 @@ def main(argv=None) -> dict:
         args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
         dtype=getattr(torch, args.dtype), seed=args.seed, preset=preset)
     pred = Predictor(model, crop_size=size, flip_test=not args.no_flip,
-                     dark_decode=args.dark, pose_scales=pose_scales)
+                     dark_decode=args.dark, pose_scales=pose_scales,
+                     quantize="int8" if args.int8 else None,
+                     fuse_necks=args.fuse_necks, fuse_cells=args.fuse_cells)
+    del model  # the Predictor serves its own twin or copy when it fuses
     os.makedirs(args.out, exist_ok=True)
     parsings, keypoints = [], []
     for name, result in zip(names, pred.predict_stream(

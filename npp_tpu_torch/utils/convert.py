@@ -31,10 +31,23 @@ by ordinal buckets instead):
   ``weight``/``bias``, ``batch_stats`` ``mean``/``var`` ->
   ``running_mean``/``running_var`` (an affine-free BN has only these).
 
-It raises on a flax leaf that maps to no key, on a key no leaf fills
-(BN's ``num_batches_tracked`` counter aside), on a shape mismatch, and on
-merged-stream trees (``vcells_*``, ``vstem_*``), which the port does not
-run. Jax-free: it reads numpy arrays only.
+NPPNet trees in npp_tpu's fused serving layouts (``neck1`` / ``neck2``
+and the cells' ``sib_<g>`` groups, as ``fuse_neck_variables`` and
+``fuse_sibling_variables`` emit them) load by the same rule into a port
+model built in the same layout. So do npp_tpu's int8 collections, into a
+model that ``ops/quantize.prepare_int8`` has prepared: ``qconst``
+``qkernel`` (HWIO int8) -> the conv's ``qweight`` ((Cout, kh * kw * Cin),
+the kernel's order) and ``wscale`` -> ``wscale``, and ``act_scales``
+``scale`` -> the conv's static ``act_scale``. Those are buffers outside
+the ``state_dict``.
+
+A tree of int8 collections alone loads into a model that holds its
+weights already. It raises on a flax leaf that maps to no key, on a key
+no leaf fills (BN's ``num_batches_tracked`` counter aside), on a shape
+mismatch, on an
+int8 leaf for a conv that is not prepared, and on merged-stream trees
+(``vcells_*``, ``vstem_*``), which the port does not run. Jax-free: it
+reads numpy arrays only.
 """
 from __future__ import annotations
 
@@ -46,8 +59,13 @@ import torch.nn as nn
 
 _COMPACT = re.compile(r"^(Conv|BatchNorm|DilConvS)_\d+$")
 _LIST_MEMBER = re.compile(r"^(.+)_(\d+)$")
-_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
-_STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+_TABLES = {
+    "params": {"kernel": "weight", "scale": "weight", "bias": "bias"},
+    "batch_stats": {"mean": "running_mean", "var": "running_var"},
+    "qconst": {"qkernel": "qweight", "wscale": "wscale"},
+    "act_scales": {"scale": "act_scale"},
+}
+_INT8_COLLECTIONS = ("qconst", "act_scales")
 
 
 def _flatten(tree, prefix=()):
@@ -67,7 +85,9 @@ def torch_key(collection: str, path: tuple[str, ...]) -> str:
     *mods, leaf = path
     if collection == "params" and not mods:
         return leaf  # an architecture parameter
-    if leaf in ("kernel", "bias") and len(mods) >= 2 and mods[-1] == "Conv_0":
+    conv_leaf = (leaf in ("kernel", "bias")
+                 or collection in _INT8_COLLECTIONS)
+    if conv_leaf and len(mods) >= 2 and mods[-1] == "Conv_0":
         mods = mods[:-1]  # the JAX Conv wrapper's inner nn.Conv
     names = []
     for m in mods:
@@ -76,10 +96,35 @@ def torch_key(collection: str, path: tuple[str, ...]) -> str:
             names += [hit.group(1), hit.group(2)]
         else:
             names.append(m)
-    table = _PARAM_LEAF if collection == "params" else _STAT_LEAF
-    if collection not in ("params", "batch_stats") or leaf not in table:
+    table = _TABLES.get(collection, {})
+    if leaf not in table:
         raise KeyError(f"unmapped flax leaf {collection}/{'/'.join(path)}")
     return ".".join(names + [table[leaf]])
+
+
+def _load_int8_leaf(model: nn.Module, key: str, value) -> None:
+    """One ``qconst`` / ``act_scales`` leaf into its prepared conv."""
+    from npp_tpu_torch.ops.quantize import Int8Conv2d
+    mod_name, attr = key.rsplit(".", 1)
+    try:
+        conv = model.get_submodule(mod_name)
+    except AttributeError:
+        raise KeyError(f"int8 leaf {key}: no module {mod_name}") from None
+    if not isinstance(conv, Int8Conv2d):
+        raise ValueError(f"int8 leaf {key}: {mod_name} is not prepared "
+                         f"(ops/quantize.prepare_int8)")
+    dev = conv.weight.device
+    if attr == "qweight":
+        arr = np.asarray(value).astype(np.int8)
+        arr = arr.transpose(3, 0, 1, 2).reshape(arr.shape[3], -1)
+    else:
+        arr = np.asarray(value, np.float32)
+    new = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    old = getattr(conv, attr)
+    if old is not None and tuple(old.shape) != tuple(new.shape):
+        raise ValueError(f"{key}: flax shape {arr.shape} != torch shape "
+                         f"{tuple(old.shape)}")
+    setattr(conv, attr, new)
 
 
 def load_npz(path: str) -> dict:
@@ -205,6 +250,9 @@ def load_jax_variables(model: nn.Module, variables_np: dict,
     for collection in variables_np:
         for path, value in _flatten(variables_np[collection]):
             key = torch_key(collection, path)
+            if collection in _INT8_COLLECTIONS:
+                _load_int8_leaf(model, key, value)
+                continue
             if key not in state:
                 raise KeyError(f"unmapped flax leaf "
                                f"{collection}/{'/'.join(path)} -> {key}")
@@ -219,7 +267,7 @@ def load_jax_variables(model: nn.Module, variables_np: dict,
             filled.add(key)
     missing = [k for k in state
                if k not in filled and not k.endswith("num_batches_tracked")]
-    if missing:
+    if missing and set(variables_np) - set(_INT8_COLLECTIONS):
         raise KeyError(f"{len(missing)} state_dict keys have no flax leaf, "
                        f"e.g. {missing[:5]}")
     return model

@@ -5,9 +5,9 @@ Checked in a fresh interpreter, because this test process has imported
 jax already (tests/conftest.py). Importing also builds nothing: neither
 the heatmap kernel nor the readers' host library. The search,
 serving, PPP / chain, LIP reader, PPP reader / fused-warp,
-data-parallel, spatial and tensor-parallel slices' modules are also
-imported each on its own, so that none of them leans on another module
-having been imported first.
+data-parallel, spatial, tensor-parallel and serving-layout slices'
+modules are also imported each on its own, so that none of them leans on
+another module having been imported first.
 """
 import os
 import subprocess
@@ -25,11 +25,13 @@ mods = [m.name for m in pkgutil.walk_packages(npp_tpu_torch.__path__,
                                               "npp_tpu_torch.")]
 for name in mods + ["chip_smoke"]:
     importlib.import_module(name)
-from npp_tpu_torch.ops import heatmaps
+from npp_tpu_torch.ops import heatmaps, quantize
 from npp_tpu_torch.data import imgproc
 assert not heatmaps._LIBRARY, "importing built the kernel"
+assert not quantize._LIBRARY, "importing built the int8 kernel"
 assert not imgproc._LIBRARY, "importing built the host library"
 assert heatmaps.render_heatmaps.launches == 0
+assert quantize.conv_s8.launches == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
                                     "PIL", "yaml", "npp_tpu"))
@@ -66,6 +68,10 @@ PARALLEL_MODULES = ("npp_tpu_torch.parallel.mesh",
                     "npp_tpu_torch.parallel.zero",
                     "npp_tpu_torch.parallel.spatial",
                     "npp_tpu_torch.parallel.tensor")
+LAYOUT_MODULES = ("npp_tpu_torch.ops.quantize",
+                  "npp_tpu_torch.models.cells",
+                  "npp_tpu_torch.models.augment",
+                  "npp_tpu_torch.utils.convert")
 
 
 def _run(code: str) -> str:
@@ -84,7 +90,8 @@ def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
 
 @pytest.mark.parametrize("module",
                          SEARCH_MODULES + SERVE_MODULES + PPP_MODULES
-                         + LIP_MODULES + DATA_MODULES + PARALLEL_MODULES)
+                         + LIP_MODULES + DATA_MODULES + PARALLEL_MODULES
+                         + LAYOUT_MODULES)
 def test_search_module_imports_alone_without_jax(module):
     bad = _run(f"import importlib, sys\n"
                f"importlib.import_module({module!r})\n"
