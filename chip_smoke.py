@@ -4,8 +4,9 @@
 
 Builds the port's hand-written CUDA kernels from the sources in this
 checkout (one nvcc each, side by side), checks the heatmap kernel
-against its plain PyTorch version on the card (the int8 conv is checked
-in phase 20, on the activations of the flagship forward), then
+against its plain PyTorch version on the card (the int8 conv and the
+activation quantize are checked in phase 20, on the activations of the
+flagship forward), then
 drives the port's three paths with random weights from a seed on
 synthetic data: at the flagship's width (L=16, C=64, 384x384) the NPPNet
 flip-TTA evaluation (16 images at batch 8, loader -> heatmap kernel ->
@@ -43,7 +44,9 @@ parity reader, the flagship train step fed by it, the train CLI with
 ``--fast-aug``). Any failure raises, so the exit code is non-zero;
 without CUDA it exits non-zero before printing any result.
 
-Phases: 1 device, 2 build both kernels, 3 the heatmap kernel vs its
+Phases: 1 device, 2 build the three kernel libraries (the heatmap
+kernel, the int8 conv, the activation quantize; each build's seconds),
+3 the heatmap kernel vs its
 plain version (twelve shapes) and
 the device time of both by many launches, beside the kernel's bound, at
 the eval, the train, the search, the PPP train and the PPP search
@@ -102,14 +105,20 @@ bytes a rank holds beside the unconverted model's), 20 (run right after
 11, on its model and images) npp_tpu's serving layouts: 20a the int8
 conv kernel against its plain version (int32 accumulators and outputs,
 max |diff| 0.0) at every dense-conv shape class of the unfused and fused
-int8 flagship forwards at bs8, each class timed beside its bound, the
-``torch._int_mm`` yardstick and the bf16 cuDNN conv; 20b the Predictor
+int8 flagship forwards at bs8, each class's plan variant named (every
+variant run at least once), each class timed beside its bound, the
+``torch._int_mm`` yardstick and the bf16 cuDNN conv; and the activation
+quantize kernel against its plain version (q and the scale, bit for
+bit, dynamic and static) on each class's real input, timed beside its
+bytes bound and ``torch.quantize_per_tensor``; 20b the Predictor
 unfused and with fused necks + cells (in turns), int8 dynamic and int8
 calibrated: img/s, device operations, busy, idle, peak, fused against
 unfused labels in fp32 (>= 0.999) and int8 against bf16 (no bar); 20c
 the predict CLI with its fused defaults and ``--int8``, and ``eval_lip
---synthetic --int8``; the int8 kernel's launches by path (> 0 on the
-int8 paths, 0 on every fp path).
+--synthetic --int8``; the int8 kernels' launches by path: on the int8
+paths one quantize launch per conv launch, and one absmax launch per
+conv launch with dynamic scales (none with static ones), none of the
+three on any fp path.
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -274,6 +283,13 @@ COLD_RING = 8              # calls whose outputs stay referenced: 8 x 10 MB > 50
 # Phase 20: npp_tpu's serving layouts at the flagship width.
 INT8_CALLS = 40          # timed calls per shape class (cold L2 ring as phase 3)
 INT8_PLAIN_CALLS = 10    # the plain version's (its float64 conv is slow)
+INT8_LIB_CALLS = 20      # a yardstick's: _int_mm, cuDNN, quantize_per_tensor
+# One unfused flagship int8 forward at bs8 through the int8 conv's first
+# design (mma.sync, 128 x 64 tiles, one shared stage), NVIDIA H100 80GB
+# HBM3 at 700 W: the sum that phase 20a prints the redesign's beside.
+MMA_SYNC_FORWARD_MS = "21.09-21.16"
+# Each variant of the conv's plan runs at least once in phase 20a.
+INT8_VARIANTS = ("wgmma", "wgmma_tma", "wgmma split-K", "packed", "tiny_m")
 COLD_BYTES = 64 * 2**20  # input copies cycled per class: > the 50 MB L2
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
 CALIB_IMAGES = 16        # images of the int8 calibration
@@ -319,6 +335,19 @@ def device_us(fn, calls: int = TIMED_CALLS) -> tuple[float, bool]:
     queued = not start.query()
     end.synchronize()
     return start.elapsed_time(end) * 1e3 / calls, queued
+
+
+def queued_device_us(fn, calls: int, what: str) -> float:
+    """``device_us`` of a kernel's calls, which must all be queued behind
+    the sleep (else host time is in the number): up to three tries, since
+    a host that stalls once (the machine's other processes) can overrun
+    the sleep."""
+    for _ in range(3):
+        us, queued = device_us(fn, calls)
+        if queued:
+            return us
+    raise AssertionError(f"phase 20a: the timed {what} calls were not all "
+                         f"queued behind the sleep in three tries")
 
 
 def bound_us(b: int, j: int, gy: int, gx: int) -> tuple[float, str]:
@@ -1230,8 +1259,9 @@ def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> tuple:
 def int8_classes(model, x) -> dict:
     """The dense-conv shape classes of one int8 forward of ``model`` (a
     prepared NPPNet) on ``x``: (input shape, weight shape, geometry, bias,
-    output dtype) -> [the operands of its first call, the geometry, calls
-    in the forward]. ``quantize.int8_conv`` is wrapped for the forward."""
+    output dtype) -> [the conv operands of its first call, the geometry,
+    calls in the forward, that call's activation and static scale].
+    ``quantize.int8_conv`` is wrapped for the forward."""
     seen = {}
     orig = Q.int8_conv
 
@@ -1244,7 +1274,7 @@ def int8_classes(model, x) -> dict:
                kw["dilation"], conv.bias is not None,
                str(kw["out_dtype"]).replace("torch.", ""))
         if key not in seen:
-            seen[key] = [args, kw, 0]
+            seen[key] = [args, kw, 0, x, act_scale]
         seen[key][2] += 1
         return Q.conv_s8(*args, **kw)
 
@@ -1306,14 +1336,84 @@ def int8_bound_us(key, out_bytes: int) -> tuple[float, float]:
             2 * m * cout * k / INT8_OPS_PER_S * 1e6)
 
 
+def variant_kind(plan) -> str:
+    """The plan's variant as INT8_VARIANTS names it."""
+    if plan.variant in ("wgmma", "wgmma_tma") and plan.splits > 1:
+        return "wgmma split-K"
+    return plan.variant
+
+
+def check_quantize(x, act_scale) -> dict:
+    """Phase 20a's quantize check at one class's real input ``x``: the
+    kernel's q and scale against the plain version's, dynamic and static
+    (the class's static scale where it has one, else half the dynamic
+    one, so that some values clip), bit for bit; then the device time of
+    the dynamic (absmax + quantize) and static (quantize) launches, the
+    plain version's, and ``torch.quantize_per_tensor``'s (a yardstick: a
+    reciprocal multiply and a clip at -128, not the same function), beside
+    the bytes bound (x read once, int8 written once)."""
+    q_d, s_d = Q.quantize_act(x)
+    r_d, rs_d = Q.quantize_act_reference(x)
+    static = (act_scale if act_scale is not None else rs_d * 0.5)
+    q_s, s_s = Q.quantize_act(x, static)
+    r_s, rs_s = Q.quantize_act_reference(x, static)
+    torch.cuda.synchronize()
+    nhwc = q_d.permute(0, 2, 3, 1).is_contiguous()
+    err = max((q_d.int() - r_d.int()).abs().max().item(),
+              (q_s.int() - r_s.int()).abs().max().item(),
+              abs(s_d.item() - rs_d.item()), abs(s_s.item() - rs_s.item()))
+    same = (torch.equal(q_d, r_d) and torch.equal(q_s, r_s)
+            and torch.equal(s_d.reshape(()), rs_d.reshape(()))
+            and torch.equal(s_s.reshape(()), rs_s.reshape(())))
+    if not (same and nhwc):
+        raise AssertionError(f"phase 20a: the quantize kernel disagrees with "
+                             f"its plain version at {tuple(x.shape)} "
+                             f"(max |diff| {err}, NHWC {nhwc})")
+    clipped = int((r_s.abs() == 127).sum())
+    del q_d, r_d, q_s, r_s
+    nbytes = x.numel() * x.element_size()
+    xs = cold_copies(x, min(64, -(-COLD_BYTES // max(nbytes, 1))))
+    d_us = queued_device_us(lambda: Q.quantize_act(next(xs)), INT8_CALLS,
+                            "dynamic quantize")
+    s_us = queued_device_us(lambda: Q.quantize_act(next(xs), static),
+                            INT8_CALLS, "static quantize")
+    p_us, _ = device_us(lambda: Q.quantize_act_reference(next(xs)),
+                        INT8_PLAIN_CALLS)
+    scale = float(rs_s)
+    try:
+        torch.quantize_per_tensor(x, scale, 0, torch.qint8)
+        yard_x = "its input"
+    except RuntimeError:  # no bf16 kernel: the yardstick reads a float32 copy
+        xs = cold_copies(x.float(), min(64, -(-COLD_BYTES // max(
+            4 * x.numel(), 1))))
+        yard_x = "a float32 copy"
+    l_us, _ = device_us(lambda: torch.quantize_per_tensor(
+        next(xs), scale, 0, torch.qint8), INT8_LIB_CALLS)
+    del xs
+    layout = ("channels_last" if x.is_contiguous(
+        memory_format=torch.channels_last) else "nchw")
+    return dict(quant_dynamic_us=d_us, quant_static_us=s_us,
+                quant_plain_us=p_us, quant_library_us=l_us,
+                quant_bound_us=(nbytes + x.numel()) / HBM_BYTES_PER_S * 1e6,
+                quant_err=err, quant_layout=layout, quant_clipped=clipped,
+                quant_library_input=yard_x)
+
+
 def check_int8_kernel(classes: dict, tag: str) -> dict:
-    """Phase 20a: at every shape class, the kernel's int32 accumulators
-    and outputs against its plain version's (max |diff| must be 0.0), and
-    the device time per call of the kernel, its plain version, the
-    library's ``_int_mm`` yardstick and the bf16 cuDNN conv of the same
-    shape, beside the bound."""
-    rows, worst = [], 0.0
-    for key, ((q_x, qw, ws, a_s, bias), kw, count) in classes.items():
+    """Phase 20a: at every shape class, the conv kernel's int32
+    accumulators and outputs against its plain version's (max |diff| must
+    be 0.0), and the device time per call of the kernel, its plain
+    version, the library's ``_int_mm`` yardstick and the bf16 cuDNN conv
+    of the same shape, beside the bound; then the quantize kernel on the
+    class's real input (``check_quantize``)."""
+    rows, worst, kinds = [], 0.0, collections.Counter()
+    for key, ((q_x, qw, ws, a_s, bias), kw, count, x,
+              act_scale) in classes.items():
+        n, cin, h, w = q_x.shape
+        plan = Q._conv_plan(n, h, w, cin, qw.shape[0], kw["kernel_size"],
+                            kw["stride"], kw["padding"], kw["dilation"],
+                            sms=Q._sm_count(q_x.device))
+        kinds[variant_kind(plan)] += 1
         ref_kw = dict(kw, out_dtype=torch.int32)
         acc_k = Q.conv_s8(q_x, qw, ws, a_s, bias, **ref_kw)
         acc_p = Q.conv_s8_reference(q_x, qw, ws, a_s, bias, **ref_kw)
@@ -1329,11 +1429,11 @@ def check_int8_kernel(classes: dict, tag: str) -> dict:
                                         acc_k.shape[0], -1, acc_k.shape[1])))
         worst = max(worst, err_acc, err_out)
         if not (err_acc == 0.0 and err_out == 0.0):
-            raise AssertionError(f"phase 20a: the int8 kernel disagrees with "
-                                 f"its plain version at {key}: accumulators "
-                                 f"{err_acc}, outputs {err_out}")
+            raise AssertionError(f"phase 20a: the int8 kernel ({plan.name}) "
+                                 f"disagrees with its plain version at {key}"
+                                 f": accumulators {err_acc}, outputs "
+                                 f"{err_out}")
         kh, kwid = kw["kernel_size"]
-        cin = q_x.shape[1]
         w_bf16 = (qw.reshape(-1, kh, kwid, cin).permute(0, 3, 1, 2)
                   .to(torch.bfloat16)
                   .contiguous(memory_format=torch.channels_last))
@@ -1344,48 +1444,62 @@ def check_int8_kernel(classes: dict, tag: str) -> dict:
         xs = cold_copies(q_x, n_copies)
         xs_bf16 = cold_copies(q_x.to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last), n_copies)
-        k_us, queued = device_us(lambda: Q.conv_s8(next(xs), qw, ws, a_s,
-                                                   bias, **kw), INT8_CALLS)
-        if not queued:
-            raise AssertionError("phase 20a: the timed kernel calls were "
-                                 "not all queued behind the sleep")
+        k_us = queued_device_us(lambda: Q.conv_s8(next(xs), qw, ws, a_s,
+                                                  bias, **kw), INT8_CALLS,
+                                "int8 conv")
         p_us, _ = device_us(lambda: Q.conv_s8_reference(
             next(xs), qw, ws, a_s, bias, **kw), INT8_PLAIN_CALLS)
         l_us, _ = device_us(lambda: int_mm_conv(next(xs), qw, ws, a_s, bias,
-                                                **kw), INT8_CALLS)
+                                                **kw), INT8_LIB_CALLS)
         c_us, _ = device_us(lambda: F.conv2d(
             next(xs_bf16), w_bf16, b_bf16, kw["stride"], kw["padding"],
-            kw["dilation"]), INT8_CALLS)
+            kw["dilation"]), INT8_LIB_CALLS)
         del xs, xs_bf16
         t_bytes, t_ops = int8_bound_us(key, out_k.element_size())
         b_us = max(t_bytes, t_ops)
+        quant = check_quantize(x, act_scale)
+        worst = max(worst, quant["quant_err"])
         rows.append(dict(
-            shape=json.loads(class_key(key)),
+            shape=json.loads(class_key(key)), variant=plan.name,
             calls_per_forward=count, device_us=k_us, plain_us=p_us,
             library_us=l_us, cudnn_bf16_us=c_us, bound_us=b_us,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes_us=t_bytes, operations_us=t_ops,
-            share_of_bound=b_us / k_us, library_equal=lib_same))
+            share_of_bound=b_us / k_us, library_equal=lib_same, **quant))
         print(f"phase 20a: int8 conv x{tuple(key[0])} w{tuple(key[1])} "
               f"k{key[2]} s{key[3]} p{key[4]} d{key[5]} bias={key[6]} "
-              f"{key[7]} (x{count} a forward): max|diff| acc {err_acc} out "
-              f"{err_out}; kernel {k_us:.3f} us, plain {p_us:.3f}, _int_mm "
-              f"{l_us:.3f} (equal accumulators {lib_same}), bf16 cuDNN "
-              f"{c_us:.3f}; bound {b_us:.3f} us ({rows[-1]['bound_by']}), "
-              f"share {b_us / k_us:.4f} {tag}")
+              f"{key[7]} (x{count} a forward), {plan.name} grid "
+              f"{plan.grid}: max|diff| acc {err_acc} out {err_out}; kernel "
+              f"{k_us:.3f} us, plain {p_us:.3f}, _int_mm {l_us:.3f} (equal "
+              f"accumulators {lib_same}), bf16 cuDNN {c_us:.3f}; bound "
+              f"{b_us:.3f} us ({rows[-1]['bound_by']}), share "
+              f"{b_us / k_us:.4f}; quantize ({quant['quant_layout']} "
+              f"{x.dtype}, bit for bit, {quant['quant_clipped']} clipped "
+              f"static): dynamic {quant['quant_dynamic_us']:.3f} us, static "
+              f"{quant['quant_static_us']:.3f}, plain "
+              f"{quant['quant_plain_us']:.3f}, quantize_per_tensor "
+              f"{quant['quant_library_us']:.3f}, bound "
+              f"{quant['quant_bound_us']:.3f} {tag}")
         del acc_k, acc_p, out_k, out_p, lib, w_bf16
-    return dict(rows=rows, max_abs_err=worst)
+    missing = [v for v in INT8_VARIANTS if not kinds[v]]
+    if missing:
+        raise AssertionError(f"phase 20a: no class ran the plan's {missing}")
+    return dict(rows=rows, max_abs_err=worst, variants=dict(kinds))
+
+
+SUMMED = ("device_us", "plain_us", "library_us", "cudnn_bf16_us", "bound_us",
+          "bytes_us", "operations_us", "quant_dynamic_us", "quant_static_us",
+          "quant_plain_us", "quant_library_us", "quant_bound_us")
 
 
 def per_forward(rows, counts) -> dict:
-    """The kernel's, plain version's, library's, cuDNN's and bound's time
-    summed over one forward's calls (``counts``: shape class -> calls)."""
+    """The kernels', plain versions', yardsticks' and bounds' time summed
+    over one forward's calls (``counts``: shape class -> calls)."""
     by = {json.dumps(r["shape"]): r for r in rows}
     tot = collections.Counter()
     for key, n in counts.items():
         r = by[key]
-        for f in ("device_us", "plain_us", "library_us", "cudnn_bf16_us",
-                  "bound_us", "bytes_us", "operations_us"):
+        for f in SUMMED:
             tot[f] += n * r[f]
         tot["calls"] += n
     return dict(tot)
@@ -1404,11 +1518,11 @@ def serve_layout(pred, ims) -> dict:
     pred.predict_batch(ims[:SERVE_BATCH])  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    Q.conv_s8.launches = 0
+    reset_int8_counts()
     t0 = time.perf_counter()
     results = list(pred.predict_stream(iter(ims), batch_size=SERVE_BATCH))
     stream_s = time.perf_counter() - t0
-    launches = Q.conv_s8.launches
+    launches = int8_counts()
     peak = torch.cuda.max_memory_allocated()
     if len(results) != len(ims) or not all(
             np.isfinite(r["keypoints"]).all() for r in results):
@@ -1422,6 +1536,36 @@ def serve_layout(pred, ims) -> dict:
                 peak_gib=peak / 2**30,
                 idle_share=1.0 - prof["busy_ms"] / (batch_s * 1e3),
                 int8_launches=launches, results=results, **prof)
+
+
+def reset_int8_counts() -> None:
+    Q.conv_s8.launches = 0
+    Q.quantize_act.launches = 0
+    Q.act_absmax.launches = 0
+
+
+def int8_counts() -> dict:
+    """The int8 kernels' launches since ``reset_int8_counts``: the conv,
+    the quantize launch, the absmax launch."""
+    return dict(conv=Q.conv_s8.launches, quantize=Q.quantize_act.launches,
+                absmax=Q.act_absmax.launches)
+
+
+def check_int8_counts(path: str, got: dict, scale: str | None) -> None:
+    """The launch rule of ``path``: none of the three on an fp path
+    (``scale`` None); on an int8 path at least one conv, one quantize per
+    conv, and one absmax per conv with dynamic scales, none with static
+    ones."""
+    if scale is None:
+        ok = not any(got.values())
+    else:
+        ok = (got["conv"] > 0 and got["quantize"] == got["conv"]
+              and got["absmax"] == (got["conv"] if scale == "dynamic"
+                                    else 0))
+    if not ok:
+        raise AssertionError(f"the {path} path's int8 launches {got} break "
+                             f"the rule for "
+                             f"{scale or 'an fp path (none)'}")
 
 
 def agreement(got: list, ref: list, unique=None) -> dict:
@@ -1448,11 +1592,10 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
     device operations, busy, idle and peak, fused against unfused in fp32
     and int8 against bf16; 20c the predict CLI (its fused default and
     ``--int8``) and ``eval_lip --synthetic --int8``. Returns (its numbers,
-    the int8 kernel's entry of the kernels line)."""
+    the int8 conv's and the quantize kernel's entries of the kernels
+    line)."""
     model, base, ims = ctx["model"], ctx["pred"], ctx["ims"]
-    if Q.conv_s8.launches != 0:
-        raise AssertionError("an fp path of phases 3-11 launched the int8 "
-                             "kernel")
+    check_int8_counts("phases 3-11", int8_counts(), None)
     # 20a: the shape classes of both int8 forwards, from real activations.
     canv = torch.from_numpy(np.stack([base.preprocess(im)[0]
                                       for im in ims[:SERVE_BATCH]]))
@@ -1467,27 +1610,37 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
     fused_counts = {class_key(k): v[2] for k, v in fused_classes.items()}
     merged = dict(fused_classes)
     merged.update(classes)
-    print(f"phase 20a: {len(classes)} dense-conv shape classes in the unfused int8 forward at bs"
-          f"{SERVE_BATCH} ({sum(counts.values())} calls), {len(fused_classes)}"
-          f" in the fused one ({sum(fused_counts.values())} calls), "
-          f"{len(merged)} in all; timing: CUDA events around {INT8_CALLS} "
-          f"calls queued behind a torch.cuda._sleep, the outputs of the last "
-          f"{COLD_RING} kept referenced, each call on another of up to 64 "
-          f"copies of the input ({COLD_BYTES >> 20} MiB of them) {tag}")
+    print(f"phase 20a: {len(classes)} dense-conv shape classes in the "
+          f"unfused int8 forward at bs{SERVE_BATCH} "
+          f"({sum(counts.values())} calls), {len(fused_classes)} in the "
+          f"fused one ({sum(fused_counts.values())} calls), {len(merged)} in "
+          f"all; timing: CUDA events around {INT8_CALLS} calls of a kernel "
+          f"({INT8_PLAIN_CALLS} of a plain version, {INT8_LIB_CALLS} of a "
+          f"yardstick) queued behind a torch.cuda._sleep, the outputs of the "
+          f"last {COLD_RING} kept referenced, each call on another of up to "
+          f"64 copies of the input ({COLD_BYTES >> 20} MiB of them) {tag}")
     kernel = check_int8_kernel(merged, tag)
     del merged, classes, fused_classes
     one = per_forward(kernel["rows"], counts)
     one_fused = per_forward(kernel["rows"], fused_counts)
     print(f"phase 20a: per unfused int8 forward at bs{SERVE_BATCH} "
-          f"({one['calls']} calls): kernel {one['device_us'] / 1e3:.4f} ms, "
-          f"plain {one['plain_us'] / 1e3:.4f}, _int_mm "
-          f"{one['library_us'] / 1e3:.4f}, bf16 cuDNN "
+          f"({one['calls']} calls): conv kernel "
+          f"{one['device_us'] / 1e3:.4f} ms (the mma.sync design: "
+          f"{MMA_SYNC_FORWARD_MS} ms), plain {one['plain_us'] / 1e3:.4f}, "
+          f"_int_mm {one['library_us'] / 1e3:.4f}, bf16 cuDNN "
           f"{one['cudnn_bf16_us'] / 1e3:.4f}, bound "
           f"{one['bound_us'] / 1e3:.4f} ms (bytes {one['bytes_us'] / 1e3:.4f}"
           f", operations {one['operations_us'] / 1e3:.4f}); fused forward "
-          f"({one_fused['calls']} calls): kernel "
+          f"({one_fused['calls']} calls): conv kernel "
           f"{one_fused['device_us'] / 1e3:.4f} ms, bound "
-          f"{one_fused['bound_us'] / 1e3:.4f} ms {tag}")
+          f"{one_fused['bound_us'] / 1e3:.4f} ms; plan variants over the "
+          f"classes {kernel['variants']} {tag}")
+    print(f"phase 20a: quantize per unfused int8 forward: dynamic (absmax + "
+          f"quantize) {one['quant_dynamic_us'] / 1e3:.4f} ms, static "
+          f"{one['quant_static_us'] / 1e3:.4f} ms, plain version (dynamic) "
+          f"{one['quant_plain_us'] / 1e3:.4f} ms, quantize_per_tensor "
+          f"{one['quant_library_us'] / 1e3:.4f} ms, bytes bound "
+          f"{one['quant_bound_us'] / 1e3:.4f} ms {tag}")
 
     # 20b: the layouts, unfused and fused in turns (unfused, fused, fused,
     # unfused: the host clock drifts between calls), then int8.
@@ -1502,8 +1655,9 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
             runs[name] = pred_q
         got = serve_layout(runs[name], ims)
         results.setdefault(name, got.pop("results"))
-        launches[f"serve_{name}"] = max(launches.get(f"serve_{name}", 0),
-                                        got["int8_launches"])
+        check_int8_counts(f"serve_{name}", got["int8_launches"],
+                          name[5:] if name.startswith("int8") else None)
+        launches[f"serve_{name}"] = got["int8_launches"]
         if name in layouts:  # the second of a pair: both runs kept
             layouts[name]["img_per_s_runs"].append(got["img_per_s"])
             layouts[name]["busy_ms_runs"].append(got["busy_ms"])
@@ -1515,8 +1669,8 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
               f"{serve['img_per_s']:.3f}); one profiled batch: "
               f"{got['kernels']} device operations, busy "
               f"{got['busy_ms']:.3f} ms, idle {got['idle_share']:.3f}; peak "
-              f"{got['peak_gib']:.3f} GiB; int8 kernel launches over the "
-              f"stream {got['int8_launches']}; top {got['top'][:4]} {tag}")
+              f"{got['peak_gib']:.3f} GiB; int8 launches over the stream "
+              f"{got['int8_launches']}; top {got['top'][:4]} {tag}")
     for name in ("int8_dynamic", "int8_calibrated"):
         a = agreement(results[name], results["unfused"])
         layouts[name]["vs_bf16"] = a
@@ -1554,46 +1708,40 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
     cli = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, extra in (("predict", []), ("predict_int8", ["--int8"])):
-            Q.conv_s8.launches = 0
+            reset_int8_counts()
             out = predict.main(["--synthetic", "4", "--out",
                                 os.path.join(tmp, name), *extra])
-            launches[name] = Q.conv_s8.launches
+            launches[name] = int8_counts()
+            check_int8_counts(name, launches[name],
+                              "dynamic" if extra else None)
             ok = (len(out["parsings"]) == 4 and all(
                 np.isfinite(k).all() for k in out["keypoints"]))
             print(f"phase 20c: python -m npp_tpu_torch.tools.predict "
                   f"--synthetic 4 {' '.join(extra)}: 4 parsings {ok}; int8 "
-                  f"kernel launches {launches[name]} {tag}")
+                  f"launches {launches[name]} {tag}")
             if not ok:
                 raise AssertionError(f"phase 20c: {name} failed")
             cli[name] = dict(parsings=len(out["parsings"]))
-    Q.conv_s8.launches = 0
+    reset_int8_counts()
     heat0 = heatmaps.render_heatmaps.launches
     res = eval_lip.main(["--synthetic", "--int8"])
-    launches["eval_int8"] = Q.conv_s8.launches
+    launches["eval_int8"] = int8_counts()
+    check_int8_counts("eval_int8", launches["eval_int8"], "dynamic")
     heat = heatmaps.render_heatmaps.launches - heat0
     n_valid = valid_pixels()
     print(f"phase 20c: python -m npp_tpu_torch.tools.eval_lip --synthetic "
           f"--int8: {eval_lip.result_line(res)} cm.sum={int(res['cm'].sum())}"
-          f" == valid pixels {n_valid}; int8 kernel launches "
+          f" == valid pixels {n_valid}; int8 launches "
           f"{launches['eval_int8']}, heatmap kernel launches {heat} {tag}")
     if not (math.isfinite(res["loss"]) and int(res["cm"].sum()) == n_valid):
         raise AssertionError("phase 20c: the int8 eval CLI failed")
     cli["eval_int8"] = dict(loss=res["loss"], mean_iou=res["mean_iou"])
-    for path in ("serve_int8_dynamic", "serve_int8_calibrated",
-                 "predict_int8", "eval_int8"):
-        if launches[path] == 0:
-            raise AssertionError(f"the {path} path never launched the int8 "
-                                 f"kernel")
-    for path in ("serve_unfused", "serve_fused", "predict"):
-        if launches[path] != 0:
-            raise AssertionError(f"the fp path {path} launched the int8 "
-                                 f"kernel")
     entry = {
         "name": "int8_conv", "route": "cuda",
         "source": "npp_tpu_torch/ops/csrc/int8_conv.cu",
         "replaces": "npp_tpu/ops/quantize.py:113 (XLA int8 conv; not a "
                     "Pallas kernel)",
-        "launches_by_path": launches,
+        "launches_by_path": {k: v["conv"] for k, v in launches.items()},
         "max_abs_err": kernel["max_abs_err"],
         "ms": one["device_us"] / 1e3, "plain_ms": one["plain_us"] / 1e3,
         "bound_ms": one["bound_us"] / 1e3,
@@ -1604,8 +1752,33 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
         "cudnn_bf16_ms": one["cudnn_bf16_us"] / 1e3,
         "unit": f"one unfused flagship int8 forward at bs{SERVE_BATCH} "
                 f"({one['calls']} calls)",
+        "variants": kernel["variants"],
         "fused_forward": one_fused, "shapes": kernel["rows"]}
-    return dict(layouts=layouts, cli=cli, heatmap_launches=heat), entry
+    quant_entry = {
+        "name": "int8_quantize", "route": "cuda",
+        "source": "npp_tpu_torch/ops/csrc/int8_quantize.cu",
+        "replaces": "npp_tpu/ops/quantize.py:100-109 (the activation "
+                    "quantize, fused by XLA into the int8 conv's producer; "
+                    "not a Pallas kernel)",
+        "launches_by_path": {k: v["quantize"] + v["absmax"]
+                             for k, v in launches.items()},
+        "quantize_launches_by_path": {k: v["quantize"]
+                                      for k, v in launches.items()},
+        "absmax_launches_by_path": {k: v["absmax"]
+                                    for k, v in launches.items()},
+        "max_abs_err": max(r["quant_err"] for r in kernel["rows"]),
+        "ms": one["quant_dynamic_us"] / 1e3,
+        "static_ms": one["quant_static_us"] / 1e3,
+        "plain_ms": one["quant_plain_us"] / 1e3,
+        "bound_ms": one["quant_bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": one["quant_library_us"] / 1e3,
+        "library": "torch.quantize_per_tensor (a reciprocal multiply and a "
+                   "clip at -128: a yardstick, not the same function)",
+        "unit": f"the dynamic scale (absmax + quantize) over one unfused "
+                f"flagship int8 forward at bs{SERVE_BATCH} ({one['calls']} "
+                f"calls); bound: x read once, int8 written once"}
+    return (dict(layouts=layouts, cli=cli, heatmap_launches=heat), entry,
+            quant_entry)
 
 
 def ppp_batches(device, n_batches: int = 2) -> list:
@@ -3895,14 +4068,21 @@ def main() -> int:
     # Phase 2: build the kernels from this checkout's sources, one nvcc
     # each, side by side.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(lambda build: build(), (
-            heatmaps.build_kernels, Q.build_kernels)))
-    for lib, log in builds:
-        print(f"phase 2: built {lib.name} ({time.perf_counter() - t0:.2f} s "
-              f"for both)")
+
+    def timed_build(build):
+        start = time.perf_counter()
+        lib, log = build()
+        return lib, log, time.perf_counter() - start
+
+    with ThreadPoolExecutor(3) as pool:
+        builds = list(pool.map(timed_build, (
+            heatmaps.build_kernels, Q.build_conv, Q.build_quantize)))
+    for lib, log, build_s in builds:
+        print(f"phase 2: built {lib.name} in {build_s:.2f} s "
+              f"({time.perf_counter() - t0:.2f} s for all three)")
         for line in log.strip().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "warning" in line.lower()):
                 print(f"phase 2: ptxas: {line.strip()}")
     clock.done(2)
 
@@ -3994,12 +4174,13 @@ def main() -> int:
     # Phase 20: npp_tpu's serving layouts on phase 11's model and images;
     # it counts the int8 kernel's launches by path itself, and the eval
     # CLI's heatmap kernel launches.
-    layouts, int8_entry = serving_layouts(tag, serve_ctx, serve)
+    layouts, int8_entry, quant_entry = serving_layouts(tag, serve_ctx,
+                                                       serve)
     launches["eval_int8"] = layouts.pop("heatmap_launches")
     del serve_ctx
     torch.cuda.empty_cache()
     clock.done(20)
-    Q.conv_s8.launches = 0  # phases 12-19 are fp paths
+    reset_int8_counts()  # phases 12-19 are fp paths
 
     # Phase 12: the tiny PPP eval and merge, card against CPU (fp32, TF32
     # off).
@@ -4054,10 +4235,11 @@ def main() -> int:
     # launches on the TP paths (19a-c's batches).
     tp, launches["tp_train"] = tensor_parallel(tag)
     clock.done(19)
-    int8_entry["launches_by_path"]["phases_12_19"] = Q.conv_s8.launches
-    if Q.conv_s8.launches != 0:
-        raise AssertionError("an fp path of phases 12-19 launched the int8 "
-                             "kernel")
+    fp_counts = int8_counts()
+    int8_entry["launches_by_path"]["phases_12_19"] = fp_counts["conv"]
+    quant_entry["launches_by_path"]["phases_12_19"] = (
+        fp_counts["quantize"] + fp_counts["absmax"])
+    check_int8_counts("phases 12-19", fp_counts, None)
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
     summary = {"tiny_train": tiny, "train_step": train,
                "tiny_search": tiny_search, "search_pair": search,
@@ -4087,7 +4269,9 @@ def main() -> int:
         "launches": sum(launches.values()), "launches_by_path": launches,
         **kernel}, {
         "launches": sum(int8_entry["launches_by_path"].values()),
-        **int8_entry}]}))
+        **int8_entry}, {
+        "launches": sum(quant_entry["launches_by_path"].values()),
+        **quant_entry}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

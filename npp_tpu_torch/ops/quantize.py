@@ -15,19 +15,28 @@ static activation scale ``act_scale`` (``calibrate_acts``). The
 unchanged. Grouped and depthwise convs stay floating point, as in
 npp_tpu. Serving only: nothing here has a backward.
 
+Two hand-written kernels serve a CUDA tensor, each built with ``nvcc``
+for ``sm_90a`` at its first launch into ``npp_tpu_torch/_build/`` and
+called through ctypes (a failed build or launch raises); a CPU tensor
+gets each one's plain version, and any other device raises:
+
 - ``quantize_weight``: max(max|w|, 1e-8) / 127 per output channel over
   dims (1, 2, 3) of OIHW, then round half to even (``torch.round``, as
-  ``jnp.round``).
-- ``quantize_act``: dynamic, max(max|x|, 1e-8) / 127 over the tensor; or
-  static, with the product clipped to +-127.
-- ``conv_s8`` (the hand-written kernel ``csrc/int8_conv.cu`` on a CUDA
-  tensor, built with ``nvcc`` for ``sm_90a`` at its first launch into
-  ``npp_tpu_torch/_build/`` and called through ctypes; a failed build or
-  launch raises) and ``conv_s8_reference`` (its plain version, which a
-  CPU tensor gets): the int8 conv of quantized operands with the fp32
-  epilogue float(acc) * (a_scale * w_scale) + bias, in that order.
+  ``jnp.round``). Plain torch: it runs once per prepared model.
+- ``quantize_act`` (``csrc/int8_quantize.cu``; plain version
+  ``quantize_act_reference``): dynamic, max(max|x|, 1e-8) / 127 over the
+  tensor (``act_absmax``, one launch that leaves the scale on the
+  device), then q = round(x / scale) in one launch; or static, with q
+  clipped to +-127, in that one launch. q comes out NHWC-contiguous (an
+  NCHW view of it), as the conv reads it.
+- ``conv_s8`` (``csrc/int8_conv.cu``; plain version
+  ``conv_s8_reference``): the int8 conv of quantized operands with the
+  fp32 epilogue float(acc) * (a_scale * w_scale) + bias, in that order.
+  Each launch's tile variant, tile width, ring depth and K split come
+  from ``_conv_plan``, a plain function of the shapes.
 - ``int8_conv(x, conv)`` = ``quantize_act`` + ``conv_s8``;
-  ``int8_conv_reference`` = ``quantize_act`` + ``conv_s8_reference``.
+  ``int8_conv_reference`` = ``quantize_act_reference`` +
+  ``conv_s8_reference``.
 
 The output dtype follows npp_tpu's ``out_dtype = self.dtype or x.dtype``:
 the autocast dtype where autocast is on (bf16 in the serving forward),
@@ -37,6 +46,7 @@ autocast off). Importing this module builds nothing.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
 
 import torch
@@ -46,8 +56,27 @@ import torch.nn.functional as F
 from npp_tpu_torch.ops.heatmaps import nvcc_build
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "int8_conv.cu"
-_LIBRARY: dict = {}  # the loaded ctypes library, once built
+_QSRC = Path(__file__).resolve().parent / "csrc" / "int8_quantize.cu"
+_LIBRARY: dict = {}  # the loaded ctypes libraries, once built
+_COUNTERS: dict = {}  # per device: the kernels' zeroed arrival counters
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+_ACT_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The conv's launch plan (see _conv_plan and csrc/int8_conv.cu).
+TILE_M = 128                # output pixels per block tile
+PATCH_H, PATCH_W = 8, 16    # a patch tile's output rows and columns
+STAGE_K = 128               # bytes of K per ring stage
+TINY_M = 64                 # at most this many rows: the tiny-M variant
+RING_MAX = 5                # ring stages, at most
+SMEM_BLOCK_LIMIT = 232_448  # shared memory one block may use on Hopper
+SMS = 132                   # the H100 SXM's SMs (the plan's default)
+STAGING_BYTES = 2 * 64 * (256 + 16)  # the epilogue's staging (kStagingBytes)
+TABLE_BYTES = 2 * 2 * 256 * 4  # its column scales and biases (kTableBytes)
+VARIANT_CODE = {"wgmma": 0, "packed": 1, "tiny_m": 2, "wgmma_tma": 3}
+# The quantize's launches (csrc/int8_quantize.cu).
+QUANT_THREADS = 256
+ABSMAX_BLOCKS = 1024        # blocks (partial maxima) of an absmax launch
+QUANT_BLOCKS = 8192         # blocks of a quantize launch, at most
 
 
 def quantize_weight(weight: torch.Tensor):
@@ -59,11 +88,13 @@ def quantize_weight(weight: torch.Tensor):
     return q, w_scale
 
 
-def quantize_act(x: torch.Tensor, act_scale: torch.Tensor | None = None):
-    """(int8 x in x's layout, its float32 0-d scale). ``act_scale`` None
-    is the dynamic scale; a static one clips to +-127. The divisor is a
-    tensor: a Python-scalar divisor would let PyTorch's CUDA division
-    multiply by its reciprocal, another rounding than npp_tpu's."""
+def quantize_act_reference(x: torch.Tensor,
+                           act_scale: torch.Tensor | None = None):
+    """Plain version of ``quantize_act``: (int8 x in x's layout, its
+    float32 0-d scale). ``act_scale`` None is the dynamic scale; a static
+    one clips to +-127. The divisor is a tensor: a Python-scalar divisor
+    would let PyTorch's CUDA division multiply by its reciprocal, another
+    rounding than npp_tpu's."""
     xf = x.to(torch.float32)
     if act_scale is None:
         a_scale = torch.clamp(xf.abs().amax(), min=1e-8) / 127.0
@@ -72,6 +103,146 @@ def quantize_act(x: torch.Tensor, act_scale: torch.Tensor | None = None):
         a_scale = act_scale.to(torch.float32)
         q = torch.clamp(torch.round(xf / a_scale), -127.0, 127.0)
     return q.to(torch.int8), a_scale
+
+
+def act_absmax_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``act_absmax``: [max|x|, the dynamic scale], as
+    ``quantize_act_reference`` computes them."""
+    amax = x.to(torch.float32).abs().amax()
+    return torch.stack([amax, torch.clamp(amax, min=1e-8) / 127.0])
+
+
+def _check_act(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: input on {x.device}")
+    if x.dtype not in _ACT_DTYPE:
+        raise ValueError(f"{name}: {x.dtype} input; the kernel takes "
+                         f"float32 or bfloat16")
+    if x.ndim != 4:
+        raise ValueError(f"{name}: a 4-D (N, C, H, W) input, got "
+                         f"{tuple(x.shape)}")
+    if x.numel() >= 2**31:
+        raise ValueError(f"{name}: tensors over 2^31 elements")
+
+
+def _quant_library() -> ctypes.CDLL:
+    if "quant" not in _LIBRARY:
+        path, _ = build_quantize()
+        lib = ctypes.CDLL(str(path))
+        lib.npp_act_absmax.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.npp_act_absmax.restype = ctypes.c_int
+        lib.npp_quantize_act.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.npp_quantize_act.restype = ctypes.c_int
+        _LIBRARY["quant"] = lib
+    return _LIBRARY["quant"]
+
+
+def _counters(device: torch.device, n: int, kernel: str) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters of ``kernel`` on ``device``,
+    zero between launches (the last block of a launch resets what it
+    counted). One buffer per kernel and device, for the launches of one
+    stream at a time."""
+    key = (kernel, str(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def act_absmax(x: torch.Tensor) -> torch.Tensor:
+    """(2,) float32 on x's device: [max|x|, max(max|x|, 1e-8) / 127], the
+    dynamic scale's two numbers. A CUDA tensor (float32 or bfloat16,
+    4-D, dense) takes one launch of the kernel and no host
+    synchronisation; a CPU tensor gets ``act_absmax_reference``."""
+    if x.device.type == "cpu":
+        return act_absmax_reference(x)
+    _check_act(x, "act_absmax")
+    lib = _quant_library()
+    if not (x.is_contiguous()
+            or x.is_contiguous(memory_format=torch.channels_last)):
+        x = x.contiguous(memory_format=torch.channels_last)
+    n = x.numel()
+    per = 16 // x.element_size()
+    blocks = max(1, min(ABSMAX_BLOCKS,
+                        -(-max(n // per, 1) // QUANT_THREADS)))
+    stats = torch.empty(2, dtype=torch.float32, device=x.device)
+    partials = torch.empty(blocks, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.npp_act_absmax(
+            x.data_ptr(), _ACT_DTYPE[x.dtype], n, int(x.data_ptr() % 16 == 0),
+            partials.data_ptr(),
+            _counters(x.device, 1, "absmax").data_ptr(), stats.data_ptr(),
+            blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"act_absmax kernel launch failed: cudaError_t "
+                           f"{err}")
+    act_absmax.launches += 1
+    return stats
+
+
+act_absmax.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def _quantize_kernel(lib: ctypes.CDLL, x: torch.Tensor,
+                     a_scale: torch.Tensor, clip: bool) -> torch.Tensor:
+    """One launch of the quantize kernel: x (N, C, H, W) by the device
+    scale ``a_scale`` -> int8 (N, H, W, C) contiguous, as an NCHW view."""
+    n, c, h, w = x.shape
+    if x.is_contiguous(memory_format=torch.channels_last):
+        layout = 0
+    elif x.is_contiguous():
+        layout = 1
+    else:
+        x = x.contiguous(memory_format=torch.channels_last)
+        layout = 0
+    q = torch.empty((n, h, w, c), dtype=torch.int8, device=x.device)
+    numel = x.numel()
+    if numel:
+        work = -(-numel // 8) if layout == 0 else n * h * w
+        blocks = max(1, min(QUANT_BLOCKS, -(-work // QUANT_THREADS)))
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.npp_quantize_act(
+                x.data_ptr(), _ACT_DTYPE[x.dtype], layout, numel, c, h * w,
+                int(x.data_ptr() % 16 == 0), a_scale.data_ptr(), int(clip),
+                q.data_ptr(), blocks, stream)
+        if err != 0:
+            raise RuntimeError(f"quantize_act kernel launch failed: "
+                               f"cudaError_t {err}")
+        quantize_act.launches += 1
+    return q.permute(0, 3, 1, 2)
+
+
+def quantize_act(x: torch.Tensor, act_scale: torch.Tensor | None = None):
+    """(int8 x, NHWC-contiguous under an NCHW view; its float32 0-d scale
+    on x's device). ``act_scale`` None is the dynamic scale (on a CUDA
+    tensor: an ``act_absmax`` launch, then the quantize launch); a static
+    one clips to +-127 (the quantize launch alone). A CUDA tensor
+    (float32 or bfloat16, 4-D) goes to the kernels, a CPU tensor to
+    ``quantize_act_reference``; any other device raises."""
+    if x.device.type == "cpu":
+        q, a_scale = quantize_act_reference(x, act_scale)
+        if q.ndim == 4:
+            q = q.contiguous(memory_format=torch.channels_last)
+        return q, a_scale
+    _check_act(x, "quantize_act")
+    lib = _quant_library()  # builds (or raises) before any device work
+    if act_scale is None:
+        a_scale = act_absmax(x)[1]
+    else:
+        a_scale = act_scale.to(device=x.device, dtype=torch.float32)
+    return _quantize_kernel(lib, x, a_scale, act_scale is not None), a_scale
+
+
+quantize_act.launches = 0  # kernel launches, read by chip_smoke.py
 
 
 def _out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:
@@ -99,21 +270,154 @@ def conv_s8_reference(q_x, qweight, w_scale, a_scale, bias, *, kernel_size,
     return out.to(out_dtype)
 
 
-def build_kernels() -> tuple[Path, str]:
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """One launch of the int8 conv kernel (see ``_conv_plan``)."""
+    variant: str      # "wgmma", "wgmma_tma", "packed" or "tiny_m"
+    bn: int           # output channels per block tile (wgmma's N)
+    stages: int       # ring depth (stages of STAGE_K bytes of K)
+    splits: int       # K splits, each a run of whole stages
+    m: int            # output pixels, N * Ho * Wo
+    k: int            # kh * kw * Cin
+    m_tiles: int
+    n_tiles: int
+    k_stages: int     # ceil(K / STAGE_K)
+    units: int        # work units: m_tiles * n_tiles * splits
+    grid: tuple       # the launch's blocks (persistent: at most one an SM)
+    smem_bytes: int   # dynamic shared memory of a block
+
+    @property
+    def name(self) -> str:
+        """The variant, with its split: e.g. "wgmma/128", "wgmma/64x4k"."""
+        if self.variant == "tiny_m":
+            return "tiny_m"
+        split = f"x{self.splits}k" if self.splits > 1 else ""
+        return f"{self.variant}/{self.bn}{split}"
+
+    def split_range(self, s: int) -> tuple[int, int]:
+        """The K stages [begin, end) of split ``s``, as the kernel takes
+        them."""
+        return (s * self.k_stages // self.splits,
+                (s + 1) * self.k_stages // self.splits)
+
+
+def _smem_bytes(bn: int, stages: int) -> int:
+    """A block's dynamic shared memory: the ring, the epilogue's staging
+    and column table, the full and empty barriers and a flag, and the
+    slack that aligns the ring to 1,024 bytes."""
+    return (stages * (TILE_M + bn) * STAGE_K + STAGING_BYTES + TABLE_BYTES
+            + 16 * stages + 1040)
+
+
+# The plan's cost model, in us, rough times fit to chip_smoke.py phase
+# 20a's per-class times on an H100 SXM (PERF.md): a ring stage of 128
+# bytes of K for a tile of each width, a work unit's fixed cost (its
+# first load, its epilogue), and a split unit's partial-tile exchange,
+# which grows with the partials the last unit reads.
+STAGE_US = {64: 0.7, 128: 0.85, 256: 1.3}
+UNIT_US = 1.5
+SPLIT_US = 1.5
+SPLIT_READ_US = 0.3
+
+
+def _plan_cost(units: int, stages_a_unit: int, bn: int, splits: int,
+               sms: int) -> float:
+    rounds = -(-units // sms)
+    split = SPLIT_US + SPLIT_READ_US * splits * bn / 128 if splits > 1 else 0
+    return rounds * (stages_a_unit * STAGE_US[bn] + UNIT_US + split)
+
+
+def _conv_plan(n: int, h: int, w: int, cin: int, cout: int,
+               kernel_size=(1, 1), stride=(1, 1), padding=(0, 0),
+               dilation=(1, 1), sms: int = SMS) -> ConvPlan:
+    """The launch plan of ``conv_s8``'s kernel for one conv, from its
+    shapes and the card's SM count:
+
+    - ``tiny_m`` for at most TINY_M output pixels of a 1x1, stride-1,
+      unpadded conv with Cin a multiple of 4 (a warp per output channel);
+    - ``packed`` where Cin is not a multiple of 16 (K packed as (r, s, c),
+      a 64-wide tile, K unsplit);
+    - else ``wgmma``, or ``wgmma_tma`` where A too can come by TMA as B
+      does (a 1x1, stride-1, unpadded conv, whose A is x itself as an
+      (M, Cin) matrix; or a stride-1 conv with Cin a multiple of STAGE_K
+      whose output tiles into PATCH_H x PATCH_W patches, a 4-D box of x
+      for each tap), with the tile width (64, 128, or 256 where Cout is a
+      multiple of 256) and the K split that ``_plan_cost`` puts lowest:
+      the rounds of at most ``sms`` work units, each its K stages and
+      fixed costs. The split is the small levels' tool: only where a
+      width's tiles are fewer than the SMs does it split K, to fill the
+      card, and a split that would need a second round costs more than it
+      saves.
+    The grid is persistent: min(units, sms) blocks, each walking units
+    sms apart. The ring holds up to RING_MAX stages within the shared
+    memory a block may use."""
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = (kernel_size, stride, padding,
+                                              dilation)
+    ho = _out_size(h, kh, sh, ph, dh)
+    wo = _out_size(w, kw, sw, pw, dw)
+    m, k = n * ho * wo, kh * kw * cin
+    k_stages = -(-k // STAGE_K)
+    m_tiles = -(-m // TILE_M)
+    if (m <= TINY_M and (kh, kw) == (1, 1) and (sh, sw) == (1, 1)
+            and (ph, pw) == (0, 0) and cin % 4 == 0):
+        blocks = -(-cout // 8)
+        return ConvPlan("tiny_m", 8, 0, 1, m, k, 1, blocks, k_stages, blocks,
+                        (blocks, 1, 1), 0)
+    packed = cin % 16 != 0
+    widths = [64]
+    if not packed and cout > 64:
+        widths.append(128)
+        if cout % 256 == 0:
+            widths.append(256)
+    best = None
+    for bn in widths:
+        tiles = m_tiles * -(-cout // bn)
+        top = 1 if packed or tiles >= sms else min(k_stages, 32)
+        for splits in range(1, top + 1):
+            cost = _plan_cost(tiles * splits, -(-k_stages // splits), bn,
+                              splits, sms)
+            if best is None or cost < best[0] - 1e-9:
+                best = (cost, bn, splits)
+    _, bn, splits = best
+    stages = RING_MAX
+    while _smem_bytes(bn, stages) > SMEM_BLOCK_LIMIT:
+        stages -= 1
+    n_tiles = -(-cout // bn)
+    units = m_tiles * n_tiles * splits
+    direct = (kh, kw) == (1, 1) and (sh, sw) == (1, 1) and (ph, pw) == (0, 0)
+    patches = (cin % STAGE_K == 0 and (sh, sw) == (1, 1)
+               and ho % PATCH_H == 0 and wo % PATCH_W == 0)
+    variant = ("packed" if packed else
+               "wgmma_tma" if direct or patches else "wgmma")
+    return ConvPlan(variant, bn, stages, splits, m, k,
+                    m_tiles, n_tiles, k_stages, units,
+                    (min(units, sms), 1, 1), _smem_bytes(bn, stages))
+
+
+def build_conv() -> tuple[Path, str]:
     """``csrc/int8_conv.cu`` through ``heatmaps.nvcc_build``."""
     return nvcc_build(_CSRC, "libint8_conv")
 
 
+def build_quantize() -> tuple[Path, str]:
+    """``csrc/int8_quantize.cu`` through ``heatmaps.nvcc_build``."""
+    return nvcc_build(_QSRC, "libint8_quantize")
+
+
 def _library() -> ctypes.CDLL:
-    if "lib" not in _LIBRARY:
-        path, _ = build_kernels()
+    if "conv" not in _LIBRARY:
+        path, _ = build_conv()
         lib = ctypes.CDLL(str(path))
         fn = lib.npp_int8_conv
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 22 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _LIBRARY["lib"] = lib
-    return _LIBRARY["lib"]
+        _LIBRARY["conv"] = lib
+    return _LIBRARY["conv"]
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def conv_s8(q_x, qweight, w_scale, a_scale, bias, *, kernel_size,
@@ -121,8 +425,9 @@ def conv_s8(q_x, qweight, w_scale, a_scale, bias, *, kernel_size,
             out_dtype=torch.float32):
     """int8 (N, Cin, H, W) input and int8 (Cout, kh * kw * Cin) weights ->
     (N, Cout, Ho, Wo) ``out_dtype`` (float32, bfloat16, or int32 for the
-    raw accumulators), channels_last. CUDA tensors go to the kernel, CPU
-    tensors to ``conv_s8_reference``; any other device raises."""
+    raw accumulators), channels_last. CUDA tensors go to the kernel, in
+    ``_conv_plan``'s launch, CPU tensors to ``conv_s8_reference``; any
+    other device raises."""
     kw_ = dict(kernel_size=kernel_size, stride=stride, padding=padding,
                dilation=dilation, out_dtype=out_dtype)
     if q_x.device.type == "cpu":
@@ -145,6 +450,7 @@ def conv_s8(q_x, qweight, w_scale, a_scale, bias, *, kernel_size,
         raise ValueError("conv_s8: empty output")
     if max(q_x.numel(), n * ho * wo * cout) >= 2**31:
         raise ValueError("conv_s8: tensors over 2^31 elements")
+    lib = _library()
     dev = q_x.device
     x_nhwc = q_x.permute(0, 2, 3, 1).contiguous()  # a view if channels_last
     qweight = qweight.contiguous()
@@ -156,18 +462,28 @@ def conv_s8(q_x, qweight, w_scale, a_scale, bias, *, kernel_size,
     if x_nhwc.data_ptr() % 16 or qweight.data_ptr() % 16:
         raise RuntimeError("conv_s8: the kernel's vector loads need "
                            "16-byte aligned operands")
-    lib = _library()
+    plan = _conv_plan(n, h, w, cin, cout, kernel_size, stride, padding,
+                      dilation, sms=_sm_count(dev))
+    partial = counters = None
+    if plan.splits > 1:
+        tiles = plan.m_tiles * plan.n_tiles
+        partial = torch.empty(tiles * plan.splits * TILE_M * plan.bn,
+                              dtype=torch.int32, device=dev)
+        counters = _counters(dev, tiles, "conv")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.npp_int8_conv(
             x_nhwc.data_ptr(), qweight.data_ptr(), w_scale.data_ptr(),
             a_scale.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), n, h, w, cin, cout, ho, wo, kh, kw, stride[0],
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            n, h, w, cin, cout, ho, wo, kh, kw, stride[0],
             stride[1], padding[0], padding[1], dilation[0], dilation[1],
-            _OUT_KIND[out_dtype], stream)
+            _OUT_KIND[out_dtype], VARIANT_CODE[plan.variant], plan.bn,
+            plan.stages, plan.splits, plan.smem_bytes, plan.grid[0], stream)
     if err != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: cudaError_t "
-                           f"{err}")
+        raise RuntimeError(f"int8_conv kernel launch failed ({plan.name}): "
+                           f"error {err}")
     conv_s8.launches += 1
     return out.permute(0, 3, 1, 2)
 
@@ -185,8 +501,8 @@ class Int8Conv2d(nn.Conv2d):
 
     def _conv_forward(self, x, weight, bias):
         if self.calibrating:
-            self.act_absmax = torch.maximum(
-                self.act_absmax, x.detach().to(torch.float32).abs().amax())
+            self.act_absmax = torch.maximum(self.act_absmax,
+                                            act_absmax(x.detach())[0])
             return int8_conv(x, self)
         return int8_conv(x, self, act_scale=self.act_scale)
 
@@ -217,8 +533,8 @@ def int8_conv(x, conv: Int8Conv2d, *, act_scale=None):
 
 
 def int8_conv_reference(x, conv: Int8Conv2d, *, act_scale=None):
-    """``int8_conv`` through the plain version on any device."""
-    q_x, a_scale = quantize_act(x, act_scale)
+    """``int8_conv`` through the plain versions on any device."""
+    q_x, a_scale = quantize_act_reference(x, act_scale)
     return conv_s8_reference(q_x, conv.qweight, conv.wscale, a_scale,
                              _bias(conv), **_s8_args(conv, x))
 

@@ -32,6 +32,7 @@ assert not quantize._LIBRARY, "importing built the int8 kernel"
 assert not imgproc._LIBRARY, "importing built the host library"
 assert heatmaps.render_heatmaps.launches == 0
 assert quantize.conv_s8.launches == 0
+assert quantize.quantize_act.launches == quantize.act_absmax.launches == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
                                     "PIL", "yaml", "npp_tpu"))
@@ -80,6 +81,31 @@ def _run(code: str) -> str:
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     return out.stdout
+
+
+QUANT_PROBE = """
+from npp_tpu_torch.ops import heatmaps
+
+
+def refuse(*args, **kwargs):
+    raise AssertionError("importing built a kernel")
+
+
+heatmaps.nvcc_build = refuse
+from npp_tpu_torch.ops import quantize
+assert not quantize._LIBRARY and not quantize._COUNTERS
+assert quantize._CSRC.name == "int8_conv.cu" and quantize._CSRC.is_file()
+assert quantize._QSRC.name == "int8_quantize.cu"
+assert quantize._QSRC.is_file()
+print("ok")
+"""
+
+
+def test_int8_layer_imports_without_building_and_names_its_sources():
+    """Importing ``ops.quantize`` (with the build refused) builds neither
+    int8 kernel, and it names both sources, the conv's and the activation
+    quantize's."""
+    assert _run(QUANT_PROBE).strip() == "ok"
 
 
 def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
