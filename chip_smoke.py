@@ -109,16 +109,22 @@ int8 flagship forwards at bs8, each class's plan variant named (every
 variant run at least once), each class timed beside its bound, the
 ``torch._int_mm`` yardstick and the bf16 cuDNN conv; and the activation
 quantize kernel against its plain version (q and the scale, bit for
-bit, dynamic and static) on each class's real input, timed beside its
-bytes bound and ``torch.quantize_per_tensor``; 20b the Predictor
-unfused and with fused necks + cells (in turns), int8 dynamic and int8
-calibrated: img/s, device operations, busy, idle, peak, fused against
-unfused labels in fp32 (>= 0.999) and int8 against bf16 (no bar); 20c
-the predict CLI with its fused defaults and ``--int8``, and ``eval_lip
---synthetic --int8``; the int8 kernels' launches by path: on the int8
-paths one quantize launch per conv launch, and one absmax launch per
-conv launch with dynamic scales (none with static ones), none of the
-three on any fp path.
+bit, with and without the folded ReLU, dynamic and static) and the
+calibration's absmax kernel against its own (on x and on F.relu(x), bit
+for bit) on each class's real input, timed beside its bytes bound,
+``torch.quantize_per_tensor`` and, where the forward folds the ReLU in,
+``F.relu`` (the pass the fold removed); the same bit-for-bit checks on
+the largest input (above the on-chip stash), a tiny one, NCHW copies, a
+misaligned view and inputs with NaN, inf, -0.0 and negatives; the int8
+forwards' ReLU count (the convs fold every ReLU they own); 20b the
+Predictor unfused and with fused necks + cells (in turns), int8 dynamic
+and int8 calibrated: img/s, device operations, busy, idle, peak, fused
+against unfused labels in fp32 (>= 0.999) and int8 against bf16 (no
+bar); 20c the predict CLI with its fused defaults and ``--int8``, and
+``eval_lip --synthetic --int8``; the int8 kernels' launches by path: on
+the int8 paths one quantize launch per conv launch, dynamic or static,
+and no absmax launch; one absmax launch per conv under calibration;
+none of the three on any fp path.
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -141,6 +147,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -293,6 +300,10 @@ INT8_VARIANTS = ("wgmma", "wgmma_tma", "wgmma split-K", "packed", "tiny_m")
 COLD_BYTES = 64 * 2**20  # input copies cycled per class: > the 50 MB L2
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
 CALIB_IMAGES = 16        # images of the int8 calibration
+# The int8 convs that read a ReLU's output whose other readers need it
+# too, so that the ReLU cannot fold into their quantize: stem2 and stem5
+# read stem1's and stem4's outputs, which are also cell states.
+SHARED_RELU_CONVS = ("stem2.Conv_0", "stem5.Conv_0")
 FUSED_LABEL_SHARE = 0.999  # fused vs unfused labels, fp32, TF32 off
 LAYOUT_IMAGES = 16       # images of the layout comparisons
 TIMING = (f"CUDA events around {TIMED_CALLS} calls queued behind a "
@@ -1256,17 +1267,35 @@ def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> tuple:
     return out, dict(model=model, pred=pred, ims=ims, results=results)
 
 
-def int8_classes(model, x) -> dict:
+def int8_classes(model, x) -> tuple[dict, dict]:
     """The dense-conv shape classes of one int8 forward of ``model`` (a
     prepared NPPNet) on ``x``: (input shape, weight shape, geometry, bias,
     output dtype) -> [the conv operands of its first call, the geometry,
-    calls in the forward, that call's activation and static scale].
-    ``quantize.int8_conv`` is wrapped for the forward."""
+    calls in the forward, that call's activation, static scale and ReLU
+    flag, calls with the ReLU folded in]. ``quantize.int8_conv`` and
+    ``F.relu`` are wrapped for the forward, which also gives the ReLU
+    count: F.relu calls, calls with the ReLU folded, and the convs whose
+    input is an F.relu output that they do not fold (each must be one of
+    SHARED_RELU_CONVS)."""
     seen = {}
-    orig = Q.int8_conv
+    names = {id(m): n for n, m in model.named_modules()}
+    relu_outs = {}
+    fold = collections.Counter()
+    orig, orig_relu = Q.int8_conv, F.relu
 
-    def record(x, conv, *, act_scale=None):
-        q_x, a_scale = Q.quantize_act(x, act_scale)
+    def relu(x, inplace=False):
+        y = orig_relu(x, inplace)
+        if not fold["inside"]:
+            relu_outs[id(y)] = weakref.ref(y)
+            fold["relu_calls"] += 1
+        return y
+
+    def record(x, conv, *, act_scale=None, relu=False):
+        fold["inside"] = 1  # a plain version's own F.relu is not the model's
+        try:
+            q_x, a_scale = Q.quantize_act(x, act_scale, relu=relu)
+        finally:
+            fold["inside"] = 0
         kw = Q._s8_args(conv, x)
         args = (q_x, conv.qweight, conv.wscale, a_scale, Q._bias(conv))
         key = (tuple(q_x.shape), tuple(conv.qweight.shape),
@@ -1274,17 +1303,46 @@ def int8_classes(model, x) -> dict:
                kw["dilation"], conv.bias is not None,
                str(kw["out_dtype"]).replace("torch.", ""))
         if key not in seen:
-            seen[key] = [args, kw, 0, x, act_scale]
+            seen[key] = [args, kw, 0, x, act_scale, relu, 0]
         seen[key][2] += 1
+        seen[key][6] += int(relu)
+        fold["folded"] += int(relu)
+        ref = relu_outs.get(id(x))
+        if ref is not None and ref() is x and not relu:
+            fold.setdefault("unfolded", []).append(names[id(conv)])
         return Q.conv_s8(*args, **kw)
 
-    Q.int8_conv = record
+    Q.int8_conv, F.relu = record, relu
     try:
         with torch.inference_mode():
             model(x)
     finally:
-        Q.int8_conv = orig
-    return seen
+        Q.int8_conv, F.relu = orig, orig_relu
+    stray = [n for n in fold.get("unfolded", [])
+             if n not in SHARED_RELU_CONVS]
+    if stray:
+        raise AssertionError(f"phase 20a: int8 convs read an F.relu output "
+                             f"without folding the ReLU: {stray}")
+    del fold["inside"]
+    return seen, dict(fold)
+
+
+def relu_calls(model, x) -> int:
+    """F.relu calls in one forward of ``model`` on ``x``."""
+    calls = [0]
+    orig = F.relu
+
+    def relu(t, inplace=False):
+        calls[0] += 1
+        return orig(t, inplace)
+
+    F.relu = relu
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        F.relu = orig
+    return calls[0]
 
 
 def int_mm_conv(q_x, qweight, w_scale, a_scale, bias, *, kernel_size,
@@ -1343,43 +1401,81 @@ def variant_kind(plan) -> str:
     return plan.variant
 
 
-def check_quantize(x, act_scale) -> dict:
-    """Phase 20a's quantize check at one class's real input ``x``: the
-    kernel's q and scale against the plain version's, dynamic and static
-    (the class's static scale where it has one, else half the dynamic
-    one, so that some values clip), bit for bit; then the device time of
-    the dynamic (absmax + quantize) and static (quantize) launches, the
-    plain version's, and ``torch.quantize_per_tensor``'s (a yardstick: a
-    reciprocal multiply and a clip at -128, not the same function), beside
+def same_scale(a, b) -> bool:
+    """Equal 0-d float scales, a NaN equal to a NaN (an input with a NaN
+    has a NaN dynamic scale)."""
+    a, b = a.reshape(()), b.reshape(())
+    return bool(torch.equal(a, b) or (a.isnan() & b.isnan()))
+
+
+def quantize_agrees(x, act_scale) -> tuple[float, int]:
+    """The quantize kernel's q and scale against its plain version's on
+    ``x``, bit for bit, with and without the ReLU, dynamic and static (at
+    ``act_scale`` where given, else at half each dynamic scale, so that
+    some values clip); and the calibration's absmax kernel against its
+    plain version on what the conv quantizes (``x``, or ``F.relu(x)``
+    where the ReLU folds in): [max|x|, scale] bit for bit. Returns
+    (max |diff|, static values clipped)."""
+    err, clipped = 0.0, 0
+    for relu in (False, True):
+        q_d, s_d = Q.quantize_act(x, relu=relu)
+        r_d, rs_d = Q.quantize_act_reference(x, relu=relu)
+        static = act_scale if act_scale is not None else rs_d * 0.5
+        q_s, s_s = Q.quantize_act(x, static, relu=relu)
+        r_s, rs_s = Q.quantize_act_reference(x, static, relu=relu)
+        seen = F.relu(x) if relu else x
+        m_k, m_p = Q.act_absmax(seen), Q.act_absmax_reference(seen)
+        torch.cuda.synchronize()
+        nhwc = (q_d.permute(0, 2, 3, 1).is_contiguous()
+                and q_s.permute(0, 2, 3, 1).is_contiguous())
+        pairs = ((s_d, rs_d), (s_s, rs_s), (m_k[0], m_p[0]),
+                 (m_k[1], m_p[1]))
+        diff = max((q_d.int() - r_d.int()).abs().max().item(),
+                   (q_s.int() - r_s.int()).abs().max().item(),
+                   *(0.0 if same_scale(a, b) else abs(a.item() - b.item())
+                     for a, b in pairs))
+        same = (torch.equal(q_d, r_d) and torch.equal(q_s, r_s)
+                and all(same_scale(a, b) for a, b in pairs))
+        if not (same and nhwc):
+            layout = ("channels_last" if x.is_contiguous(
+                memory_format=torch.channels_last) else "nchw")
+            raise AssertionError(
+                f"phase 20a: the quantize or absmax kernel disagrees with "
+                f"its plain version at {tuple(x.shape)} {x.dtype} {layout} "
+                f"(relu {relu}; max |diff| {diff}, scales {s_d.item()} / "
+                f"{rs_d.item()}, absmax {m_k.tolist()} / {m_p.tolist()}, "
+                f"NHWC {nhwc})")
+        err = max(err, diff)
+        clipped += int((r_s.abs() == 127).sum())
+    return err, clipped
+
+
+def check_quantize(x, act_scale, relu: bool) -> dict:
+    """Phase 20a's quantize check at one class's real input ``x``
+    (``quantize_agrees``); then, with the forward's own ReLU flag, the
+    device time of the dynamic and static launches, the plain version's,
+    ``torch.quantize_per_tensor``'s (a yardstick: a reciprocal multiply
+    and a clip at -128, not the same function) and, where the forward
+    folds the ReLU, ``F.relu``'s (the pass the fold took away), beside
     the bytes bound (x read once, int8 written once)."""
-    q_d, s_d = Q.quantize_act(x)
-    r_d, rs_d = Q.quantize_act_reference(x)
-    static = (act_scale if act_scale is not None else rs_d * 0.5)
-    q_s, s_s = Q.quantize_act(x, static)
-    r_s, rs_s = Q.quantize_act_reference(x, static)
-    torch.cuda.synchronize()
-    nhwc = q_d.permute(0, 2, 3, 1).is_contiguous()
-    err = max((q_d.int() - r_d.int()).abs().max().item(),
-              (q_s.int() - r_s.int()).abs().max().item(),
-              abs(s_d.item() - rs_d.item()), abs(s_s.item() - rs_s.item()))
-    same = (torch.equal(q_d, r_d) and torch.equal(q_s, r_s)
-            and torch.equal(s_d.reshape(()), rs_d.reshape(()))
-            and torch.equal(s_s.reshape(()), rs_s.reshape(())))
-    if not (same and nhwc):
-        raise AssertionError(f"phase 20a: the quantize kernel disagrees with "
-                             f"its plain version at {tuple(x.shape)} "
-                             f"(max |diff| {err}, NHWC {nhwc})")
-    clipped = int((r_s.abs() == 127).sum())
-    del q_d, r_d, q_s, r_s
+    err, clipped = quantize_agrees(x, act_scale)
+    layout = ("channels_last" if x.is_contiguous(
+        memory_format=torch.channels_last) else "nchw")
+    static = (act_scale if act_scale is not None
+              else Q.quantize_act_reference(x, relu=relu)[1] * 0.5)
     nbytes = x.numel() * x.element_size()
     xs = cold_copies(x, min(64, -(-COLD_BYTES // max(nbytes, 1))))
-    d_us = queued_device_us(lambda: Q.quantize_act(next(xs)), INT8_CALLS,
-                            "dynamic quantize")
-    s_us = queued_device_us(lambda: Q.quantize_act(next(xs), static),
+    d_us = queued_device_us(lambda: Q.quantize_act(next(xs), relu=relu),
+                            INT8_CALLS, "dynamic quantize")
+    s_us = queued_device_us(lambda: Q.quantize_act(next(xs), static,
+                                                   relu=relu),
                             INT8_CALLS, "static quantize")
-    p_us, _ = device_us(lambda: Q.quantize_act_reference(next(xs)),
+    p_us, _ = device_us(lambda: Q.quantize_act_reference(next(xs),
+                                                         relu=relu),
                         INT8_PLAIN_CALLS)
-    scale = float(rs_s)
+    r_us = (queued_device_us(lambda: F.relu(next(xs)), INT8_LIB_CALLS,
+                             "F.relu") if relu else 0.0)
+    scale = float(static)
     try:
         torch.quantize_per_tensor(x, scale, 0, torch.qint8)
         yard_x = "its input"
@@ -1390,13 +1486,104 @@ def check_quantize(x, act_scale) -> dict:
     l_us, _ = device_us(lambda: torch.quantize_per_tensor(
         next(xs), scale, 0, torch.qint8), INT8_LIB_CALLS)
     del xs
-    layout = ("channels_last" if x.is_contiguous(
-        memory_format=torch.channels_last) else "nchw")
+    sms = Q._sm_count(x.device)
+    plan_d = Q._quant_plan(x.numel(), x.element_size(), layout, True, sms)
+    plan_s = Q._quant_plan(x.numel(), x.element_size(), layout, False, sms)
     return dict(quant_dynamic_us=d_us, quant_static_us=s_us,
                 quant_plain_us=p_us, quant_library_us=l_us,
+                quant_relu_us=r_us,
                 quant_bound_us=(nbytes + x.numel()) / HBM_BYTES_PER_S * 1e6,
                 quant_err=err, quant_layout=layout, quant_clipped=clipped,
-                quant_library_input=yard_x)
+                quant_relu=relu, quant_library_input=yard_x,
+                quant_plan=f"{plan_d.variant}/{plan_d.grid} stash "
+                           f"{plan_d.stash_chunks} ring {plan_d.ring} reread "
+                           f"{plan_d.reread}; {plan_s.variant}/{plan_s.grid}")
+
+
+def special_input(shape, dtype, seed: int, specials) -> torch.Tensor:
+    """A channels_last input of normal values, negatives and zeros, with
+    ``specials`` (NaN, inf, -inf, -0.0) set at seeded places."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g) * 3.0
+    x[torch.rand(shape, generator=g) < 0.3] = 0.0
+    flat = x.view(-1)
+    where = torch.randperm(flat.numel(), generator=g)
+    for i, v in enumerate(specials):
+        flat[where[i::len(specials) * 97][:3]] = v
+    return x.to(dtype).cuda().contiguous(memory_format=torch.channels_last)
+
+
+def quantize_edges(classes: dict, tag: str) -> dict:
+    """Phase 20a's quantize checks beyond the classes' inputs, bit for bit
+    as ``quantize_agrees``: the largest class input (above the on-chip
+    stash, streamed through the ring and read again), a tiny squeeze-excite
+    input, NCHW copies (bf16 and fp32), a misaligned view, and crafted
+    inputs with NaN, inf, -inf, -0.0 and negatives, of sizes whose last
+    elements are not a whole 16-element unit."""
+    inputs = [v[3] for v in classes.values()]
+    big = max(inputs, key=torch.Tensor.numel)
+    tiny = next(x for x in inputs if x.shape[2:] == (1, 1))
+    mids = [x for x in inputs if x.shape[2] >= 32 and x.shape[1] <= 64]
+    mid = next((x for x in mids if x.dtype == torch.bfloat16), mids[0])
+    flat = torch.randn(mid.numel() + 8, device="cuda",
+                       dtype=mid.dtype)[1:1 + mid.numel()]
+    n, c, h, w = mid.shape
+    cases = {
+        "largest": big, "tiny": tiny,
+        "nchw": mid.contiguous(),
+        "nchw_fp32": mid.float().contiguous(),
+        "misaligned": flat.view(n, h, w, c).permute(0, 3, 1, 2),
+        "special_finite_fp32": special_input((3, 37, 5, 7), torch.float32,
+                                             1, (-0.0,)),
+        "special_finite_bf16": special_input((8, 41, 13, 11), torch.bfloat16,
+                                             2, (-0.0,)),
+        "special_nan_bf16": special_input((8, 41, 13, 11), torch.bfloat16,
+                                          3, (float("nan"), -0.0)),
+        "special_inf_fp32": special_input((2, 33, 17, 9), torch.float32, 4,
+                                          (float("inf"), -0.0)),
+        "special_neg_inf_fp32": special_input((2, 33, 17, 9), torch.float32,
+                                              5, (float("-inf"),)),
+        "special_nan_nchw_fp32": special_input(
+            (3, 37, 5, 7), torch.float32, 6,
+            (float("nan"), float("inf"))).contiguous(),
+    }
+    out = {}
+    for name, x in cases.items():
+        layout = ("channels_last" if x.is_contiguous(
+            memory_format=torch.channels_last) else "nchw")
+        err, _ = quantize_agrees(x, None)
+        plan = Q._quant_plan(x.numel(), x.element_size(), layout, True,
+                             Q._sm_count(x.device))
+        out[name] = dict(shape=list(x.shape), dtype=str(x.dtype),
+                         layout=layout, err=err,
+                         plan=f"{plan.variant}/{plan.grid}",
+                         reread=plan.reread)
+        timed = ""
+        if name.startswith("nchw"):  # the NCHW kernels' time, cold L2
+            static = Q.quantize_act_reference(x)[1]
+            xs = cold_copies(x, min(64, -(-COLD_BYTES // (
+                x.numel() * x.element_size()))))
+            out[name].update(
+                dynamic_us=queued_device_us(lambda: Q.quantize_act(next(xs)),
+                                            INT8_CALLS, "NCHW quantize"),
+                static_us=queued_device_us(lambda: Q.quantize_act(
+                    next(xs), static), INT8_CALLS, "NCHW quantize"),
+                bound_us=x.numel() * (x.element_size() + 1)
+                / HBM_BYTES_PER_S * 1e6)
+            del xs
+            timed = (f"; dynamic {out[name]['dynamic_us']:.3f} us, static "
+                     f"{out[name]['static_us']:.3f}, bound "
+                     f"{out[name]['bound_us']:.3f}")
+        print(f"phase 20a: quantize {name} x{tuple(x.shape)} {x.dtype} "
+              f"{layout} (dynamic plan {plan.variant}, grid {plan.grid}, "
+              f"stash {plan.stash_chunks}, ring {plan.ring}, reread "
+              f"{plan.reread} of {x.numel()}): quantize and absmax bit for "
+              f"bit, with and without the ReLU, dynamic and static{timed} "
+              f"{tag}")
+    if "largest" in out and out["largest"]["reread"] == 0:
+        raise AssertionError("phase 20a: the largest input fit on chip; "
+                             "the ring went unchecked")
+    return out
 
 
 def check_int8_kernel(classes: dict, tag: str) -> dict:
@@ -1407,8 +1594,8 @@ def check_int8_kernel(classes: dict, tag: str) -> dict:
     of the same shape, beside the bound; then the quantize kernel on the
     class's real input (``check_quantize``)."""
     rows, worst, kinds = [], 0.0, collections.Counter()
-    for key, ((q_x, qw, ws, a_s, bias), kw, count, x,
-              act_scale) in classes.items():
+    for key, ((q_x, qw, ws, a_s, bias), kw, count, x, act_scale, relu,
+              _) in classes.items():
         n, cin, h, w = q_x.shape
         plan = Q._conv_plan(n, h, w, cin, qw.shape[0], kw["kernel_size"],
                             kw["stride"], kw["padding"], kw["dilation"],
@@ -1457,7 +1644,7 @@ def check_int8_kernel(classes: dict, tag: str) -> dict:
         del xs, xs_bf16
         t_bytes, t_ops = int8_bound_us(key, out_k.element_size())
         b_us = max(t_bytes, t_ops)
-        quant = check_quantize(x, act_scale)
+        quant = check_quantize(x, act_scale, relu)
         worst = max(worst, quant["quant_err"])
         rows.append(dict(
             shape=json.loads(class_key(key)), variant=plan.name,
@@ -1474,11 +1661,13 @@ def check_int8_kernel(classes: dict, tag: str) -> dict:
               f"accumulators {lib_same}), bf16 cuDNN {c_us:.3f}; bound "
               f"{b_us:.3f} us ({rows[-1]['bound_by']}), share "
               f"{b_us / k_us:.4f}; quantize ({quant['quant_layout']} "
-              f"{x.dtype}, bit for bit, {quant['quant_clipped']} clipped "
-              f"static): dynamic {quant['quant_dynamic_us']:.3f} us, static "
-              f"{quant['quant_static_us']:.3f}, plain "
+              f"{x.dtype}, relu {relu}, plan {quant['quant_plan']}; with "
+              f"the absmax, bit for bit with and without the ReLU, "
+              f"{quant['quant_clipped']} clipped static): dynamic {quant['quant_dynamic_us']:.3f} us, "
+              f"static {quant['quant_static_us']:.3f}, plain "
               f"{quant['quant_plain_us']:.3f}, quantize_per_tensor "
-              f"{quant['quant_library_us']:.3f}, bound "
+              f"{quant['quant_library_us']:.3f}, F.relu "
+              f"{quant['quant_relu_us']:.3f}, bound "
               f"{quant['quant_bound_us']:.3f} {tag}")
         del acc_k, acc_p, out_k, out_p, lib, w_bf16
     missing = [v for v in INT8_VARIANTS if not kinds[v]]
@@ -1492,9 +1681,10 @@ SUMMED = ("device_us", "plain_us", "library_us", "cudnn_bf16_us", "bound_us",
           "quant_plain_us", "quant_library_us", "quant_bound_us")
 
 
-def per_forward(rows, counts) -> dict:
+def per_forward(rows, counts, relu_counts) -> dict:
     """The kernels', plain versions', yardsticks' and bounds' time summed
-    over one forward's calls (``counts``: shape class -> calls)."""
+    over one forward's calls (``counts``: shape class -> calls), and
+    F.relu's over the calls that fold the ReLU in (``relu_counts``)."""
     by = {json.dumps(r["shape"]): r for r in rows}
     tot = collections.Counter()
     for key, n in counts.items():
@@ -1502,6 +1692,8 @@ def per_forward(rows, counts) -> dict:
         for f in SUMMED:
             tot[f] += n * r[f]
         tot["calls"] += n
+        tot["quant_relu_us"] += relu_counts[key] * r["quant_relu_us"]
+        tot["relu_calls"] += relu_counts[key]
     return dict(tot)
 
 
@@ -1553,14 +1745,14 @@ def int8_counts() -> dict:
 
 def check_int8_counts(path: str, got: dict, scale: str | None) -> None:
     """The launch rule of ``path``: none of the three on an fp path
-    (``scale`` None); on an int8 path at least one conv, one quantize per
-    conv, and one absmax per conv with dynamic scales, none with static
-    ones."""
+    (``scale`` None); on an int8 path at least one conv and one quantize
+    per conv, dynamic or static; an absmax launch per conv under
+    calibration (``scale`` "calibrating") and never while serving."""
     if scale is None:
         ok = not any(got.values())
     else:
         ok = (got["conv"] > 0 and got["quantize"] == got["conv"]
-              and got["absmax"] == (got["conv"] if scale == "dynamic"
+              and got["absmax"] == (got["conv"] if scale == "calibrating"
                                     else 0))
     if not ok:
         raise AssertionError(f"the {path} path's int8 launches {got} break "
@@ -1601,13 +1793,27 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
                                       for im in ims[:SERVE_BATCH]]))
     x = base._normalize(canv.to(base.device))
     pred_q = Predictor(model, crop_size=(384, 384), quantize="int8")
-    classes = int8_classes(pred_q.model, x)
+    classes, fold = int8_classes(pred_q.model, x)
     fq = Predictor(model, crop_size=(384, 384), quantize="int8",
                    fuse_necks=True, fuse_cells=True)
-    fused_classes = int8_classes(fq.model, x)
+    fused_classes, fused_fold = int8_classes(fq.model, x)
+    fold["fp_relu_calls"] = relu_calls(base.model, x)
+    fused_fold["fp_relu_calls"] = relu_calls(
+        Predictor(model, crop_size=(384, 384), fuse_necks=True,
+                  fuse_cells=True).model, x)
     del fq
+    for name, f in (("unfused", fold), ("fused", fused_fold)):
+        print(f"phase 20a: the {name} int8 forward: {f['folded']} of "
+              f"{sum(v[2] for v in (classes if name == 'unfused' else fused_classes).values())} "
+              f"dense-conv calls fold the ReLU into the quantize; F.relu "
+              f"calls {f['relu_calls']} (the bf16 forward's "
+              f"{f['fp_relu_calls']}); convs reading a shared F.relu output "
+              f"unfolded: {f.get('unfolded', [])} {tag}")
     counts = {class_key(k): v[2] for k, v in classes.items()}
     fused_counts = {class_key(k): v[2] for k, v in fused_classes.items()}
+    relu_counts = {class_key(k): v[6] for k, v in classes.items()}
+    fused_relu_counts = {class_key(k): v[6]
+                         for k, v in fused_classes.items()}
     merged = dict(fused_classes)
     merged.update(classes)
     print(f"phase 20a: {len(classes)} dense-conv shape classes in the "
@@ -1620,9 +1826,10 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
           f"last {COLD_RING} kept referenced, each call on another of up to "
           f"64 copies of the input ({COLD_BYTES >> 20} MiB of them) {tag}")
     kernel = check_int8_kernel(merged, tag)
+    edges = quantize_edges(merged, tag)
     del merged, classes, fused_classes
-    one = per_forward(kernel["rows"], counts)
-    one_fused = per_forward(kernel["rows"], fused_counts)
+    one = per_forward(kernel["rows"], counts, relu_counts)
+    one_fused = per_forward(kernel["rows"], fused_counts, fused_relu_counts)
     print(f"phase 20a: per unfused int8 forward at bs{SERVE_BATCH} "
           f"({one['calls']} calls): conv kernel "
           f"{one['device_us'] / 1e3:.4f} ms (the mma.sync design: "
@@ -1635,12 +1842,16 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
           f"{one_fused['device_us'] / 1e3:.4f} ms, bound "
           f"{one_fused['bound_us'] / 1e3:.4f} ms; plan variants over the "
           f"classes {kernel['variants']} {tag}")
-    print(f"phase 20a: quantize per unfused int8 forward: dynamic (absmax + "
-          f"quantize) {one['quant_dynamic_us'] / 1e3:.4f} ms, static "
+    print(f"phase 20a: quantize per unfused int8 forward: dynamic (one "
+          f"launch) {one['quant_dynamic_us'] / 1e3:.4f} ms, static "
           f"{one['quant_static_us'] / 1e3:.4f} ms, plain version (dynamic) "
           f"{one['quant_plain_us'] / 1e3:.4f} ms, quantize_per_tensor "
           f"{one['quant_library_us'] / 1e3:.4f} ms, bytes bound "
-          f"{one['quant_bound_us'] / 1e3:.4f} ms {tag}")
+          f"{one['quant_bound_us'] / 1e3:.4f} ms; F.relu at the "
+          f"{one['relu_calls']} calls that fold it (the pass gone) "
+          f"{one['quant_relu_us'] / 1e3:.4f} ms; fused forward: dynamic "
+          f"{one_fused['quant_dynamic_us'] / 1e3:.4f}, static "
+          f"{one_fused['quant_static_us'] / 1e3:.4f} ms {tag}")
 
     # 20b: the layouts, unfused and fused in turns (unfused, fused, fused,
     # unfused: the host clock drifts between calls), then int8.
@@ -1651,7 +1862,11 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
     for name in ("unfused", "fused", "fused", "unfused", "int8_dynamic",
                  "int8_calibrated"):
         if name == "int8_calibrated":
+            reset_int8_counts()
             pred_q.calibrate_int8(ims[:CALIB_IMAGES])
+            launches["calibrate"] = int8_counts()
+            check_int8_counts("calibrate", launches["calibrate"],
+                              "calibrating")
             runs[name] = pred_q
         got = serve_layout(runs[name], ims)
         results.setdefault(name, got.pop("results"))
@@ -1766,17 +1981,25 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
                                       for k, v in launches.items()},
         "absmax_launches_by_path": {k: v["absmax"]
                                     for k, v in launches.items()},
-        "max_abs_err": max(r["quant_err"] for r in kernel["rows"]),
+        "max_abs_err": max([r["quant_err"] for r in kernel["rows"]]
+                           + [e["err"] for e in edges.values()]),
         "ms": one["quant_dynamic_us"] / 1e3,
         "static_ms": one["quant_static_us"] / 1e3,
+        "relu_ms": one["quant_relu_us"] / 1e3,
+        "relu_folded_calls": one["relu_calls"],
+        "fused_forward_ms": {"dynamic": one_fused["quant_dynamic_us"] / 1e3,
+                             "static": one_fused["quant_static_us"] / 1e3},
+        "fold": {"unfused": fold, "fused": fused_fold},
+        "edges": edges,
         "plain_ms": one["quant_plain_us"] / 1e3,
         "bound_ms": one["quant_bound_us"] / 1e3, "bound_by": "bytes",
         "library_ms": one["quant_library_us"] / 1e3,
         "library": "torch.quantize_per_tensor (a reciprocal multiply and a "
                    "clip at -128: a yardstick, not the same function)",
-        "unit": f"the dynamic scale (absmax + quantize) over one unfused "
+        "unit": f"the dynamic scale (one launch) over one unfused "
                 f"flagship int8 forward at bs{SERVE_BATCH} ({one['calls']} "
-                f"calls); bound: x read once, int8 written once"}
+                f"calls); bound: x read once, int8 written once; the absmax "
+                f"launches are calibrate_acts' alone"}
     return (dict(layouts=layouts, cli=cli, heatmap_launches=heat), entry,
             quant_entry)
 

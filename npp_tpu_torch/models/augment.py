@@ -35,21 +35,25 @@ from npp_tpu_torch.models.cells import (DEFAULT_SIBLING_FAMILIES, Cell,
                                         compile_encoder_injections,
                                         sibling_groups)
 from npp_tpu_torch.ops.primitives import batch_norm, conv
+from npp_tpu_torch.ops.quantize import relu_conv
 from npp_tpu_torch.ops.resize import resize_scale
 
 
 class _Stem(nn.Module):
-    """conv - BN - relu stem stage."""
+    """conv - BN - relu stem stage. ``relu_input``: the stage before it
+    left its ReLU out (``final_relu`` False), so this one applies it to
+    its input first (``relu_conv``: folded into the int8 quantize)."""
 
     def __init__(self, c_in: int, features: int, stride: int,
-                 final_relu: bool = True):
+                 final_relu: bool = True, relu_input: bool = False):
         super().__init__()
-        self.final_relu = final_relu
+        self.final_relu, self.relu_input = final_relu, relu_input
         self.Conv_0 = conv(c_in, features, 3, stride, 1, bias=False)
         self.BatchNorm_0 = batch_norm(features)
 
     def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
+        x = relu_conv(self.Conv_0, x) if self.relu_input else self.Conv_0(x)
+        x = self.BatchNorm_0(x)
         return F.relu(x) if self.final_relu else x
 
 
@@ -62,12 +66,14 @@ class _Neck(nn.Module):
         self.BatchNorm_0 = batch_norm(features)
 
     def forward(self, x):
-        return self.BatchNorm_0(self.Conv_0(F.relu(x)))
+        return self.BatchNorm_0(relu_conv(self.Conv_0, x))
 
 
 class _Head(nn.Module):
     """ReLU - conv - BN - ReLU - conv output head; the last conv runs in
-    its weights' dtype (float32 under bf16 compute) with autocast off."""
+    its weights' dtype (float32 under bf16 compute) with autocast off. In
+    int8 both ReLUs fold into the convs' quantizes (the second commutes
+    with the cast to the weights' dtype)."""
 
     tp = None
 
@@ -80,9 +86,8 @@ class _Head(nn.Module):
         self.Conv_1 = conv(mid_features, out_features, 1, bias=True)
 
     def forward(self, x):
-        x = F.relu(self.BatchNorm_0(self.Conv_0(F.relu(x))))
-        with torch.autocast(device_type=x.device.type, enabled=False):
-            y = self.Conv_1(x.to(self.Conv_1.weight.dtype))
+        x = self.BatchNorm_0(relu_conv(self.Conv_0, x))
+        y = relu_conv(self.Conv_1, x, weight_dtype=True)
         if self.tp is not None:
             y = self.tp.whole(y, self.Conv_1.out_channels)
         return y
@@ -150,11 +155,14 @@ class NPPNet(nn.Module):
         cell_args, self._boundaries, shallow_first = encoder_plan(
             layers, c, encoder, multiplier)
 
-        self.stem0 = _Stem(3, c, 2)
-        self.stem1 = _Stem(c, 2 * c, 2)
+        # stem0's ReLU is stem1's first op (and stem3's stem4's), so that
+        # int8 folds it into stem1's quantize; stem1's output is a cell
+        # state too, and keeps its own.
+        self.stem0 = _Stem(3, c, 2, final_relu=False)
+        self.stem1 = _Stem(c, 2 * c, 2, relu_input=True)
         self.stem2 = _Stem(2 * c, 2 * c, 1, final_relu=False)
-        self.stem3 = _Stem(3, c, 2)
-        self.stem4 = _Stem(c, 2 * c, 2)
+        self.stem3 = _Stem(3, c, 2, final_relu=False)
+        self.stem4 = _Stem(c, 2 * c, 2, relu_input=True)
         self.stem5 = _Stem(2 * c, 2 * c, 1, final_relu=False)
         self.cells1 = nn.ModuleList(Cell(*a, **fuse) for a in cell_args)
         self.cells2 = nn.ModuleList(Cell(*a, **fuse) for a in cell_args)

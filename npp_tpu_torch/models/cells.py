@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from npp_tpu_torch.genotypes import Edge
 from npp_tpu_torch.ops.primitives import (FactorizedReduce, ReLUConvBN,
                                           batch_norm, conv, make_op)
+from npp_tpu_torch.ops.quantize import relu_conv
 from npp_tpu_torch.ops.resize import resize_scale
 
 # Sibling-mergeable primitive families (npp_tpu/models/cells.py:23-31):
@@ -72,7 +73,7 @@ class SiblingConvGroup(nn.Module):
         self.BatchNorm_0 = batch_norm(k * c)
 
     def forward(self, x):
-        return self.BatchNorm_0(self.Conv_0(F.relu(x)))
+        return self.BatchNorm_0(relu_conv(self.Conv_0, x))
 
 
 class SiblingSEGroup(nn.Module):
@@ -93,7 +94,7 @@ class SiblingSEGroup(nn.Module):
     def forward(self, x):
         c = x.shape[1]
         w = x.mean(dim=(2, 3), keepdim=True)
-        w = torch.sigmoid(self.Conv_1(F.relu(self.Conv_0(w))))
+        w = torch.sigmoid(relu_conv(self.Conv_1, self.Conv_0(w)))
         out = torch.cat([x * w[:, i * c:(i + 1) * c] for i in range(self.k)],
                         dim=1)
         if self.stride == 1:

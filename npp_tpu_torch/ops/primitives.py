@@ -27,7 +27,10 @@ that read channels other than through a conv or a BN module
 channel block when ``parallel.tensor.convert_tensor_parallel`` gives them
 a ``tp``; with ``tp`` None they are unchanged too. Every dense conv
 (groups 1) serves in int8 once ``ops/quantize.prepare_int8`` has made it
-an ``Int8Conv2d``; grouped and depthwise convs stay floating point.
+an ``Int8Conv2d``; grouped and depthwise convs stay floating point. A
+ReLU that feeds a dense conv goes through ``quantize.relu_conv``: the
+same ``conv(F.relu(x))`` in floating point, the ReLU folded into the
+activation quantize in int8.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from npp_tpu_torch.ops.quantize import folds_relu, relu_conv
 from npp_tpu_torch.ops.resize import resize_scale
 
 
@@ -109,7 +113,7 @@ class ReLUConvBN(nn.Module):
         self.BatchNorm_0 = batch_norm(c_out, affine)
 
     def forward(self, x):
-        return self.BatchNorm_0(self.Conv_0(F.relu(x)))
+        return self.BatchNorm_0(relu_conv(self.Conv_0, x))
 
 
 class DilConvS(nn.Module):
@@ -162,7 +166,7 @@ class SEBlock(nn.Module):
             w = self.space.mean_hw(x)
         else:
             w = x.mean(dim=(2, 3), keepdim=True)
-        w = torch.sigmoid(self.Conv_1(F.relu(self.Conv_0(w))))
+        w = torch.sigmoid(relu_conv(self.Conv_1, self.Conv_0(w)))
         if self.tp is not None:
             x, w = self.tp.aligned(x, w, self.Conv_1.out_channels)
         out = x * w
@@ -187,22 +191,26 @@ class FactorizedReduce(nn.Module):
         self.Conv_1 = conv(c_in, c_out // 2, 1, 2, bias=False)
         self.BatchNorm_0 = batch_norm(c_out, affine)
 
-    def _branches(self, x):
+    def _branches(self, x, **relu):
         """Both branches with the convs' own arithmetic: output row o reads
         input rows 2o and 2o + 1 (one window of 2 rows at stride 2). On a
         channel block each branch is gathered whole: the concatenation of
         two blocks is not the BN's block. ``_conv_forward`` is the conv
         alone, without a sharded conv's input handling; for an int8 conv
-        (``ops/quantize.prepare_int8``) it is the int8 route."""
+        (``ops/quantize.prepare_int8``) it is the int8 route, which takes
+        ``relu=True`` (the ReLU folded into each branch's quantize: it
+        commutes with the shift)."""
         c0, c1 = self.Conv_0, self.Conv_1
-        y0 = c0._conv_forward(x, c0.weight, c0.bias)
-        y1 = c1._conv_forward(x[:, :, 1:, 1:], c1.weight, c1.bias)
+        y0 = c0._conv_forward(x, c0.weight, c0.bias, **relu)
+        y1 = c1._conv_forward(x[:, :, 1:, 1:], c1.weight, c1.bias, **relu)
         if self.tp is not None:
             y0 = self.tp.whole(y0, c0.out_channels)
             y1 = self.tp.whole(y1, c1.out_channels)
         return torch.cat([y0, y1], dim=1)
 
     def forward(self, x):
+        if folds_relu(self.Conv_0):  # int8: never sharded
+            return self.BatchNorm_0(self._branches(x, relu=True))
         x = F.relu(x)
         if self.tp is not None:  # once for both convs
             x = self.tp.conv_input(self.Conv_0, x)
@@ -226,7 +234,7 @@ class FacConv(nn.Module):
         self.BatchNorm_0 = batch_norm(c_out, affine)
 
     def forward(self, x):
-        return self.BatchNorm_0(self.Conv_1(self.Conv_0(F.relu(x))))
+        return self.BatchNorm_0(self.Conv_1(relu_conv(self.Conv_0, x)))
 
 
 class PooledConv(nn.Module):
@@ -251,7 +259,7 @@ class PooledConv(nn.Module):
         else:
             x = F.avg_pool2d(x, 2, 2)
         for i in range(self.conv_nums):
-            x = getattr(self, f"Conv_{i}")(F.relu(x))
+            x = relu_conv(getattr(self, f"Conv_{i}"), x)
             x = getattr(self, f"BatchNorm_{i}")(x)
         x = resize_scale(x, 2.0, align_corners=True, space=self.space)
         if self.conv_nums == 2 and self.stride == 2:

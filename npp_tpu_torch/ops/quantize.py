@@ -24,11 +24,16 @@ gets each one's plain version, and any other device raises:
   dims (1, 2, 3) of OIHW, then round half to even (``torch.round``, as
   ``jnp.round``). Plain torch: it runs once per prepared model.
 - ``quantize_act`` (``csrc/int8_quantize.cu``; plain version
-  ``quantize_act_reference``): dynamic, max(max|x|, 1e-8) / 127 over the
-  tensor (``act_absmax``, one launch that leaves the scale on the
-  device), then q = round(x / scale) in one launch; or static, with q
-  clipped to +-127, in that one launch. q comes out NHWC-contiguous (an
-  NCHW view of it), as the conv reads it.
+  ``quantize_act_reference``): with ``relu``, torch.relu of x first; then
+  dynamic, max(max|x|, 1e-8) / 127 over the tensor and q = round(x /
+  scale), in one launch that reads x once and leaves the scale on the
+  device; or static, with q clipped to +-127, in one launch of a plain
+  grid-stride loop. q comes out
+  NHWC-contiguous (an NCHW view of it), as the conv reads it. Each
+  launch's variant, grid and shared memory come from ``_quant_plan``, a
+  plain function of the input's size, layout and the card's SM count.
+  ``act_absmax`` (the absmax alone, one launch) serves ``calibrate_acts``
+  only.
 - ``conv_s8`` (``csrc/int8_conv.cu``; plain version
   ``conv_s8_reference``): the int8 conv of quantized operands with the
   fp32 epilogue float(acc) * (a_scale * w_scale) + bias, in that order.
@@ -36,7 +41,11 @@ gets each one's plain version, and any other device raises:
   from ``_conv_plan``, a plain function of the shapes.
 - ``int8_conv(x, conv)`` = ``quantize_act`` + ``conv_s8``;
   ``int8_conv_reference`` = ``quantize_act_reference`` +
-  ``conv_s8_reference``.
+  ``conv_s8_reference``. ``relu_conv(conv, x)`` is ``conv(F.relu(x))``,
+  which a prepared conv computes with the ReLU folded into its quantize
+  (``int8_conv(x, conv, relu=True)``): the call sites of the model's
+  ReLU -> dense conv pairs use it, so the int8 forward runs no separate
+  ReLU pass there, and the fp forward runs exactly what it ran.
 
 The output dtype follows npp_tpu's ``out_dtype = self.dtype or x.dtype``:
 the autocast dtype where autocast is on (bf16 in the serving forward),
@@ -45,6 +54,7 @@ autocast off). Importing this module builds nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from pathlib import Path
@@ -73,10 +83,21 @@ SMS = 132                   # the H100 SXM's SMs (the plan's default)
 STAGING_BYTES = 2 * 64 * (256 + 16)  # the epilogue's staging (kStagingBytes)
 TABLE_BYTES = 2 * 2 * 256 * 4  # its column scales and biases (kTableBytes)
 VARIANT_CODE = {"wgmma": 0, "packed": 1, "tiny_m": 2, "wgmma_tma": 3}
-# The quantize's launches (csrc/int8_quantize.cu).
-QUANT_THREADS = 256
+# The quantize's launches (see _quant_plan and csrc/int8_quantize.cu).
+QUANT_THREADS = 512         # threads of a channels_last or dynamic block
+LOOP_THREADS = 256          # of a plain grid-stride loop (kLoopThreads)
+QUANT_CHUNK = 16_384        # bytes of x per bulk copy (kChunk)
+QUANT_RING = 4              # ring chunks of a slice above the stash
+QUANT_PAIR = 2              # 16-byte vectors a loop thread an iteration
+QUANT_UNIT = 16             # elements: a block slice's granularity (kUnit)
+QUANT_MAX_STASH = 14        # stash chunks of a block, at most (kMaxStash)
+QUANT_BARRIER_BYTES = 512   # the mbarriers' shared memory (kBarrierBytes)
+TINY_QUANT_BYTES = 32_768   # at most this much x: one block, no barrier
+QUANT_MIN_SLICE = 4_096     # bytes of x a block slice, at least
 ABSMAX_BLOCKS = 1024        # blocks (partial maxima) of an absmax launch
-QUANT_BLOCKS = 8192         # blocks of a quantize launch, at most
+QUANT_BLOCKS = 8192         # blocks of a plain quantize loop, at most
+QUANT_VARIANT_CODE = {"tiny": 0, "cooperative": 1, "flat": 2, "nchw": 3,
+                      "nchw_static": 4}
 
 
 def quantize_weight(weight: torch.Tensor):
@@ -89,12 +110,15 @@ def quantize_weight(weight: torch.Tensor):
 
 
 def quantize_act_reference(x: torch.Tensor,
-                           act_scale: torch.Tensor | None = None):
+                           act_scale: torch.Tensor | None = None, *,
+                           relu: bool = False):
     """Plain version of ``quantize_act``: (int8 x in x's layout, its
-    float32 0-d scale). ``act_scale`` None is the dynamic scale; a static
-    one clips to +-127. The divisor is a tensor: a Python-scalar divisor
-    would let PyTorch's CUDA division multiply by its reciprocal, another
-    rounding than npp_tpu's."""
+    float32 0-d scale). ``relu`` quantizes ``F.relu(x)``. ``act_scale``
+    None is the dynamic scale; a static one clips to +-127. The divisor is
+    a tensor: a Python-scalar divisor would let PyTorch's CUDA division
+    multiply by its reciprocal, another rounding than npp_tpu's."""
+    if relu:
+        x = F.relu(x)
     xf = x.to(torch.float32)
     if act_scale is None:
         a_scale = torch.clamp(xf.abs().amax(), min=1e-8) / 127.0
@@ -137,10 +161,118 @@ def _quant_library() -> ctypes.CDLL:
         lib.npp_quantize_act.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.npp_quantize_act.restype = ctypes.c_int
         _LIBRARY["quant"] = lib
     return _LIBRARY["quant"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPlan:
+    """One launch of the quantize kernel (see ``_quant_plan``)."""
+    variant: str      # "tiny", "cooperative", "flat", "nchw", "nchw_static"
+    grid: int         # blocks
+    threads: int      # threads a block
+    numel: int        # elements of x
+    elem_size: int    # bytes an element (4 float32, 2 bfloat16)
+    stash_chunks: int  # QUANT_CHUNK-byte chunks of x a block keeps on chip
+    ring: int         # ring chunks of a streamed slice (0: none)
+    smem_bytes: int   # dynamic shared memory of a block
+    reread: int       # elements read from device memory (or the L2) twice
+
+    @property
+    def cooperative(self) -> bool:
+        """Launched cooperatively: a dynamic scale over more than one
+        block meets at a grid barrier."""
+        return self.variant in ("cooperative", "nchw") and self.grid > 1
+
+    @property
+    def units(self) -> int:
+        """QUANT_UNIT-element units of x that the blocks' slices cover (a
+        dynamic channels_last variant; the rest, the tail, is the last
+        block's)."""
+        return self.numel // QUANT_UNIT
+
+    def block_slice(self, b: int) -> tuple[int, int]:
+        """The elements [begin, end) of block ``b``'s slice, as the kernel
+        takes them (dynamic channels_last variants)."""
+        return (self.units * b // self.grid * QUANT_UNIT,
+                self.units * (b + 1) // self.grid * QUANT_UNIT)
+
+    def stashed(self, b: int) -> int:
+        """Elements of block ``b``'s slice that its stash keeps on chip."""
+        begin, end = self.block_slice(b)
+        return min(end - begin,
+                   self.stash_chunks * QUANT_CHUNK // self.elem_size)
+
+
+def _quant_smem(stash_chunks: int, ring: int) -> int:
+    """A channels_last block's dynamic shared memory: the mbarriers, the
+    stash and the ring."""
+    return QUANT_BARRIER_BYTES + (stash_chunks + ring) * QUANT_CHUNK
+
+
+def _quant_plan(numel: int, elem_size: int, layout: str, dynamic: bool,
+                sms: int = SMS) -> QuantPlan:
+    """The launch plan of ``quantize_act``'s kernel for an input of
+    ``numel`` elements of ``elem_size`` bytes in ``layout``
+    ("channels_last" or "nchw"), with a dynamic or a static scale, on a
+    card of ``sms`` SMs:
+
+    - channels_last, dynamic: ``tiny`` (at most TINY_QUANT_BYTES: one
+      block, no grid barrier) or ``cooperative``: one block an SM at most,
+      each a contiguous slice of whole QUANT_UNIT-element units of at
+      least QUANT_MIN_SLICE bytes. A slice of up to QUANT_MAX_STASH
+      chunks is kept whole on chip; a larger one keeps what fits beside a
+      ring of QUANT_RING chunks and streams the rest, which pass 2 reads
+      again (``reread``, with the tail of fewer than QUANT_UNIT elements,
+      which the last block reads twice from device memory).
+    - channels_last, static: ``flat``, a plain grid-stride loop of
+      LOOP_THREADS-thread blocks over x's 16-byte vectors, QUANT_PAIR a
+      thread an iteration, at most QUANT_BLOCKS blocks (nothing is read
+      twice).
+    - NCHW-contiguous: ``nchw`` (dynamic: a flat max, the grid barrier,
+      the quantize, at most one block an SM; x read twice) or
+      ``nchw_static`` (a plain grid-stride loop over the pixels)."""
+    if layout not in ("channels_last", "nchw") or elem_size not in (2, 4):
+        raise ValueError(f"_quant_plan: layout {layout!r}, {elem_size}-byte "
+                         f"elements")
+    nbytes = numel * elem_size
+    body_bytes = numel // QUANT_UNIT * QUANT_UNIT * elem_size
+    if layout == "nchw":
+        if dynamic:
+            grid = min(sms, max(1, -(-numel // QUANT_THREADS)))
+            return QuantPlan("nchw", grid, QUANT_THREADS, numel, elem_size, 0,
+                             0, 0, numel)
+        grid = min(QUANT_BLOCKS, max(1, -(-numel // LOOP_THREADS)))
+        return QuantPlan("nchw_static", grid, LOOP_THREADS, numel, elem_size,
+                         0, 0, 0, 0)
+    if not dynamic:
+        vectors = max(1, nbytes // 16)
+        grid = min(QUANT_BLOCKS, -(-vectors // (LOOP_THREADS * QUANT_PAIR)))
+        return QuantPlan("flat", grid, LOOP_THREADS, numel, elem_size, 0, 0,
+                         0, 0)
+    if nbytes <= TINY_QUANT_BYTES:
+        grid = 1
+    else:
+        grid = min(sms, -(-body_bytes // QUANT_MIN_SLICE))
+    units = numel // QUANT_UNIT
+    widest = -(-units // grid) * QUANT_UNIT * elem_size  # bytes of a slice
+    need = -(-widest // QUANT_CHUNK)  # its chunks
+    stash, ring = need, 0
+    if stash > QUANT_MAX_STASH:
+        ring = QUANT_RING
+        stash = 0
+        while _quant_smem(stash + 1, ring) <= _quant_smem(QUANT_MAX_STASH, 0):
+            stash += 1
+    stash_elems = stash * QUANT_CHUNK // elem_size
+    reread = numel - units * QUANT_UNIT + sum(
+        max(0, (units * (b + 1) // grid - units * b // grid) * QUANT_UNIT
+            - stash_elems) for b in range(grid))
+    return QuantPlan("tiny" if grid == 1 else "cooperative", grid,
+                     QUANT_THREADS, numel, elem_size, stash, ring,
+                     _quant_smem(stash, ring), reread)
 
 
 def _counters(device: torch.device, n: int, kernel: str) -> torch.Tensor:
@@ -160,7 +292,9 @@ def act_absmax(x: torch.Tensor) -> torch.Tensor:
     """(2,) float32 on x's device: [max|x|, max(max|x|, 1e-8) / 127], the
     dynamic scale's two numbers. A CUDA tensor (float32 or bfloat16,
     4-D, dense) takes one launch of the kernel and no host
-    synchronisation; a CPU tensor gets ``act_absmax_reference``."""
+    synchronisation; a CPU tensor gets ``act_absmax_reference``.
+    ``calibrate_acts`` reads it; serving never does (``quantize_act``
+    finds the dynamic scale in its own launch)."""
     if x.device.type == "cpu":
         return act_absmax_reference(x)
     _check_act(x, "act_absmax")
@@ -171,7 +305,7 @@ def act_absmax(x: torch.Tensor) -> torch.Tensor:
     n = x.numel()
     per = 16 // x.element_size()
     blocks = max(1, min(ABSMAX_BLOCKS,
-                        -(-max(n // per, 1) // QUANT_THREADS)))
+                        -(-max(n // per, 1) // LOOP_THREADS)))
     stats = torch.empty(2, dtype=torch.float32, device=x.device)
     partials = torch.empty(blocks, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
@@ -191,55 +325,57 @@ def act_absmax(x: torch.Tensor) -> torch.Tensor:
 act_absmax.launches = 0  # kernel launches, read by chip_smoke.py
 
 
-def _quantize_kernel(lib: ctypes.CDLL, x: torch.Tensor,
-                     a_scale: torch.Tensor, clip: bool) -> torch.Tensor:
-    """One launch of the quantize kernel: x (N, C, H, W) by the device
-    scale ``a_scale`` -> int8 (N, H, W, C) contiguous, as an NCHW view."""
-    n, c, h, w = x.shape
-    if x.is_contiguous(memory_format=torch.channels_last):
-        layout = 0
-    elif x.is_contiguous():
-        layout = 1
-    else:
-        x = x.contiguous(memory_format=torch.channels_last)
-        layout = 0
-    q = torch.empty((n, h, w, c), dtype=torch.int8, device=x.device)
-    numel = x.numel()
-    if numel:
-        work = -(-numel // 8) if layout == 0 else n * h * w
-        blocks = max(1, min(QUANT_BLOCKS, -(-work // QUANT_THREADS)))
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.npp_quantize_act(
-                x.data_ptr(), _ACT_DTYPE[x.dtype], layout, numel, c, h * w,
-                int(x.data_ptr() % 16 == 0), a_scale.data_ptr(), int(clip),
-                q.data_ptr(), blocks, stream)
-        if err != 0:
-            raise RuntimeError(f"quantize_act kernel launch failed: "
-                               f"cudaError_t {err}")
-        quantize_act.launches += 1
-    return q.permute(0, 3, 1, 2)
-
-
-def quantize_act(x: torch.Tensor, act_scale: torch.Tensor | None = None):
+def quantize_act(x: torch.Tensor, act_scale: torch.Tensor | None = None, *,
+                 relu: bool = False):
     """(int8 x, NHWC-contiguous under an NCHW view; its float32 0-d scale
-    on x's device). ``act_scale`` None is the dynamic scale (on a CUDA
-    tensor: an ``act_absmax`` launch, then the quantize launch); a static
-    one clips to +-127 (the quantize launch alone). A CUDA tensor
-    (float32 or bfloat16, 4-D) goes to the kernels, a CPU tensor to
+    on x's device). ``relu`` quantizes ``F.relu(x)``. ``act_scale`` None
+    is the dynamic scale; a static one clips to +-127. A CUDA tensor
+    (float32 or bfloat16, 4-D) takes one launch of the kernel, in
+    ``_quant_plan``'s variant, with no host synchronisation (an unaligned
+    or non-dense x is copied first); a CPU tensor gets
     ``quantize_act_reference``; any other device raises."""
     if x.device.type == "cpu":
-        q, a_scale = quantize_act_reference(x, act_scale)
+        q, a_scale = quantize_act_reference(x, act_scale, relu=relu)
         if q.ndim == 4:
             q = q.contiguous(memory_format=torch.channels_last)
         return q, a_scale
     _check_act(x, "quantize_act")
+    if x.numel() == 0:
+        raise ValueError("quantize_act: an empty input")
     lib = _quant_library()  # builds (or raises) before any device work
-    if act_scale is None:
-        a_scale = act_absmax(x)[1]
+    if x.is_contiguous(memory_format=torch.channels_last):
+        layout = "channels_last"
+    elif x.is_contiguous():
+        layout = "nchw"
     else:
-        a_scale = act_scale.to(device=x.device, dtype=torch.float32)
-    return _quantize_kernel(lib, x, a_scale, act_scale is not None), a_scale
+        x, layout = x.contiguous(memory_format=torch.channels_last), \
+            "channels_last"
+    if x.data_ptr() % 16:  # the kernel's 16-byte loads and bulk copies
+        x = x.clone(memory_format=torch.channels_last
+                    if layout == "channels_last" else torch.contiguous_format)
+    n, c, h, w = x.shape
+    dev = x.device
+    plan = _quant_plan(x.numel(), x.element_size(), layout,
+                       act_scale is None, sms=_sm_count(dev))
+    if act_scale is None:
+        a_scale = torch.empty((), dtype=torch.float32, device=dev)
+    else:
+        a_scale = act_scale.to(device=dev, dtype=torch.float32).reshape(())
+    q = torch.empty((n, h, w, c), dtype=torch.int8, device=dev)
+    sync = _counters(dev, 5, "quantize") if plan.cooperative else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.npp_quantize_act(
+            x.data_ptr(), _ACT_DTYPE[x.dtype], QUANT_VARIANT_CODE[plan.variant],
+            x.numel(), c, h * w, int(relu), a_scale.data_ptr(), q.data_ptr(),
+            None if sync is None else sync.data_ptr(), plan.grid,
+            plan.stash_chunks, plan.ring, plan.smem_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"quantize_act kernel launch failed "
+                           f"({plan.variant}, grid {plan.grid}): cudaError_t "
+                           f"{err}")
+    quantize_act.launches += 1
+    return q.permute(0, 3, 1, 2), a_scale
 
 
 quantize_act.launches = 0  # kernel launches, read by chip_smoke.py
@@ -495,16 +631,45 @@ class Int8Conv2d(nn.Conv2d):
     """A dense ``nn.Conv2d`` served through ``int8_conv``, with the same
     parameter tensors and ``state_dict``. ``prepare_int8`` makes these;
     ``calibrating`` (set by ``calibrate_acts``) records the running
-    absmax of the inputs in ``act_absmax``."""
+    absmax of the inputs in ``act_absmax``. ``_conv_forward(...,
+    relu=True)`` is the conv of ``F.relu(x)`` with the ReLU folded into
+    the quantize (``relu_conv``)."""
 
     calibrating = False
 
-    def _conv_forward(self, x, weight, bias):
+    def _conv_forward(self, x, weight, bias, relu=False):
         if self.calibrating:
+            seen = F.relu(x) if relu else x
             self.act_absmax = torch.maximum(self.act_absmax,
-                                            act_absmax(x.detach())[0])
-            return int8_conv(x, self)
-        return int8_conv(x, self, act_scale=self.act_scale)
+                                            act_absmax(seen.detach())[0])
+            return int8_conv(x, self, relu=relu)
+        return int8_conv(x, self, act_scale=self.act_scale, relu=relu)
+
+
+def folds_relu(conv: nn.Module) -> bool:
+    """Whether ``conv`` folds a ReLU on its input into its activation
+    quantize (``conv._conv_forward(x, weight, bias, relu=True)``): a
+    prepared ``Int8Conv2d``."""
+    return isinstance(conv, Int8Conv2d)
+
+
+def relu_conv(conv: nn.Module, x: torch.Tensor, *,
+              weight_dtype: bool = False) -> torch.Tensor:
+    """``conv(F.relu(x))``; with ``weight_dtype``, in the conv's weights'
+    dtype with autocast off (the heads' last convs). A prepared
+    ``Int8Conv2d`` takes x as it is and folds the ReLU into its activation
+    quantize (one pass over x on the card; the ReLU commutes with the
+    cast); any other conv runs ``F.relu`` and itself, as before."""
+    fold = folds_relu(conv)
+    if not fold:
+        x = F.relu(x)
+    with (torch.autocast(device_type=x.device.type, enabled=False)
+          if weight_dtype else contextlib.nullcontext()):
+        if weight_dtype:
+            x = x.to(conv.weight.dtype)
+        if fold:
+            return conv._conv_forward(x, conv.weight, conv.bias, relu=True)
+        return conv(x)
 
 
 def _out_dtype(x: torch.Tensor) -> torch.dtype:
@@ -524,17 +689,19 @@ def _bias(conv: nn.Conv2d):
     return None if conv.bias is None else conv.bias.detach()
 
 
-def int8_conv(x, conv: Int8Conv2d, *, act_scale=None):
-    """The conv of ``x`` by the prepared ``conv`` in int8: the kernel on a
-    CUDA tensor, the plain version on a CPU one. No gradient flows."""
-    q_x, a_scale = quantize_act(x, act_scale)
+def int8_conv(x, conv: Int8Conv2d, *, act_scale=None, relu=False):
+    """The conv of ``x`` (of ``F.relu(x)`` with ``relu``) by the prepared
+    ``conv`` in int8: the kernels on a CUDA tensor, the plain versions on
+    a CPU one. No gradient flows."""
+    q_x, a_scale = quantize_act(x, act_scale, relu=relu)
     return conv_s8(q_x, conv.qweight, conv.wscale, a_scale, _bias(conv),
                    **_s8_args(conv, x))
 
 
-def int8_conv_reference(x, conv: Int8Conv2d, *, act_scale=None):
+def int8_conv_reference(x, conv: Int8Conv2d, *, act_scale=None,
+                        relu=False):
     """``int8_conv`` through the plain versions on any device."""
-    q_x, a_scale = quantize_act_reference(x, act_scale)
+    q_x, a_scale = quantize_act_reference(x, act_scale, relu=relu)
     return conv_s8_reference(q_x, conv.qweight, conv.wscale, a_scale,
                              _bias(conv), **_s8_args(conv, x))
 
@@ -581,7 +748,8 @@ def prepare_int8(model: nn.Module) -> nn.Module:
 def calibrate_acts(model: nn.Module, batches) -> nn.Module:
     """Static activation scales for a prepared ``model``: its int8 forward
     (dynamic scales) over ``batches`` (model inputs) records each dense
-    conv input's running absmax; each conv's ``act_scale`` becomes
+    conv input's running absmax (of ``F.relu(x)`` where the conv folds
+    the ReLU in: what it quantizes); each conv's ``act_scale`` becomes
     max(absmax, 1e-8) / 127. Returns ``model``."""
     convs = [m for m in model.modules() if isinstance(m, Int8Conv2d)]
     if not convs:
