@@ -124,7 +124,18 @@ bar); 20c the predict CLI with its fused defaults and ``--int8``, and
 ``eval_lip --synthetic --int8``; the int8 kernels' launches by path: on
 the int8 paths one quantize launch per conv launch, dynamic or static,
 and no absmax launch; one absmax launch per conv under calibration;
-none of the three on any fp path.
+none of the three on any fp path; 21 npp_tpu's optimizer state into the
+port and back (21a right after 7 on its flagship bs16 train state, 21b
+right after 9 on its reference-scale search state): the state as
+npp_tpu's flat tree (``utils/convert.jax_state_tree``, a search in
+npp_tpu's default vmapped layout) in an ``.npz``, loaded into a state of
+another seed (``load_jax_state``): every value of the checkpoint blob
+bit for bit and each moment in its parameter's strides; then one step
+(a search: a weight step and an arch step) from one batch that the
+heatmap kernel renders, on the loaded state, on a twin given its values
+and on the original: the twins' difference is the card's run-to-run
+spread of a step, and the original against the loaded state must stay
+within it.
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -183,6 +194,7 @@ from npp_tpu_torch.ops import quantize as Q
 from npp_tpu_torch.parallel import mesh, spatial, tensor, zero
 from npp_tpu_torch.tools import (augment_lip, eval_lip, eval_ppp_map,
                                  predict, search_lip, test_lip)
+from npp_tpu_torch.utils import convert
 from npp_tpu_torch.utils import metrics as M
 from npp_tpu_torch.utils import vis
 
@@ -287,6 +299,23 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TIMED_CALLS = 200          # calls per timed run
 COLD_RING = 8              # calls whose outputs stay referenced: 8 x 10 MB > 50 MB L2
+# Phase 21: npp_tpu's optimizer state into the port and back. The
+# original and a loaded twin hold the same values, so their next step may
+# differ only as two runs of one step do on the card (the backward's
+# atomics); the twins' difference measures that spread, and the original
+# against a twin must stay within SPREAD_MARGIN times it, in the step's
+# loss (a forward from equal values: the spread is 0, so equal) and in
+# the norm of the updated parameters' difference (a norm over tens of
+# millions of rounding differences varies far less between two runs than
+# their maximum: original against loaded came out 0.90-1.16 of the twins'
+# norm in this script's first two runs with the phase, on an NVIDIA H100
+# 80GB HBM3 at 700 W). A search pair's arch-step loss follows an update
+# that differs by that spread, and one scalar's difference between two
+# runs is no measure of another's (0.00035 between the twins, 0.00133
+# original against loaded, in one of those runs): it is held to
+# RESUME_RTOL, as the second loss after a restore in phases 7 and 9.
+SPREAD_MARGIN = 2.0
+
 # Phase 20: npp_tpu's serving layouts at the flagship width.
 INT8_CALLS = 40          # timed calls per shape class (cold L2 ring as phase 3)
 INT8_PLAIN_CALLS = 10    # the plain version's (its float64 conv is slow)
@@ -643,10 +672,12 @@ def fp32_loss(state, batch, hp, class_weights=LIP_CLASS_WEIGHTS) -> float:
     return loss
 
 
-def flagship_train(tag: str, out_root: str) -> dict:
+def flagship_train(tag: str, out_root: str) -> tuple[dict, dict]:
     """Phase 7: the flagship train slice at batch 16, bf16 +
     channels_last, through the train CLI's functions; then the CLI, whose
-    run directory goes under ``out_root``."""
+    run directory goes under ``out_root``. Returns its numbers and what
+    phase 21a takes on: the state, its loader, its step and how to build
+    a fresh state."""
     hp = augment_lip.FLAGSHIP_TRAIN
     bs = hp["batch_size"]
     train_loader, val_loader = augment_lip.build_loaders(hp, "cuda")
@@ -761,9 +792,15 @@ def flagship_train(tag: str, out_root: str) -> dict:
     print(f"phase 7: python -m npp_tpu_torch.tools.augment_lip --synthetic "
           f"--steps 2 --epochs 1: train loss {out['train_loss']:.6f}, "
           f"{eval_lip.result_line(out['result'])} {tag}")
+    ctx = dict(state=state, loaders=(train_loader,),
+               steps=lambda st, b: step(st, b[0]),
+               make=lambda seed: augment_lip.init_state(
+                   eval_lip.FLAGSHIP, hp, device="cuda",
+                   dtype=torch.bfloat16, seed=seed,
+                   steps_per_epoch=len(train_loader)))
     return dict(step_ms=step_s * 1e3, img_per_s=bs / step_s,
                 peak_gib=peak / 2**30, idle_share=idle,
-                checkpoints=out["checkpoints"], **prof)
+                checkpoints=out["checkpoints"], **prof), ctx
 
 
 def tiny_search_run(device, batches) -> dict:
@@ -877,10 +914,11 @@ def check_tiny_search(tag: str) -> dict:
                 arch_abs=a_err, near_ties=ties, near_ties_apart=flips)
 
 
-def flagship_search(tag: str, out_root: str) -> dict:
+def flagship_search(tag: str, out_root: str) -> tuple[dict, dict]:
     """Phase 9: the search slice at the reference scale (L=16, C=32, batch
     7, 384x384, bf16 + channels_last) through the search CLI's functions;
-    then the CLI, whose run directory goes under ``out_root``."""
+    then the CLI, whose run directory goes under ``out_root``. Returns its
+    numbers and what phase 21b takes on (as ``flagship_train``)."""
     hp = search_lip.FLAGSHIP_SEARCH
     bs = hp["batch_size"]
     train_loader, mini_loader, _ = search_lip.build_loaders(hp, "cuda")
@@ -1017,6 +1055,16 @@ def flagship_search(tag: str, out_root: str) -> dict:
     if not (same and a == b):
         raise AssertionError("phase 9: the restored search state does not "
                              "resume the run")
+
+    def pair(st, batches):
+        m = weight_step(st, batches[0])
+        return dict(m, arch_loss=arch_step(st, batches[1], 1.0)["loss"])
+
+    ctx = dict(state=state, loaders=(train_loader, mini_loader), steps=pair,
+               make=lambda seed: search_lip.init_state(
+                   search_lip.FLAGSHIP_SEARCH_MODEL, hp, device="cuda",
+                   dtype=torch.bfloat16, seed=seed,
+                   steps_per_epoch=len(train_loader)))
     del state, tb, mb
     torch.cuda.empty_cache()
 
@@ -1036,7 +1084,108 @@ def flagship_search(tag: str, out_root: str) -> dict:
                 arch_step_ms=a_s * 1e3, img_per_s=bs / pair_s,
                 peak_gib=peak / 2**30, idle_share=idle, params=n_params,
                 loss_rel_bf16=rel, genotype=genotype,
-                search_checkpoints=out["checkpoints"], **prof)
+                search_checkpoints=out["checkpoints"], **prof), ctx
+
+
+def moments_in_param_strides(state) -> bool:
+    """Whether every Adam moment of ``state``'s optimizers has its
+    parameter's shape and strides."""
+    opts = [getattr(state, k) for k in ("optimizer", "w_optimizer",
+                                        "a_optimizer") if hasattr(state, k)]
+    return all(v.shape == p.shape and v.stride() == p.stride()
+               for o in opts for p, entry in o.state.items()
+               for k, v in entry.items() if k.startswith("exp_avg"))
+
+
+def step_apart(a, b, ma, mb) -> dict:
+    """|loss a - loss b| (and of a search pair's arch-step loss), and the
+    max and norm of the parameters' difference, after one step (or pair)
+    of two states."""
+    out = {k: abs(ma[k].item() - mb[k].item()) for k in ("loss", "arch_loss")
+           if k in ma}
+    sq, top = 0.0, 0.0
+    pb = {**dict(b.model.named_parameters()), **b.lamdas}
+    for k, p in [*a.model.named_parameters(), *a.lamdas.items()]:
+        d = (p.detach() - pb[k].detach()).float()
+        sq += float((d * d).sum())
+        top = max(top, float(d.abs().max()))
+    return dict(out, max=top, norm=sq ** 0.5)
+
+
+def state_exchange(tag: str, phase: str, ctx: dict) -> dict:
+    """Phase 21a / 21b: the state in ``ctx`` as npp_tpu's flat tree in an
+    ``.npz`` (``convert.jax_state_tree``) and back into a state built from
+    another seed (``convert.load_jax_state``), bit for bit; then one step
+    from one batch rendered here by the heatmap kernel, on the loaded
+    state, on its twin (a third state given the loaded one's values) and
+    on the original (module docstring)."""
+    state = ctx["state"]
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        t0 = time.perf_counter()
+        tree = convert.jax_state_tree(state)
+        np.savez(path, **tree)
+        export_s = time.perf_counter() - t0
+        n_leaves, npz_bytes = len(tree), os.path.getsize(path)
+        del tree
+        loaded = ctx["make"](SEED + 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with np.load(path) as f:
+            convert.load_jax_state(loaded, {k: f[k] for k in f.files})
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+    same = same_values(checkpoint.state_dict(state),
+                       checkpoint.state_dict(loaded))
+    # The spread's twin: the loaded state again, through the port's own
+    # checkpoint blob (copied: a loaded optimizer would share its tensors).
+    twin = ctx["make"](SEED + 3)
+    checkpoint.load_state_dict(twin, copy.deepcopy(
+        checkpoint.state_dict(loaded)))
+    strides = all(moments_in_param_strides(t) for t in (loaded, twin))
+    launched = heatmaps.render_heatmaps.launches
+    batches = [take(loader, 1)[0] for loader in ctx["loaders"]]
+    launched = heatmaps.render_heatmaps.launches - launched
+    m_twin = ctx["steps"](twin, batches)
+    m_loaded = ctx["steps"](loaded, batches)
+    m_orig = ctx["steps"](state, batches)
+    torch.cuda.synchronize()
+    spread = step_apart(twin, loaded, m_twin, m_loaded)
+    resumed = step_apart(state, loaded, m_orig, m_loaded)
+    del loaded, twin
+    torch.cuda.empty_cache()
+
+    def fmt(d):
+        return ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+
+    print(f"phase {phase}: npp_tpu state exchange: {n_leaves:,} leaves, "
+          f".npz {npz_bytes:,} bytes, export {export_s:.3f} s, import "
+          f"{import_s:.3f} s; every value of the "
+          f"checkpoint blob identical {same}, moments in their parameters' "
+          f"strides {strides}; heatmap launches rendering the resumed "
+          f"steps' batches {launched}; one step, the loss "
+          f"{m_orig['loss'].item():.6f}: twins apart (the spread) "
+          f"{fmt(spread)}; original vs loaded {fmt(resumed)} (loss and "
+          f"norm <= {SPREAD_MARGIN} x the spread; an arch loss within "
+          f"{RESUME_RTOL}) {tag}")
+    if not (same and strides):
+        raise AssertionError(f"phase {phase}: the loaded state differs from "
+                             f"the exported one")
+    if launched != len(batches):
+        raise AssertionError(f"phase {phase}: {launched} heatmap launches "
+                             f"for {len(batches)} batches")
+    arch_ok = ("arch_loss" not in resumed or resumed["arch_loss"] <= max(
+        SPREAD_MARGIN * spread["arch_loss"],
+        RESUME_RTOL * abs(m_orig["arch_loss"].item())))
+    if not (resumed["loss"] <= SPREAD_MARGIN * spread["loss"]
+            and resumed["norm"] <= SPREAD_MARGIN * spread["norm"] and arch_ok
+            and math.isfinite(m_orig["loss"].item())):
+        raise AssertionError(f"phase {phase}: the resumed step leaves the "
+                             f"card's run-to-run spread")
+    return dict(leaves=n_leaves, npz_bytes=npz_bytes, export_s=export_s,
+                import_s=import_s, launches=launched, spread=spread,
+                resumed=resumed)
 
 
 def serve_images(n: int, sizes=None, seed: int = SEED) -> list:
@@ -4368,9 +4517,17 @@ def main() -> int:
 
     # Phase 7: the flagship train slice in bf16 + channels_last.
     heatmaps.render_heatmaps.launches = 0  # the train path's count
-    train = flagship_train(tag, runs.name)
+    train, train_ctx = flagship_train(tag, runs.name)
     launches["train"] = heatmaps.render_heatmaps.launches
     clock.done(7)
+
+    # Phase 21a: phase 7's train state to npp_tpu's tree and back.
+    heatmaps.render_heatmaps.launches = 0  # the exchange path's count
+    exchange = {"train": state_exchange(tag, "21a", train_ctx)}
+    launches["exchange"] = heatmaps.render_heatmaps.launches
+    del train_ctx
+    torch.cuda.empty_cache()
+    clock.done("21a")
 
     # Phase 8: the tiny search pair, card against CPU (fp32, TF32 off).
     tiny_search = check_tiny_search(tag)
@@ -4378,9 +4535,17 @@ def main() -> int:
 
     # Phase 9: the search slice at the reference scale.
     heatmaps.render_heatmaps.launches = 0  # the search path's count
-    search = flagship_search(tag, runs.name)
+    search, search_ctx = flagship_search(tag, runs.name)
     launches["search"] = heatmaps.render_heatmaps.launches
     clock.done(9)
+
+    # Phase 21b: phase 9's search state to npp_tpu's tree and back.
+    heatmaps.render_heatmaps.launches = 0  # the exchange path's count
+    exchange["search"] = state_exchange(tag, "21b", search_ctx)
+    launches["exchange"] += heatmaps.render_heatmaps.launches
+    del search_ctx
+    torch.cuda.empty_cache()
+    clock.done("21b")
 
     # Phase 10: the tiny Predictor, card against CPU (fp32, TF32 off).
     tiny_serve = check_tiny_serve(tag)
@@ -4471,14 +4636,14 @@ def main() -> int:
                "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
                "lip_disk": from_disk, "ppp_and_fused_disk": more_disk,
                "ddp_shared_card": shared, "ddp_nccl": nccl,
-               "spatial": sp, "tensor": tp}
+               "spatial": sp, "tensor": tp, "state_exchange": exchange}
     print(f"summary: heatmap kernel launches on the main paths: {launches}; "
           f"phase seconds {json.dumps(seconds)}; "
           f"summary {json.dumps(summary)}")
     for path in ("eval", "train", "search", "ppp_train", "ppp_search",
                  "chain", "lip_disk", "ppp_disk", "lip_fast_disk",
                  "ddp_shared_card", "ddp_train", "ddp_search", "ddp_eval",
-                 "sp_train", "tp_train", "eval_int8"):
+                 "sp_train", "tp_train", "eval_int8", "exchange"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")

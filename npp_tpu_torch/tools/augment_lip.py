@@ -23,6 +23,11 @@ drawn from ``--seed``; ``--genotype`` builds the net from a search's
 checkpoint directory's weights into it (its ``best`` checkpoint, else the
 latest epoch's; ``core/checkpoint.load_pretrained_params``), after
 ``--resume`` as in the JAX CLI, logging what it loaded and skipped.
+``--resume-jax STATE.npz`` continues an npp_tpu run instead: its
+``TrainState`` as a flat ``.npz`` (npp_tpu's keys, ``utils/convert.
+load_jax_state``; the README shows how to write it), weights, Adam's
+moments and counts, the schedule and the lambdas' gradient sum, from
+the epoch after ``meta/epoch`` (else after ``step`` / steps per epoch).
 
 Data: the dataset's directory (``--data-root``, by default the YAML's
 ``data/LIP/`` or ``data/pascal_data/``) laid out as the preset's
@@ -84,6 +89,7 @@ import argparse
 import itertools
 import os
 
+import numpy as np
 import torch
 
 from npp_tpu_torch import engine
@@ -97,6 +103,7 @@ from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.genotypes import load_genotypes
 from npp_tpu_torch.parallel import mesh
+from npp_tpu_torch.utils.convert import load_jax_state
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
 
@@ -228,6 +235,37 @@ def init_state(model_kw: dict, hp: dict, *, device, dtype, seed: int,
         **model_kw)
 
 
+def resume_from_jax(state, path: str, steps_per_epoch: int,
+                    log_fn=print) -> tuple[int, float, float]:
+    """Load the npp_tpu state in ``path`` (``--resume-jax``) into
+    ``state``; returns (the epoch to begin at, best mIoU, best PCK). The
+    state's ``step`` must end an epoch of ``steps_per_epoch`` updates, and
+    the epoch after ``meta/epoch`` where the file has it."""
+    with np.load(path) as f:
+        tree = {k: f[k] for k in f.files}
+    if "step" not in tree:
+        raise KeyError(f"{path}: no step; not an npp_tpu state")
+    step = int(tree["step"])
+    epoch, rest = divmod(step, steps_per_epoch)
+    if rest:
+        raise ValueError(f"{path}: step {step} is not at the end of an epoch "
+                         f"of {steps_per_epoch} steps")
+    if "meta/epoch" in tree and int(tree["meta/epoch"]) + 1 != epoch:
+        raise ValueError(f"{path}: step {step} ends epoch {epoch - 1} at "
+                         f"{steps_per_epoch} steps an epoch, meta/epoch says "
+                         f"{int(tree['meta/epoch'])}: the run took another "
+                         f"number of steps per epoch")
+    load_jax_state(state, tree)
+    optimizers = [o for o in (getattr(state, "optimizer", None),
+                              getattr(state, "w_optimizer", None),
+                              getattr(state, "a_optimizer", None)) if o]
+    lrs = {g["name"]: g["lr"] for o in optimizers for g in o.param_groups}
+    log_fn(f"resumed npp_tpu's state {path} at step {step}, epoch {epoch}, "
+           f"lr {lrs}")
+    return (epoch, float(tree.get("meta/best_iou", 0.0)),
+            float(tree.get("meta/best_pck", 0.0)))
+
+
 def make_train_step(hp: dict, preset=LIP):
     return T.make_train_step(class_weights=preset.class_weights,
                              ignore_index=IGNORE,
@@ -311,6 +349,12 @@ def start_ranks(p: argparse.ArgumentParser, args) -> tuple:
     return mesh.local_device(device), started
 
 
+def add_resume_jax_argument(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument("--resume-jax", default="", metavar="STATE.npz",
+                   help=f"continue an npp_tpu run from its {what} as a flat "
+                        f".npz (npp_tpu's keys; see the README)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_cfg_argument(p, opts=True)
@@ -343,6 +387,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model compute dtype (the flagship's is bfloat16)")
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest epoch checkpoint")
+    add_resume_jax_argument(p, "TrainState")
     p.add_argument("--out", default="output",
                    help="root of the run's output and log directories")
     p.add_argument("--seed", type=int, default=0)
@@ -362,6 +407,8 @@ def main(argv=None) -> dict:
     if args.fast_aug and (data_root is None or preset.name != "lip"):
         p.error("--fast-aug is the LIP directory's fused-warp reader: drop "
                 "--synthetic and --dataset ppp")
+    if args.resume and args.resume_jax:
+        p.error("--resume and --resume-jax both restore the state: give one")
 
     device, started = start_ranks(p, args)
     model_kw, hp = preset.train_config(args.tiny)
@@ -398,6 +445,10 @@ def main(argv=None) -> dict:
                 best_iou = float(meta.get("best_iou", 0.0))
                 best_pck = float(meta.get("best_pck", 0.0))
                 logger.info(f"resumed from epoch {meta['epoch']}")
+        if args.resume_jax:
+            begin_epoch, best_iou, best_pck = resume_from_jax(
+                state, args.resume_jax, max(1, len(train_loader)),
+                logger.info)
         if args.pretrained_encoder:
             merged = merge_pretrained(state, args.pretrained_encoder,
                                       logger.info)
@@ -445,7 +496,7 @@ def main(argv=None) -> dict:
             torch.distributed.destroy_process_group()
     return {"state": state, "train_loss": train_loss, "result": result,
             "out_dir": out_dir, "checkpoints": ckpt.directory,
-            "merged": merged}
+            "merged": merged, "begin_epoch": begin_epoch}
 
 
 if __name__ == "__main__":

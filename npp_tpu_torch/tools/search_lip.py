@@ -51,6 +51,14 @@ card, the preset's batch per rank, global BN moments and losses, the
 architecture parameters' gradients averaged with the weights' by DDP,
 rank 0 logs and writes); ``--zero`` shards both Adams' state (ZeRO-1).
 
+``--resume-jax STATE.npz`` continues an npp_tpu search from its
+``SearchState`` as a flat ``.npz`` (npp_tpu's keys, in its default
+vmapped layout or the unrolled one; ``utils/convert.load_jax_state``):
+weights, architecture parameters, both Adams' moments and counts and the
+weight schedule, from the epoch after ``meta/epoch`` (else after ``step``
+/ steps per epoch); the warmup follows from that epoch, as after
+``--resume``.
+
 Not ported: ``--merged-streams``.
 
 Examples:
@@ -84,9 +92,11 @@ from npp_tpu_torch.genotypes import save_genotypes
 from npp_tpu_torch.models import genotype_parse as GP
 from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.tools.augment_lip import (LimitedLoader,
-                                             add_cfg_argument, data_source,
-                                             resolve_preset,
-                                             make_lip_eval_step, start_ranks)
+                                             add_cfg_argument,
+                                             add_resume_jax_argument,
+                                             data_source, make_lip_eval_step,
+                                             resolve_preset, resume_from_jax,
+                                             start_ranks)
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
 
@@ -189,6 +199,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "bfloat16)")
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest epoch checkpoint")
+    add_resume_jax_argument(p, "SearchState")
     p.add_argument("--out", default="output",
                    help="root of the run's output and log directories")
     p.add_argument("--seed", type=int, default=0)
@@ -207,6 +218,8 @@ def main(argv=None) -> dict:
                 "search reads the PPP YAML's SEARCH sets, which are LIP "
                 "annotation JSONs, not a PPP directory")
     data_root = data_source(p, args, preset)
+    if args.resume and args.resume_jax:
+        p.error("--resume and --resume-jax both restore the state: give one")
 
     device, started = start_ranks(p, args)
     model_kw, hp = preset.search_config(args.tiny)
@@ -237,6 +250,10 @@ def main(argv=None) -> dict:
                 best_iou = float(meta.get("best_iou", 0.0))
                 best_pck = float(meta.get("best_pck", 0.0))
                 logger.info(f"resumed from epoch {meta['epoch']}")
+        if args.resume_jax:
+            begin_epoch, best_iou, best_pck = resume_from_jax(
+                state, args.resume_jax, max(1, len(train_loader)),
+                logger.info)
 
         weight_step, arch_step = make_search_steps(hp, preset)
         # The LIP protocol for either dataset, as in the JAX search CLI.
@@ -300,7 +317,8 @@ def main(argv=None) -> dict:
             torch.distributed.destroy_process_group()
     return {"state": state, "train_loss": train_loss, "result": result,
             "genotype": genotype, "best_genotype": best_genotype,
-            "out_dir": out_dir, "checkpoints": ckpt.directory}
+            "out_dir": out_dir, "checkpoints": ckpt.directory,
+            "begin_epoch": begin_epoch}
 
 
 if __name__ == "__main__":

@@ -311,6 +311,19 @@ def test_adam_groups_schedule_and_crit_accum_match_optax(variables, accum):
                                    rtol=1e-6, atol=1e-7, err_msg=k)
 
 
+def test_train_backward_gives_every_parameter_and_lambda_a_gradient():
+    """torch's Adam skips a parameter whose ``.grad`` is None, where optax
+    moves every count and moment: an optimizer state carried across from
+    npp_tpu (``utils/convert.load_jax_state``) stays npp_tpu's only if
+    each step reaches every parameter and lambda, as the supernet's does
+    (``test_torch_search.py``)."""
+    state = _small_state()
+    ttrain.make_train_step(**LOSS_KW)(state, _torch_batch(_host_batch(3)))
+    tensors = [*state.model.parameters(), *state.lamdas.values()]
+    assert all(p.grad is not None for p in tensors)
+    assert len(state.optimizer.state) == len(tensors)
+
+
 def test_multistep_lr_matches_optax_schedule():
     ref = jtrain.multistep_lr(1.0, (2, 4, 4), 0.1, steps_per_epoch=10)
     ours = ttrain.multistep_lr((2, 4, 4), 0.1, steps_per_epoch=10)
