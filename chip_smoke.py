@@ -91,8 +91,15 @@ gloo ranks sharing the card: 18a a 1x2 space grid at the flagship width
 (the fp32 forward of each rank's 192 rows against one process's, the
 bf16 forward timed, profiled and its all-reduces counted,
 ``Predictor(mesh=)`` with pose scales against the unsharded one), 18b a
-2x1 data grid (``Predictor(mesh=)``, multi-scale ``testval(mesh=)``) and
-``test_lip --mesh`` under ``python -m torch.distributed.run``, 18c the
+2x1 data grid (multi-scale ``testval(mesh=)``) and ``test_lip --mesh``
+under ``python -m torch.distributed.run``, then npp_tpu's serving layouts
+on both grids (fused necks + cells, int8 with dynamic scales and
+calibrated, fused + int8) against one process's Predictor of each, a
+rank's windowed int8 convs against their plain version and the
+grid-scale quantize (the absmax kernel, one MAX all-reduce over the
+grid, the static quantize) against the one-device dynamic quantize of
+the whole activation, both bit for bit, each layout's int8 launches and
+all-reduces a batch counted, 18c the
 1x2 grid training (a tiny fp32 step against one process's, the flagship
 bf16 step at bs2 timed and profiled), 19 tensor parallelism, four gloo
 ranks sharing the card: 19c the hybrid ZeRO x TP layout on a 2x1x2 grid
@@ -335,6 +342,7 @@ CALIB_IMAGES = 16        # images of the int8 calibration
 SHARED_RELU_CONVS = ("stem2.Conv_0", "stem5.Conv_0")
 FUSED_LABEL_SHARE = 0.999  # fused vs unfused labels, fp32, TF32 off
 LAYOUT_IMAGES = 16       # images of the layout comparisons
+LAYOUT_STREAM = 32       # images of each 20b stream
 TIMING = (f"CUDA events around {TIMED_CALLS} calls queued behind a "
           f"torch.cuda._sleep, over the count; the outputs of the last "
           f"{COLD_RING} calls kept referenced (cold L2)")
@@ -1205,9 +1213,10 @@ def serve_images(n: int, sizes=None, seed: int = SEED) -> list:
     return ims
 
 
-def peak_is_unique(pred: Predictor, ims) -> np.ndarray:
+def peak_is_unique(pred: Predictor, ims, gap: float = UNIQUE_GAP
+                   ) -> np.ndarray:
     """(B, J) bool on the CPU predictor: whether each blurred fused
-    heatmap's maximum exceeds its second value by more than UNIQUE_GAP x
+    heatmap's maximum exceeds its second value by more than ``gap`` x
     the maximum."""
     pres = [[pred.preprocess(im, m) for im in ims] for m in pred.pose_scales]
     flat = np.stack([[p[0] for p in row] for row in pres], 1)
@@ -1217,7 +1226,7 @@ def peak_is_unique(pred: Predictor, ims) -> np.ndarray:
     hm = I.gaussian_blur(hm, pred.blur_sigma)
     top = hm.flatten(2).topk(2, dim=2).values
     return ((top[..., 0] - top[..., 1])
-            > UNIQUE_GAP * top[..., 0].abs()).cpu().numpy()
+            > gap * top[..., 0].abs()).cpu().numpy()
 
 
 def check_tiny_serve(tag: str) -> dict:
@@ -1363,12 +1372,12 @@ def flagship_serve(tag: str, train_ckpt: str, genotype: str) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     seg = test_seg.testval(apply_fn, loader, num_classes=20,
-                           scales=test_lip.TEST_SCALES, flip=True,
+                           scales=LIP.test['scale_list'], flip=True,
                            crop_size=(384, 384), ignore=eval_lip.IGNORE)
     per_image = (time.perf_counter() - t0) / len(ds)
     n_valid = 2 * 384 * 384
     print(f"phase 11: testval over 2 images at scales "
-          f"{test_lip.TEST_SCALES} with flips: {per_image * 1e3:.3f} ms per "
+          f"{LIP.test['scale_list']} with flips: {per_image * 1e3:.3f} ms per "
           f"image; pixel_acc {seg['pixel_acc']:.4f} mIoU "
           f"{seg['mean_iou']:.4f}; cm.sum={int(seg['cm'].sum())} == valid "
           f"pixels {n_valid} {tag}")
@@ -1561,9 +1570,10 @@ def quantize_agrees(x, act_scale) -> tuple[float, int]:
     """The quantize kernel's q and scale against its plain version's on
     ``x``, bit for bit, with and without the ReLU, dynamic and static (at
     ``act_scale`` where given, else at half each dynamic scale, so that
-    some values clip); and the calibration's absmax kernel against its
-    plain version on what the conv quantizes (``x``, or ``F.relu(x)``
-    where the ReLU folds in): [max|x|, scale] bit for bit. Returns
+    some values clip); and the absmax kernel against its plain version,
+    with and without its folded ReLU (what the conv quantizes: ``x``, or
+    ``F.relu(x)`` where the ReLU folds in): [max|x|, scale] bit for bit
+    (calibration and the grid's dynamic scale read it). Returns
     (max |diff|, static values clipped)."""
     err, clipped = 0.0, 0
     for relu in (False, True):
@@ -1572,8 +1582,8 @@ def quantize_agrees(x, act_scale) -> tuple[float, int]:
         static = act_scale if act_scale is not None else rs_d * 0.5
         q_s, s_s = Q.quantize_act(x, static, relu=relu)
         r_s, rs_s = Q.quantize_act_reference(x, static, relu=relu)
-        seen = F.relu(x) if relu else x
-        m_k, m_p = Q.act_absmax(seen), Q.act_absmax_reference(seen)
+        m_k = Q.act_absmax(x, relu=relu)
+        m_p = Q.act_absmax_reference(x, relu=relu)
         torch.cuda.synchronize()
         nhwc = (q_d.permute(0, 2, 3, 1).is_contiguous()
                 and q_s.permute(0, 2, 3, 1).is_contiguous())
@@ -1896,12 +1906,14 @@ def check_int8_counts(path: str, got: dict, scale: str | None) -> None:
     """The launch rule of ``path``: none of the three on an fp path
     (``scale`` None); on an int8 path at least one conv and one quantize
     per conv, dynamic or static; an absmax launch per conv under
-    calibration (``scale`` "calibrating") and never while serving."""
+    calibration (``scale`` "calibrating") and with a grid's dynamic scale
+    (``scale`` "grid"), and never while serving on one device."""
     if scale is None:
         ok = not any(got.values())
     else:
         ok = (got["conv"] > 0 and got["quantize"] == got["conv"]
-              and got["absmax"] == (got["conv"] if scale == "calibrating"
+              and got["absmax"] == (got["conv"] if scale in ("calibrating",
+                                                             "grid")
                                     else 0))
     if not ok:
         raise AssertionError(f"the {path} path's int8 launches {got} break "
@@ -2017,7 +2029,7 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
             check_int8_counts("calibrate", launches["calibrate"],
                               "calibrating")
             runs[name] = pred_q
-        got = serve_layout(runs[name], ims)
+        got = serve_layout(runs[name], ims[:LAYOUT_STREAM])
         results.setdefault(name, got.pop("results"))
         check_int8_counts(f"serve_{name}", got["int8_launches"],
                           name[5:] if name.startswith("int8") else None)
@@ -2029,7 +2041,7 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
             layouts[name] = dict(got, img_per_s_runs=[got["img_per_s"]],
                                  busy_ms_runs=[got["busy_ms"]])
         print(f"phase 20b: {name}: {got['img_per_s']:.3f} img/s over "
-              f"{len(ims)} images at bs{SERVE_BATCH} (phase 11 unfused "
+              f"{LAYOUT_STREAM} images at bs{SERVE_BATCH} (phase 11 unfused "
               f"{serve['img_per_s']:.3f}); one profiled batch: "
               f"{got['kernels']} device operations, busy "
               f"{got['busy_ms']:.3f} ms, idle {got['idle_share']:.3f}; peak "
@@ -2148,7 +2160,8 @@ def serving_layouts(tag: str, ctx: dict, serve: dict) -> tuple[dict, dict]:
         "unit": f"the dynamic scale (one launch) over one unfused "
                 f"flagship int8 forward at bs{SERVE_BATCH} ({one['calls']} "
                 f"calls); bound: x read once, int8 written once; the absmax "
-                f"launches are calibrate_acts' alone"}
+                f"launches are calibrate_acts' and, on a grid of ranks, the "
+                f"dynamic scale's (phase 18b's sp_* paths)"}
     return (dict(layouts=layouts, cli=cli, heatmap_launches=heat), entry,
             quant_entry)
 
@@ -3143,8 +3156,8 @@ SHARED_STEPS = 2          # DDP train steps against the one-process run
 # decay. The card's backward is not bit-stable (atomics), so ZeRO is
 # held to plain DDP by the same first-step rules and RESUME_RTOL after.
 N_SHARED_VAL = 5          # validate's set: two ranks do not divide it
-DDP_TIMED = 6             # timed DDP steps; the first is dropped as warm-up
-SHARED_TIMED = 3          # 17a's flagship steps a rank; the first is dropped
+DDP_TIMED = 5             # timed DDP steps (after a warm-up one)
+SHARED_TIMED = 1          # 17a's timed flagship steps a rank
 
 
 def shard_batch(device, seed: int, rank: int, world: int, n: int = 4):
@@ -3264,9 +3277,9 @@ def shared_card_work(device, group) -> dict:
 
 
 def timed_train_step(step, state, batches, n: int) -> dict:
-    """``n`` train steps over ``batches`` after a warm-up one: the median
-    of the last ``n`` - 1 (host clock after ``synchronize``), each step's
-    ms, one profiled step (``profile_step``), the idle share and the peak
+    """``n`` train steps over ``batches`` after a warm-up one: their
+    median (host clock after ``synchronize``), each step's ms, one
+    profiled step (``profile_step``), the idle share and the peak
     memory."""
     step(state, batches[0])  # warm-up
     torch.cuda.synchronize()
@@ -3279,7 +3292,7 @@ def timed_train_step(step, state, batches, n: int) -> dict:
         times.append(time.perf_counter() - t0)
     if not math.isfinite(loss.item()):
         raise AssertionError("non-finite train loss")
-    step_s = statistics.median(times[1:])
+    step_s = statistics.median(times)
     prof = profile_step(step, state, batches[0])
     return dict(step_ms=step_s * 1e3, times_ms=[x * 1e3 for x in times],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -3531,7 +3544,7 @@ def shared_card(tag: str, train: dict) -> tuple[dict, int]:
               f"cuda:0, the flagship train step (bs{f['batch']} a rank, "
               f"384x384, bf16, channels_last, cross-rank BN, global "
               f"criterion, DDP): median {f['step_ms']:.3f} ms over "
-              f"{SHARED_TIMED - 1} warm steps "
+              f"{SHARED_TIMED} warm steps "
               f"({['%.1f' % x for x in f['times_ms']]} ms); "
               f"{f['kernels']} device operations, device busy "
               f"{f['busy_ms']:.3f} ms, idle share {f['idle_share']:.3f}, "
@@ -3650,7 +3663,7 @@ def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict]:
             print(f"phase 17b: DDP train step at world size 1 over NCCL "
                   f"(bs16, 384x384, bf16, channels_last, "
                   f"find_unused_parameters={unused}): median "
-                  f"{t['step_ms']:.3f} ms over {DDP_TIMED - 1} warm steps "
+                  f"{t['step_ms']:.3f} ms over {DDP_TIMED} warm steps "
                   f"({['%.1f' % x for x in t['times_ms']]} ms); "
                   f"{t['kernels']} device operations, device busy "
                   f"{t['busy_ms']:.3f} ms, idle share {t['idle_share']:.3f}, "
@@ -3731,19 +3744,58 @@ def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict]:
 # Phase 18: spatial partitioning. Two gloo ranks share cuda:0 (NCCL
 # refuses two ranks on one card), as in 17a. 18a: a 1x2 space grid at the
 # flagship width (the fp32 forward against the one process's, the bf16
-# forward profiled, Predictor(mesh=)); 18b: a 2x1 data grid (Predictor and
-# multi-scale testval with mesh=) and test_lip --mesh under torchrun;
-# 18c: the 1x2 grid training (a tiny fp32 step against the one process's,
-# the flagship bf16 step at bs2 timed). Two ranks on one card measure
-# correctness and collective counts, not scaling.
+# forward profiled, Predictor(mesh=) with pose scales); 18b: a 2x1 data
+# grid (Predictor(mesh=) with pose scales, multi-scale testval with
+# mesh=) and test_lip --mesh under torchrun, then npp_tpu's serving
+# layouts on both grids (fused necks + cells, int8 dynamic, int8
+# calibrated, fused + int8; each against the one process's Predictor of
+# that layout), with the dynamic layout served again with each rank's own
+# max as its scale (the negative control), a rank's int8 conv launches
+# against the plain version on the same windows or shard and the
+# grid-scale quantize against the one-device dynamic quantize of the
+# whole activation, both bit for bit; 18c: the 1x2 grid training (a tiny
+# fp32 step against the one process's, the flagship bf16 step at bs2
+# timed). Two ranks on one card measure correctness and collective
+# counts, not scaling.
 SP_WORLD = 2
 SP_TIMEOUT_S = 300      # a rank that has not ended by then fails the phase
 SP_FWD_ATOL = 1e-4      # npp_tpu's bound for the sharded fp32 forward
 SP_FWD_BATCH = 2
 SP_SERVE_IMAGES = 8
 SP_POSE_SCALES = (1.0, 0.75)
-SP_TIMED = 2            # 18c's flagship steps a rank; the first is dropped
+SP_TIMED = 1            # 18c's timed flagship steps a rank
 SP_MS_SCALES = (0.5, 1.0)
+# 18b's serving layouts, at the base pose scale (the fp pairs of 18a and
+# 18b hold the pose-scale TTA on both grids), each against the one
+# process's Predictor of the layout. On the data grid each rank runs
+# whole images through the one process's kernels and the grid's max is
+# the whole batch's, so all four layouts are held at the fp bounds, and
+# every int8 conv call takes the one process's dynamic scale bit for bit.
+# On the space grid the fused fp32 layout is held at the fp bounds too;
+# an int8 layout cannot be: an fp32 rounding difference (the sharded fp
+# ops round otherwise) that crosses a midpoint of the int8 grid moves a
+# value one quantum, that moves the next convs' maxima, and at the
+# flagship's depth (552 int8 convs a forward, seeded weights) the flips
+# spread over the maps. So there its crop labels may differ from the one
+# process's on at most SP_INT8_NOISE_X times the share on which the one
+# process's int8 labels differ from its fp32 ones (the quantization's own
+# error; keypoints printed beside, with no bar), and the int8 conv calls
+# of the stems, whose inputs the grid computes bit for bit, take the one
+# process's dynamic scales bit for bit (the grid's max is the whole
+# activation's). The control (each rank's own max) must miss the data
+# grid's fp bounds and the space grid's stem scales.
+SP_LAYOUTS = {"fused": dict(fuse_necks=True, fuse_cells=True),
+              "int8_dynamic": dict(quantize="int8"),
+              "int8_calibrated": dict(quantize="int8"),
+              "fused_int8": dict(fuse_necks=True, fuse_cells=True,
+                                 quantize="int8")}
+SP_LAYOUT_SCALES = (1.0,)
+SP_LAYOUT_FLIP = False   # one forward a batch (18a and 18b's fp pairs flip)
+SP_INT8_NOISE_X = 2.0
+SP_INT8_GAP = 0.05       # a unique peak's top-2 gap, x the peak (printing)
+# The grid-scale quantize's activation: the 3x3 128->128 conv's input at
+# bs8 (bf16, channels_last), with a spike on the last rank's part.
+SP_QUANT_SHAPE = (8, 128, 96, 96)
 
 
 def sp_images(n: int) -> torch.Tensor:
@@ -3812,10 +3864,176 @@ def count_collectives(fn) -> tuple:
         dist.all_reduce = real
 
 
+def own_part(t: torch.Tensor, grid) -> torch.Tensor:
+    """Data shard ``grid.d`` and row block ``grid.s`` of a whole NCHW
+    tensor."""
+    b, h = len(t) // grid.n_data, t.shape[2] // grid.n_space
+    return t[grid.d * b:(grid.d + 1) * b, :, grid.s * h:(grid.s + 1) * h]
+
+
+def grid_quantize_check(grid, device) -> dict:
+    """18b: ``quantize.grid_quantize`` (the absmax kernel, one MAX
+    all-reduce, the static quantize kernel) of this rank's part of one
+    activation against the one-device dynamic quantize kernel on the
+    whole, int8 values and scale bit for bit, with and without the ReLU;
+    and the int8 values that a per-rank scale puts one quantum and more
+    apart (the control)."""
+    g = torch.Generator().manual_seed(SEED + 16)
+    whole = torch.randn(SP_QUANT_SHAPE, generator=g) * torch.linspace(
+        0.5, 2.0, SP_QUANT_SHAPE[0])[:, None, None, None]
+    whole[-1, 3, -5, 7] = 20.0
+    whole = whole.to(device, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    x = own_part(whole, grid).contiguous(memory_format=torch.channels_last)
+    out = {}
+    for relu in (False, True):
+        q, scale = Q.grid_quantize(x, grid.world, relu=relu)
+        q_all, scale_all = Q.quantize_act(whole, relu=relu)
+        want = own_part(q_all, grid)
+        q_own, _ = Q.quantize_act(x, relu=relu)
+        apart = (q_own.int() - want.int()).abs()
+        out[relu] = dict(equal=bool(torch.equal(q, want)
+                                    and same_scale(scale, scale_all)),
+                         one=int((apart == 1).sum()),
+                         more=int((apart > 1).sum()), n=apart.numel())
+    return out
+
+
+class wrapped:
+    """``Q.<name>`` replaced by ``wrapper(real, *args, **kw)`` inside the
+    block. The kernels' wrappers count their launches on the module's
+    name for themselves, so the count moves over to the wrapper and
+    back."""
+
+    def __init__(self, name: str, wrapper):
+        self.name, self.real = name, getattr(Q, name)
+        self.fn = lambda *a, **kw: wrapper(self.real, *a, **kw)
+
+    def __enter__(self):
+        self.fn.launches = self.real.launches
+        setattr(Q, self.name, self.fn)
+
+    def __exit__(self, *exc):
+        setattr(Q, self.name, self.real)
+        self.real.launches = self.fn.launches
+
+
+def call_scales(model, x) -> tuple[torch.Tensor, int]:
+    """The activation scale of every int8 conv call of one forward of
+    ``model`` on ``x``, in call order, and the calls that fold the ReLU
+    into their quantize."""
+    scales, folded = [], [0]
+
+    def record(real, x, act_scale=None, relu=False):
+        q, scale = real(x, act_scale, relu=relu)
+        scales.append(scale.reshape(()))
+        folded[0] += int(relu)
+        return q, scale
+
+    with wrapped("quantize_act", record), torch.inference_mode():
+        model(x)
+    return torch.stack(scales).cpu(), folded[0]
+
+
+def windowed_convs_check(model, x) -> dict:
+    """18b: every int8 conv launch of one forward of the grid's ``model``
+    on this rank's part ``x`` (its data shard; on a space grid its rows,
+    each conv on a row window with its halos) against
+    ``conv_s8_reference`` on the same int8 input, bit for bit; and each
+    call's dynamic scale."""
+    seen = dict(calls=0, equal=0, err=0.0)
+
+    def checked(real, q_x, qweight, w_scale, a_scale, bias, **kw):
+        out = real(q_x, qweight, w_scale, a_scale, bias, **kw)
+        ref = Q.conv_s8_reference(q_x, qweight, w_scale, a_scale, bias, **kw)
+        seen["calls"] += 1
+        seen["equal"] += int(torch.equal(out, ref))
+        seen["err"] = max(seen["err"],
+                          (out.float() - ref.float()).abs().max().item())
+        return out
+
+    with wrapped("conv_s8", checked):
+        seen["scales"], seen["folded"] = call_scales(model, x)
+    return seen
+
+
+def per_rank_control(pred, x, ims) -> dict:
+    """18b's negative control on the dynamic int8 layout: the scale of
+    every int8 conv call of one forward on this rank's part ``x``, and the
+    predictions of ``ims``, with each rank's own max as the scale (no MAX
+    all-reduce); the grid's scale group is put back after."""
+    convs = [m for m in pred.model.modules() if isinstance(m, Q.Int8Conv2d)]
+    group = convs[0].scale_group
+    for m in convs:
+        m.scale_group = None
+    try:
+        scales, _ = call_scales(pred.model, x)
+        with torch.no_grad():
+            return dict(scales=scales, serve=pred.predict_batch(ims))
+    finally:
+        for m in convs:
+            m.scale_group = group
+
+
+def sp_layout(device, grid, base, ims) -> dict:
+    """18b: the four serving layouts of ``base`` (an unconverted fp32
+    flagship) on ``grid``: after a warm-up batch of one image (which
+    traces the plan on the space grid), each one's predictions of a
+    batch timed (host clock after a synchronize) with its int8 launches,
+    all all-reduces and MAX all-reduces counted. The calibrated layout is
+    the dynamic one's Predictor after ``calibrate_int8``, whose launches
+    and all-reduces are counted too. The dynamic one also checks its int8
+    conv launches on this rank's part of the canvases and serves the
+    control (``per_rank_control``)."""
+    out = {}
+    for name, kw in SP_LAYOUTS.items():
+        row = {}
+        if name == "int8_calibrated":  # the dynamic one's, calibrated
+            reset_int8_counts()
+            before = mesh.all_max.calls
+            _, row["cal_all_reduces"] = count_collectives(
+                lambda: pred.calibrate_int8(ims, batch_size=len(ims)))
+            row["cal_all_max"] = mesh.all_max.calls - before
+            row["cal_launches"] = int8_counts()
+        else:
+            pred = Predictor(base, crop_size=(384, 384),
+                             pose_scales=SP_LAYOUT_SCALES,
+                             flip_test=SP_LAYOUT_FLIP, mesh=grid, **kw)
+            with torch.no_grad():  # warm-up; on a space grid, the plan
+                pred.predict_batch(ims[:1])
+        torch.cuda.synchronize()
+        reset_int8_counts()
+        before, t0 = mesh.all_max.calls, time.perf_counter()
+        with torch.no_grad():
+            row["serve"], row["all_reduces"] = count_collectives(
+                lambda: pred.predict_batch(ims))
+            torch.cuda.synchronize()
+        row["ms"] = (time.perf_counter() - t0) * 1e3
+        row["all_max"] = mesh.all_max.calls - before
+        row["launches"] = int8_counts()
+        if name == "int8_dynamic":
+            b = len(ims) // grid.n_data
+            canv = torch.from_numpy(np.stack([
+                pred.preprocess(im)[0]
+                for im in ims[grid.d * b:(grid.d + 1) * b]]))
+            x = pred._normalize(pred._own_rows(canv.to(device)))
+            row["windows"] = windowed_convs_check(pred.model, x)
+            row["own"] = per_rank_control(pred, x, ims)
+        out[name] = row
+    return out
+
+
 def sp_work(device) -> dict:
     """Phase 18's work on one rank of the two (``sp_rank``)."""
     space, data = mesh.make_grid(1, SP_WORLD), mesh.make_grid(SP_WORLD, 1)
-    out = {"s": space.s, "d": data.d}
+    out = {"s": space.s, "d": data.d, "seconds": {}}
+    t0 = time.perf_counter()
+
+    def done(section):
+        nonlocal t0
+        out["seconds"][section] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
     # 18a: the fp32 forward, then the bf16 one profiled.
     model = spatial.convert_spatial(sp_flagship(device), space)
     x = spatial.shard_batch_spatial({"image": sp_images(SP_FWD_BATCH)},
@@ -3826,8 +4044,7 @@ def sp_work(device) -> dict:
         out["fwd"] = [t.float().cpu() for stage in (pose_list, par_list)
                       for pair in stage for t in pair]
         model.dtype = torch.bfloat16
-        for _ in range(2):  # warm-up
-            model(x)
+        model(x)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, out["collectives"] = count_collectives(lambda: model(x))
@@ -3835,6 +4052,7 @@ def sp_work(device) -> dict:
         out["bf16_ms"] = (time.perf_counter() - t0) * 1e3
         out["bf16_prof"] = profile_step(lambda m, b: m(b), model, x)
     del model
+    done("18a forward")
     # 18a / 18b: Predictor(mesh=) on the space grid and on the data grid.
     ims = serve_images(SP_SERVE_IMAGES)
     for name, grid in (("serve_space", space), ("serve_data", data)):
@@ -3843,11 +4061,22 @@ def sp_work(device) -> dict:
         with torch.no_grad():
             out[name] = pred.predict_batch(ims)
         del pred
+        done(name)
     out["testval_cm"] = sp_testval(device, data)
+    done("testval")
+    # 18b: the serving layouts on both grids, then the grid quantize.
+    base = sp_flagship(device)
+    for name, grid in (("space", space), ("data", data)):
+        out[f"layouts_{name}"] = sp_layout(device, grid, base, ims)
+        out[f"quantize_{name}"] = grid_quantize_check(grid, device)
+        done(f"layouts {name}")
+    del base
+    torch.cuda.empty_cache()
     # 18c: the tiny step, then the flagship bf16 step at bs2, on the space
     # grid; the heatmap kernel renders every rank's batch at full height.
     heatmaps.render_heatmaps.launches = 0
     out["tiny"] = sp_tiny_step(device, space)
+    done("18c tiny")
     hp = dict(augment_lip.FLAGSHIP_TRAIN, batch_size=2)
     renderer = L.make_target_renderer(stride=4, sigma=eval_lip.SIGMA,
                                       num_joints=eval_lip.NUM_JOINTS,
@@ -3870,12 +4099,14 @@ def sp_work(device) -> dict:
     out["flagship"] = timed_train_step(step, state, batches, SP_TIMED)
     out["flagship"]["rows"] = tuple(batches[0]["image"].shape)
     out["launches"] = heatmaps.render_heatmaps.launches
+    done("18c flagship")
     return out
 
 
-def sp_rank(rank: int, port: int, out_dir: str) -> None:
-    """A phase 18 rank (spawned): joins the gloo group of SP_WORLD ranks on
-    cuda:0, runs ``sp_work`` and saves its results."""
+def sp_rank(rank: int, port: int, out_dir: str, spawned: float) -> None:
+    """A phase 18 rank (spawned at ``spawned``, ``time.time()``): joins the
+    gloo group of SP_WORLD ranks on cuda:0, runs ``sp_work`` and saves its
+    results."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_WORLD),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     torch.backends.cudnn.allow_tf32 = False
@@ -3883,7 +4114,10 @@ def sp_rank(rank: int, port: int, out_dir: str) -> None:
     if not mesh.initialize_distributed("cuda:0", backend="gloo"):
         raise RuntimeError("the gloo group did not start")
     try:
-        torch.save(sp_work("cuda:0"), os.path.join(out_dir, f"rank{rank}.pt"))
+        started = time.time() - spawned
+        out = sp_work("cuda:0")
+        out["seconds"] = {"start": round(started, 1), **out["seconds"]}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -3911,11 +4145,13 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
     port = free_port()
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=sp_rank, args=(r, port, tmp))
+        spawned = time.time()
+        procs = [ctx.Process(target=sp_rank, args=(r, port, tmp, spawned))
                  for r in range(SP_WORLD)]
         for p in procs:
             p.start()
         # The one process's references, meanwhile.
+        t_main = time.perf_counter()
         model = sp_flagship("cuda")
         with torch.no_grad():
             pose_list, par_list = model(sp_images(SP_FWD_BATCH).to("cuda")
@@ -3929,7 +4165,34 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
                              pose_scales=SP_POSE_SCALES)
         one_serve = one_pred.predict_batch(ims)
         unique = peak_is_unique(one_pred, ims)
-        del model, one_pred
+        del one_pred
+        # The layouts' one-process Predictors (the int8 ones count their
+        # launches as a path of their own).
+        one_layouts = {}
+        reset_int8_counts()
+        for name, kw in SP_LAYOUTS.items():
+            if name == "int8_calibrated":
+                p.calibrate_int8(ims, batch_size=len(ims))
+            else:
+                p = Predictor(model, crop_size=(384, 384),
+                              pose_scales=SP_LAYOUT_SCALES,
+                              flip_test=SP_LAYOUT_FLIP, **kw)
+            with torch.no_grad():
+                one_layouts[name] = dict(
+                    serve=p.predict_batch(ims), unique=peak_is_unique(
+                        p, ims, SP_INT8_GAP if "quantize" in kw
+                        else UNIQUE_GAP))
+            if name == "int8_dynamic":  # its scales, call by call
+                canv = torch.from_numpy(np.stack([p.preprocess(im)[0]
+                                                  for im in ims]))
+                one_layouts["scales"], one_layouts["folded"] = call_scales(
+                    p.model, p._normalize(canv.to("cuda")))
+                one_layouts["stem_convs"] = sum(
+                    1 for n, m in p.model.named_modules()
+                    if n.startswith("stem") and isinstance(m, Q.Int8Conv2d))
+        del p
+        one_launches = int8_counts()
+        del model
         one_cm = sp_testval("cuda")
         one_tiny = sp_tiny_step("cuda")
         torch.cuda.empty_cache()
@@ -3938,6 +4201,7 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
             "npp_tpu_torch.tools.test_lip",
             ["--synthetic", "--tiny", "--mesh", "--limit", "2"], tmp,
             "test_lip_mesh")
+        main_s = time.perf_counter() - t_main
         deadline = time.monotonic() + SP_TIMEOUT_S
         for p in procs:
             p.join(timeout=max(1.0, deadline - time.monotonic()))
@@ -3959,10 +4223,10 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
             fwd_err = max(fwd_err, (got - want[:, :, r["s"] * h:
                                                (r["s"] + 1) * h])
                           .abs().max().item())
-    serve = {}
-    for name in ("serve_space", "serve_data"):
-        serve[name] = [serve_agreement(r[name], one_serve, unique)
-                       for r in ranks]
+    serve = {name: [serve_agreement(r[name], one_serve, unique)
+                    for r in ranks] for name in ("serve_space", "serve_data")}
+    layouts, launches = sp_layouts_report(ranks, one_layouts, ims, tag)
+    launches["sp_one_process"] = one_launches
     prof = [r["bf16_prof"] for r in ranks]
     print(f"phase 18a: 1x2 space grid, {SP_WORLD} gloo ranks sharing cuda:0, "
           f"flagship (L=16, C=64, 384x384, eval) at bs{SP_FWD_BATCH}: fp32 "
@@ -4001,6 +4265,9 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
                                                        "stats")
                for n, t in tiny[0][f].items())
     fl = [r["flagship"] for r in ranks]
+    print(f"phase 18: seconds by section, per rank "
+          f"{[r['seconds'] for r in ranks]}; the one process's references "
+          f"and test_lip --mesh meanwhile {main_s:.1f} s")
     print(f"phase 18c: 1x2 space grid train: tiny fp32 step (L=8, C=8, "
           f"128x128, bs4, each rank 64 rows) vs one process: mean losses "
           f"relative {loss_rel:.3g} (<= 1e-5), gradients worst tensor "
@@ -4009,7 +4276,7 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
           f"1e-4 x max|ref| + {STATS_ATOL}, lambda gradients {lg:.3g} (<= "
           f"1e-5), the ranks' state equal: {same}; flagship bf16 step at bs2 "
           f"(rank batch {fl[0]['rows']}): median "
-          f"{[round(f['step_ms'], 3) for f in fl]} ms over {SP_TIMED - 1} "
+          f"{[round(f['step_ms'], 3) for f in fl]} ms over {SP_TIMED} "
           f"warm steps a rank, {[f['kernels'] for f in fl]} device "
           f"operations, busy {[round(f['busy_ms'], 3) for f in fl]} ms, idle "
           f"share {[round(f['idle_share'], 3) for f in fl]}, peak "
@@ -4035,8 +4302,187 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
                 bf16_fwd_busy_ms=[p["busy_ms"] for p in prof],
                 collectives=[r["collectives"] for r in ranks],
                 serve=serve, testval_equal=cm_equal, tiny_loss_rel=loss_rel,
-                tiny_grad=(g_worst, g_norm), flagship=fl), \
-        sum(r["launches"] for r in ranks)
+                tiny_grad=(g_worst, g_norm), flagship=fl,
+                layouts=layouts, seconds=[r["seconds"] for r in ranks],
+                main_s=main_s), \
+        sum(r["launches"] for r in ranks), launches
+
+
+def int8_agreement(got: list, ref: list, unique: np.ndarray, ims) -> tuple:
+    """(crop label share, keypoint max|diff| in crop px over the joints
+    with a unique peak)."""
+    crop = float(np.mean([np.mean(a["parsing_crop"] == b["parsing_crop"])
+                          for a, b in zip(got, ref)]))
+    scale = np.array([384.0 / max(im.shape[:2]) for im in ims])
+    kp = np.stack([np.abs(a["keypoints"][:, :2] - b["keypoints"][:, :2])
+                   .max(axis=1) for a, b in zip(got, ref)]) * scale[:, None]
+    return crop, float(kp[unique].max()) if unique.any() else 0.0
+
+
+def leading_equal(got: torch.Tensor, want: torch.Tensor) -> int:
+    """How many calls from the first on take ``want``'s scales bit for
+    bit."""
+    same = got == want
+    return len(want) if bool(same.all()) else int(same.int().argmin())
+
+
+def sp_layouts_report(ranks, one, ims, tag) -> tuple[dict, dict]:
+    """18b's layouts: each rank's predictions against the one process's of
+    that layout (the data grid's and the fused fp32 ones at the fp bounds,
+    the space grid's int8 ones at the int8 noise bound), the dynamic
+    layout's per-rank-scale control against the same bound; the launch,
+    all-reduce and timing rows; the int8 conv launch, call scale and grid
+    quantize checks. Returns (the numbers, the int8 launches by path,
+    summed over the ranks)."""
+    out, launches = {}, {}
+    for grid in ("space", "data"):
+        for name, kw in SP_LAYOUTS.items():
+            rows = [r[f"layouts_{grid}"][name] for r in ranks]
+            ref = one[name]
+            int8 = "quantize" in kw
+            if int8 and grid == "space":
+                noise = 1.0 - int8_agreement(ref["serve"],
+                                             one["fused"]["serve"],
+                                             ref["unique"], ims)[0]
+
+                def agreement(serve):
+                    return int8_agreement(serve, ref["serve"], ref["unique"],
+                                          ims)
+
+                def within(a):
+                    return 1.0 - a[0] <= SP_INT8_NOISE_X * noise
+
+                bound = ("(crop label share, keypoint max|diff| crop px over "
+                         f"{int(ref['unique'].sum())} unique peaks) vs labels "
+                         f"apart on at most {SP_INT8_NOISE_X} x {noise:.6f}, "
+                         f"the share on which the one process's int8 labels "
+                         f"part from its fp32 ones")
+            else:
+                def agreement(serve):
+                    return serve_agreement(serve, ref["serve"], ref["unique"])
+
+                def within(a):
+                    return (a[0] >= LABEL_SHARE and a[1] >= LABEL_SHARE
+                            and a[2] <= KP_ATOL)
+
+                bound = (f"(crop, image label share, keypoint px, score) vs "
+                         f">= {LABEL_SHARE}, <= {KP_ATOL}")
+            agree = [agreement(r["serve"]) for r in rows]
+            ok = all(within(a) for a in agree)
+            got = [r["launches"] for r in rows]
+            path = f"sp_{grid}_{name}"
+            launches[path] = {k: sum(g[k] for g in got) for k in got[0]}
+            # The grid's dynamic scale: one absmax launch and one MAX
+            # all-reduce per int8 conv launch; none once calibrated.
+            scale = None if not int8 else (
+                "static" if name == "int8_calibrated" else "grid")
+            for g, r in zip(got, rows):
+                check_int8_counts(path, g, scale)
+                if int8 and r["all_max"] != (
+                        0 if scale == "static" else g["conv"]):
+                    raise AssertionError(f"phase 18b: {path}: {r['all_max']} "
+                                         f"MAX all-reduces for {g['conv']} "
+                                         f"int8 conv launches")
+            out[path] = dict(agreement=agree, ms=[r["ms"] for r in rows],
+                             all_reduces=[r["all_reduces"] for r in rows],
+                             all_max=[r["all_max"] for r in rows],
+                             launches=got)
+            fp_pair = out[f"sp_{grid}_fused"]["agreement"]
+            where = "1x2 space" if grid == "space" else "2x1 data"
+            print(f"phase 18b: {path} ({where} grid, {len(ims)} images, "
+                  f"fp32, flip {SP_LAYOUT_FLIP}, scales "
+                  f"{SP_LAYOUT_SCALES}) vs the one "
+                  f"process's Predictor of the layout: per rank {agree} "
+                  f"{bound}"
+                  + ("" if name == "fused" else
+                     f"; the fused fp32 pair's own {fp_pair}")
+                  + f"; ms a batch "
+                  f"{[round(r['ms'], 3) for r in rows]}, all-reduces a batch "
+                  f"{out[path]['all_reduces']} (MAX {out[path]['all_max']})"
+                  f", int8 launches a batch a rank {got} {tag}")
+            if name == "int8_dynamic":
+                control = [agreement(r["own"]["serve"]) for r in rows]
+                missed = not all(within(a) for a in control)
+                out[path]["control"] = dict(agreement=control, missed=missed)
+                print(f"phase 18b: {path} control (each rank's own max as "
+                      f"its scale, no MAX all-reduce): per rank {control}; "
+                      f"misses the bound: {missed} {tag}")
+                if grid == "data" and not missed:
+                    raise AssertionError("phase 18b: the per-rank-scale "
+                                         "control meets the data grid's "
+                                         "bound")
+            if int8 and name == "int8_calibrated":
+                cal = [r["cal_launches"] for r in rows]
+                for g, r in zip(cal, rows):
+                    check_int8_counts(f"{path} calibration", g, "grid")
+                    if r["cal_all_max"] != g["conv"]:
+                        raise AssertionError(f"phase 18b: calibration: "
+                                             f"{r['cal_all_max']} MAX "
+                                             f"all-reduces for {g}")
+                launches[f"sp_{grid}_calibrate"] = {
+                    k: sum(g[k] for g in cal) for k in cal[0]}
+                print(f"phase 18b: sp_{grid}_calibrate ({len(ims)} images, "
+                      f"one batch): int8 launches a rank {cal}, all-reduces "
+                      f"{[r['cal_all_reduces'] for r in rows]} (MAX "
+                      f"{[r['cal_all_max'] for r in rows]}) {tag}")
+            if not ok:
+                raise AssertionError(f"phase 18b: {path} disagrees with one "
+                                     f"process")
+    quant = {g: [r[f"quantize_{g}"] for r in ranks] for g in ("space",
+                                                             "data")}
+    # The dynamic scales call by call against the one process's (whole
+    # canvases, no flip): on the space grid the stems bit for bit, on the
+    # data grid every call; each rank's own max (the control) misses that.
+    n_stem, want = one["stem_convs"], one["scales"]
+    checks = {}
+    for grid in ("space", "data"):
+        dyn = [r[f"layouts_{grid}"]["int8_dynamic"] for r in ranks]
+        checks[grid] = dict(
+            calls=[d["windows"]["calls"] for d in dyn],
+            equal=[d["windows"]["equal"] for d in dyn],
+            err=[d["windows"]["err"] for d in dyn],
+            folded=[d["windows"]["folded"] for d in dyn],
+            leading_equal=[leading_equal(d["windows"]["scales"], want)
+                           for d in dyn],
+            drift=[(d["windows"]["scales"] / want - 1).abs().max().item()
+                   for d in dyn],
+            control_leading_equal=[leading_equal(d["own"]["scales"], want)
+                                   for d in dyn])
+    print(f"phase 18b: grid-scale quantize of a {SP_QUANT_SHAPE} bf16 "
+          f"activation (the absmax kernel, one MAX all-reduce, the static "
+          f"kernel) vs the one-device dynamic kernel on the whole, per rank "
+          f"(relu: bit for bit, per-rank scale's int8 values one quantum / "
+          f"more apart of n): {quant}; a rank's int8 conv launches of one "
+          f"forward (space: row windows; data: its shard) vs "
+          f"conv_s8_reference on the same input, their dynamic scales "
+          f"against the one process's ({len(want)} calls, {n_stem} stem "
+          f"convs; calls bit for bit from the first, worst relative drift), "
+          f"the control's, and the calls that fold the ReLU (one process: "
+          f"{one['folded']}): {checks} {tag}")
+    if not all(c["equal"] for rows in quant.values() for r in rows
+               for c in r.values()):
+        raise AssertionError("phase 18b: the grid quantize is not the "
+                             "one-device dynamic quantize")
+    for grid, c in checks.items():
+        if not (min(c["calls"]) > 0 and c["equal"] == c["calls"]):
+            raise AssertionError(f"phase 18b: an int8 conv launch on the "
+                                 f"{grid} grid disagrees with its plain "
+                                 f"version")
+        if not all(f == one["folded"] > 0 for f in c["folded"]):
+            raise AssertionError(f"phase 18b: the {grid} grid's int8 convs "
+                                 f"fold the ReLU at other calls than one "
+                                 f"process's")
+        need = n_stem if grid == "space" else len(want)
+        if not (n_stem >= 4 and min(c["leading_equal"]) >= need):
+            raise AssertionError(f"phase 18b: the {grid} grid's dynamic "
+                                 f"scales are not the one process's")
+        if not min(c["control_leading_equal"]) < need:
+            raise AssertionError(f"phase 18b: the per-rank-scale control "
+                                 f"takes the one process's scales on the "
+                                 f"{grid} grid")
+    out["quantize"] = quant
+    out["scales"] = dict(stem_convs=n_stem, calls=len(want), **checks)
+    return out, launches
 
 
 # Phase 19: tensor parallelism, four gloo ranks sharing cuda:0 (NCCL
@@ -4052,7 +4498,7 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
 # is not bit-stable, so ZeRO and plain TP agree by the rules, as in 17a).
 TP_WORLD = 4
 TP_TIMEOUT_S = 300      # a rank that has not ended by then fails the phase
-TP_TIMED = 2            # 19b's flagship steps a rank; the first is dropped
+TP_TIMED = 1            # 19b's timed flagship steps a rank
 TP_POSE_SHARE = 0.98    # 19a's decoded joints equal within KP_ATOL (ties)
 
 
@@ -4364,7 +4810,7 @@ def tensor_parallel(tag: str) -> tuple[dict, int]:
           f"{[f['gathers'] for f in fl]}, copies' all-reduces "
           f"{[f['copies'] for f in fl]}, all-reduces in all "
           f"{[f['all_reduces'] for f in fl]}; median "
-          f"{[round(f['step_ms'], 3) for f in fl]} ms over {TP_TIMED - 1} "
+          f"{[round(f['step_ms'], 3) for f in fl]} ms over {TP_TIMED} "
           f"warm step, {[f['kernels'] for f in fl]} device operations, "
           f"busy {[round(f['busy_ms'], 3) for f in fl]} ms, idle share "
           f"{[round(f['idle_share'], 3) for f in fl]}, peak "
@@ -4615,19 +5061,27 @@ def main() -> int:
     nccl, nccl_launches = nccl_world_one(tag, train)
     launches.update(nccl_launches)
     clock.done("17b")
+    fp_counts = int8_counts()
+    check_int8_counts("phases 12-17", fp_counts, None)
     # Phase 18: spatial partitioning; its ranks count the heatmap kernel's
-    # launches on the sp train path.
-    sp, launches["sp_train"] = spatial_parallel(tag)
+    # launches on the sp train path, and the int8 kernels' on the mesh
+    # serving paths (its one-process references count theirs).
+    sp, launches["sp_train"], sp_int8 = spatial_parallel(tag)
     clock.done(18)
+    reset_int8_counts()  # phase 19 is an fp path
     # Phase 19: tensor parallelism; its ranks count the heatmap kernel's
     # launches on the TP paths (19a-c's batches).
     tp, launches["tp_train"] = tensor_parallel(tag)
     clock.done(19)
-    fp_counts = int8_counts()
-    int8_entry["launches_by_path"]["phases_12_19"] = fp_counts["conv"]
-    quant_entry["launches_by_path"]["phases_12_19"] = (
-        fp_counts["quantize"] + fp_counts["absmax"])
-    check_int8_counts("phases 12-19", fp_counts, None)
+    tp_counts = int8_counts()
+    check_int8_counts("phase 19", tp_counts, None)
+    for path, got in (("phases_12_17", fp_counts), ("phase_19", tp_counts),
+                      *sp_int8.items()):
+        int8_entry["launches_by_path"][path] = got["conv"]
+        quant_entry["launches_by_path"][path] = (got["quantize"]
+                                                 + got["absmax"])
+        quant_entry["quantize_launches_by_path"][path] = got["quantize"]
+        quant_entry["absmax_launches_by_path"][path] = got["absmax"]
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
     summary = {"tiny_train": tiny, "train_step": train,
                "tiny_search": tiny_search, "search_pair": search,

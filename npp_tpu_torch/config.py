@@ -27,6 +27,15 @@ YAML's root, image and label directories with the id lists, pose
 ``.mat`` and mask ``.npy`` directories that ``tools/augment_lip.py``
 pairs with them.
 
+The YAML keys that npp_tpu's CLIs read besides (``TRAIN.BEGIN_EPOCH``,
+``TEST.FLIP_TEST``, ``TEST.SCALE_LIST``, ``POSE_GT_PATH``) are the
+preset's too: ``train["begin_epoch"]``, the first epoch of a train run
+that does not resume; ``test["flip_test"]``, the flip of the eval and
+test CLIs; ``test["scale_list"]``, the test CLI's scales; and
+``data["pose_gt_path"]``, the LIP pose CSV that the train, search and
+eval CLIs score PCKh against where that file exists (an explicit
+``--gt-csv`` wins). Only the configured path is read.
+
 Both datasets take OHEM at 0.9 / 131072: ``LOSS.USE_OHEM: False`` in the
 YAMLs is read nowhere (``npp_tpu/config.py:56``), and npp_tpu always
 applies OHEM. Joint target weights are off, as both released CLIs leave
@@ -47,6 +56,9 @@ TINY_CROP = (128, 128)
 
 _LOSS = dict(ohem_thres=0.9, ohem_keep=131072, use_target_weight=False)
 _RUN = dict(print_freq=100, workers=8)  # PRINT_FREQ, WORKERS
+# experiments/*/384_384.yaml:7, 89-90 (both files hold the same values)
+_POSE_GT = "data/LIP/pose_csv/pose_gt.csv"
+_TEST = dict(flip_test=True, scale_list=(0.5, 0.75, 1.0, 1.25, 1.5))
 
 
 def _net(num_classes: int, num_joints: int, layers: int,
@@ -72,6 +84,7 @@ class Preset:
     search: dict
     data: dict = dataclasses.field(default_factory=dict)
     reader: dict = dataclasses.field(default_factory=dict)
+    test: dict = dataclasses.field(default_factory=lambda: dict(_TEST))
 
     def train_config(self, tiny: bool = False) -> tuple[dict, dict]:
         """(NPPNet keyword arguments, train hyper-parameters)."""
@@ -94,13 +107,14 @@ LIP = Preset(
     model=_net(20, 16, 16, 64),
     train=dict(crop=(384, 384), batch_size=16, lr=0.0015,
                lr_step=(150, 170), lr_factor=0.2, epochs=190,
-               num_samples=5000, **_LOSS, **_RUN),
+               num_samples=5000, begin_epoch=0, **_LOSS, **_RUN),
     search_model=_net(20, 16, 16, 32),
     search=dict(crop=(384, 384), batch_size=7, w_lr=1e-3, alpha_lr=1e-3,
                 lr_step=(70, 100), lr_factor=0.2, warmup_epochs=15,
                 entropy_epoch=70, epochs=120, **_LOSS, **_RUN),
-    # experiments/lip/384_384.yaml:12-24, 57-59, 82-91
-    data=dict(root="data/LIP/", train_imroot="train_images",
+    # experiments/lip/384_384.yaml:7, 12-24, 57-59, 82-91
+    data=dict(pose_gt_path=_POSE_GT, root="data/LIP/",
+              train_imroot="train_images",
               val_imroot="val_images", test_imroot="val_images",
               train_segroot="train_segmentations",
               val_segroot="val_segmentations",
@@ -120,11 +134,12 @@ PPP = Preset(
     model=_net(7, 14, 16, 64),
     train=dict(crop=(384, 384), batch_size=2, lr=0.001,
                lr_step=(75, 85, 95), lr_factor=0.1, epochs=150,
-               num_samples=5000, **_LOSS, **_RUN),
+               num_samples=5000, begin_epoch=0, **_LOSS, **_RUN),
     search_model=_net(7, 14, 12, 32),
     search=LIP.search,  # the YAMLs' SEARCH sections differ in LAYERS only
-    # experiments/pascal/384_384.yaml:12-24 and tools/augment_lip.py:82-94
-    data=dict(root="data/pascal_data/", train_imroot="JPEGImages",
+    # experiments/pascal/384_384.yaml:7, 12-24 and tools/augment_lip.py:82-94
+    data=dict(pose_gt_path=_POSE_GT, root="data/pascal_data/",
+              train_imroot="JPEGImages",
               val_imroot="JPEGImages", train_segroot="SegmentationPart",
               val_segroot="SegmentationPart", train_set="train_id.txt",
               val_set="val_id.txt", pose_root="PersonJoints",
@@ -315,9 +330,8 @@ def load_preset(path: str) -> Preset:
     joint counts, sigma or ignore label differ from them is refused, as
     are values the port does not take."""
     cfg = load_yaml_config(path)
-    ds, md, tr, sr, loss = (cfg.get(k, {}) for k in ("DATASET", "MODEL",
-                                                     "TRAIN", "SEARCH",
-                                                     "LOSS"))
+    ds, md, tr, sr, loss, te = (cfg.get(k, {}) for k in (
+        "DATASET", "MODEL", "TRAIN", "SEARCH", "LOSS", "TEST"))
     name = ds.get("dataset", "lip")
     if name not in PRESETS:
         raise ValueError(f"{path}: DATASET.DATASET {name!r}; the port's "
@@ -342,7 +356,7 @@ def load_preset(path: str) -> Preset:
                                 "use_target_weight")))
     train = dict(base.train, **common, **pick(tr, (
         "batch_size", "lr", "lr_step", "lr_factor", "epochs",
-        "num_samples")))
+        "num_samples", "begin_epoch")))
     search = dict(base.search, **common, **pick(sr, (
         "batch_size", "w_lr", "alpha_lr", "lr_step", "lr_factor",
         "warmup_epochs", "entropy_epoch", "epochs")))
@@ -353,7 +367,8 @@ def load_preset(path: str) -> Preset:
         k: sr[k] for k in ("layers", "init_channels") if k in sr})
     data = dict(base.data, **{k: ds[k] for k in (
         "root", "train_imroot", "val_imroot", "test_imroot", "train_segroot",
-        "val_segroot") if k in ds and k in base.data})
+        "val_segroot") if k in ds and k in base.data},
+                **pick(top, ("pose_gt_path",)))
     if name == "lip":
         sets = {"train_set": tr.get("train_set"),
                 "val_set": tr.get("test_set"),
@@ -362,6 +377,9 @@ def load_preset(path: str) -> Preset:
                 "search_val_set": sr.get("test_set"),
                 "test_set": cfg.get("TEST", {}).get("test_set")}
         data.update({k: v for k, v in sets.items() if v is not None})
+    test = dict(base.test, **pick(te, ("flip_test",)))
+    if "scale_list" in te:
+        test["scale_list"] = tuple(float(v) for v in te["scale_list"])
     return dataclasses.replace(base, model=model, train=train,
                                search_model=search_model, search=search,
-                               data=data)
+                               data=data, test=test)

@@ -28,8 +28,12 @@ in the fused layout, holding its weights through the state transforms,
 serves. ``quantize="int8"`` serves every dense conv in int8
 (``ops/quantize.py``; on the card, the hand-written int8 conv) on a copy
 of the model whose weights are quantized at construction; activation
-scales are dynamic until ``calibrate_int8`` installs static ones. A
-``mesh`` refuses int8, and the fused cells on a space axis.
+scales are dynamic until ``calibrate_int8`` installs static ones. Both
+serve on a ``mesh`` too: the twin or the copy is fused, then split over
+the rows, then prepared. There each dynamic scale is the max over the
+whole grid (npp_tpu's one program takes it over the global activation),
+and ``calibrate_int8`` runs each rank's part of every calibration batch,
+so every rank holds npp_tpu's one scale tree.
 """
 from __future__ import annotations
 
@@ -137,23 +141,12 @@ class Predictor:
                              "does not run a model split over n_model > 1")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if mesh is not None and quantize is not None:
-            raise ValueError("Predictor(mesh=) does not serve int8 yet: "
-                             "serve the mesh in floating point, or int8 on "
-                             "one device")
-        if (mesh is not None and mesh.n_space > 1
-                and (fuse_cells or model.fused_cells)):
-            raise ValueError("Predictor(mesh=) does not serve the fused "
-                             "sibling cells on a space axis yet: pass "
-                             "fuse_cells=False")
         necks = fuse_necks or model.fused_necks
         cells = fuse_cells or model.fused_cells
         if (necks, cells) != (model.fused_necks, model.fused_cells):
             model = fused_twin(model, fused_necks=necks, fused_cells=cells)
         elif quantize is not None:
             model = copy.deepcopy(model)
-        if quantize is not None:
-            prepare_int8(model)
         self.quantize = quantize
         self.pose_scales = tuple(float(s) for s in pose_scales)
         if 1.0 not in self.pose_scales:
@@ -168,6 +161,8 @@ class Predictor:
                     f"crop height {ch_} (and {ch_}//4) must divide "
                     f"space={mesh.n_space} for spatial serving")
             convert_spatial(model, mesh)
+        if quantize is not None:
+            prepare_int8(model, mesh)
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.crop_size = tuple(crop_size)
@@ -191,6 +186,14 @@ class Predictor:
             hm, par = gather_rows(hm, self.mesh), gather_rows(par, self.mesh)
         return hm, par
 
+    def _own_rows(self, canvases):
+        """This rank's rows of (B, ch, cw, 3) canvases (all of them
+        without a space axis)."""
+        if self.mesh is None or self.mesh.n_space == 1:
+            return canvases
+        rows = self.crop_size[1] // self.mesh.n_space
+        return canvases[:, self.mesh.s * rows:(self.mesh.s + 1) * rows]
+
     def _normalize(self, image_u8: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> ImageNet-normalised (B, 3, H, W) float32;
         the NHWC layout stays underneath (channels_last)."""
@@ -208,10 +211,7 @@ class Predictor:
         ch, cw = self.crop_size[1], self.crop_size[0]
         s = len(self.pose_scales)
         b = flat_u8.shape[0] // s
-        if self.mesh is not None and self.mesh.n_space > 1:
-            rows = ch // self.mesh.n_space
-            flat_u8 = flat_u8[:, self.mesh.s * rows:(self.mesh.s + 1) * rows]
-        x = self._normalize(flat_u8)
+        x = self._normalize(self._own_rows(flat_u8))
         pose_hm, par_logits = self._forward(x)
 
         def base(t):
@@ -247,19 +247,28 @@ class Predictor:
         the serving preprocess), in batches of ``batch_size`` with the
         last one repeat-padded as npp_tpu's: the int8 forward records
         each dense conv input's absmax (``ops/quantize.calibrate_acts``),
-        and later batches quantize with absmax / 127, clipped."""
+        and later batches quantize with absmax / 127, clipped. On a
+        ``mesh`` each rank runs its data shard and rows of every batch
+        (``batch_size`` must divide by n_data), and the scales come out
+        equal on every rank."""
         if self.quantize != "int8":
             raise ValueError("calibrate_int8 requires quantize='int8'")
         if not images:
             raise ValueError("calibrate_int8 needs at least one image")
+        if batch_size % self._n_data:
+            raise ValueError(f"calibrate_int8: batch_size {batch_size} not "
+                             f"divisible by data={self._n_data}")
         pre = np.stack([self.preprocess(im)[0] for im in images])
         n = len(images)
         padded = -(-n // batch_size) * batch_size
         if padded != n:
             pre = np.concatenate(
                 [pre, np.repeat(pre[-1:], padded - n, axis=0)])
+        per = batch_size // self._n_data
+        d = 0 if self.mesh is None else self.mesh.d
         calibrate_acts(self.model, (
-            self._normalize(self._to_device(pre[i:i + batch_size]))
+            self._normalize(self._own_rows(self._to_device(
+                pre[i + d * per:i + (d + 1) * per])))
             for i in range(0, padded, batch_size)))
 
     # -- host side -------------------------------------------------------

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from npp_tpu_torch.genotypes import Edge
 from npp_tpu_torch.ops.primitives import (FactorizedReduce, ReLUConvBN,
-                                          batch_norm, conv, make_op)
+                                          _avg_pool_2x2, batch_norm, conv,
+                                          make_op)
 from npp_tpu_torch.ops.quantize import relu_conv
 from npp_tpu_torch.ops.resize import resize_scale
 
@@ -81,7 +82,11 @@ class SiblingSEGroup(nn.Module):
     first 1x1 convs as one (C -> K C/2) conv, the K second ones as one
     grouped conv (groups K, block-diagonal), then the stride-2 tail
     (2x2 average pool, BN) over the K products. Children as ``SEBlock``'s.
-    Under int8 the grouped conv stays floating point."""
+    Under int8 the grouped conv stays floating point. On rows of a space
+    axis (``space``, ``parallel/spatial.py``) the squeeze is the whole
+    image's mean and the pool a window, as ``SEBlock``'s."""
+
+    space = None
 
     def __init__(self, c: int, k: int, stride: int):
         super().__init__()
@@ -93,12 +98,18 @@ class SiblingSEGroup(nn.Module):
 
     def forward(self, x):
         c = x.shape[1]
-        w = x.mean(dim=(2, 3), keepdim=True)
+        if self.space is not None:
+            w = self.space.mean_hw(x)
+        else:
+            w = x.mean(dim=(2, 3), keepdim=True)
         w = torch.sigmoid(relu_conv(self.Conv_1, self.Conv_0(w)))
         out = torch.cat([x * w[:, i * c:(i + 1) * c] for i in range(self.k)],
                         dim=1)
         if self.stride == 1:
             return out
+        if self.space is not None:
+            return self.BatchNorm_0(self.space.window(out, _avg_pool_2x2,
+                                                      2, 2, 0))
         return self.BatchNorm_0(F.avg_pool2d(out, 2, 2))
 
 

@@ -734,13 +734,15 @@ __global__ void __launch_bounds__(kLoopThreads)
                               a.n / a.c, __ldg(a.scale), a.q);
 }
 
-// ---- the calibration's absmax ------------------------------------------------
+// ---- the absmax alone (calibration; a grid's dynamic scale) ----------------
 
-// stats[0] = max|x|, stats[1] = the dynamic scale, over a dense x (vec: x
-// is 16-byte aligned, so 16-byte loads cover all but the tail). The blocks
-// each write a partial maximum; the last to finish (a counter, reset by
-// that block) reduces them. Serving never runs it: only calibrate_acts.
-template <typename T>
+// stats[0] = max|x'|, stats[1] = the dynamic scale, over a dense x (vec: x
+// is 16-byte aligned, so 16-byte loads cover all but the tail; x' =
+// relu(x) with RELU, as the quantize takes it). The blocks each write a
+// partial maximum; the last to finish (a counter, reset by that block)
+// reduces them. It runs under calibrate_acts, and on a grid of ranks
+// before the MAX all-reduce that makes the dynamic scale the grid's.
+template <typename T, bool RELU>
 __global__ void __launch_bounds__(kLoopThreads)
     absmax_kernel(const T* x, int64_t n, int vec, unsigned int* partials,
                   unsigned int* counter, float* stats) {
@@ -755,10 +757,10 @@ __global__ void __launch_bounds__(kLoopThreads)
   const uint4* xv = reinterpret_cast<const uint4*>(x);
 #pragma unroll 4
   for (int64_t i = first; i < nvec; i += stride) {
-    mx = vec_max<false, T>(__ldg(xv + i), mx);
+    mx = vec_max<RELU, T>(__ldg(xv + i), mx);
   }
   for (int64_t i = nvec * kVec + first; i < n; i += stride) {
-    mx = max(mx, mag_bits<false>(x[i]));
+    mx = max(mx, mag_bits<RELU>(x[i]));
   }
   mx = block_max<kLoopThreads>(mx, s_warp);
   if (threadIdx.x == 0) {
@@ -855,21 +857,35 @@ cudaError_t launch_relu(int relu, int variant, const Args& a, int grid,
 
 // Each returns a cudaError_t (0 on success). dtype: 0 float32, 1 bfloat16.
 
-// max|x| and the dynamic scale into stats (2 floats on the device), over
-// the n elements of a dense x, with `blocks` blocks: partials holds one
-// unsigned int per block, counter one that is 0 between launches.
+template <typename T>
+void launch_absmax(int relu, const void* x, long long n, int vec,
+                   unsigned int* part, unsigned int* cnt, float* stats,
+                   int blocks, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  if (relu) {
+    absmax_kernel<T, true><<<blocks, kLoopThreads, 0, s>>>(xt, n, vec, part,
+                                                          cnt, stats);
+  } else {
+    absmax_kernel<T, false><<<blocks, kLoopThreads, 0, s>>>(xt, n, vec, part,
+                                                           cnt, stats);
+  }
+}
+
+// max|x'| and the dynamic scale into stats (2 floats on the device), over
+// the n elements of a dense x (relu: 1 takes x' = torch.relu(x)), with
+// `blocks` blocks: partials holds one unsigned int per block, counter one
+// that is 0 between launches.
 extern "C" int npp_act_absmax(const void* x, int dtype, long long n, int vec,
-                              void* partials, void* counter, float* stats,
-                              int blocks, void* stream) {
+                              int relu, void* partials, void* counter,
+                              float* stats, int blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned int* part = static_cast<unsigned int*>(partials);
   unsigned int* cnt = static_cast<unsigned int*>(counter);
   if (dtype == 0) {
-    absmax_kernel<<<blocks, kLoopThreads, 0, s>>>(
-        static_cast<const float*>(x), n, vec, part, cnt, stats);
+    launch_absmax<float>(relu, x, n, vec, part, cnt, stats, blocks, s);
   } else if (dtype == 1) {
-    absmax_kernel<<<blocks, kLoopThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), n, vec, part, cnt, stats);
+    launch_absmax<__nv_bfloat16>(relu, x, n, vec, part, cnt, stats, blocks,
+                                 s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -191,7 +191,7 @@ class FactorizedReduce(nn.Module):
         self.Conv_1 = conv(c_in, c_out // 2, 1, 2, bias=False)
         self.BatchNorm_0 = batch_norm(c_out, affine)
 
-    def _branches(self, x, **relu):
+    def _branches(self, x, at_top=True, relu=False):
         """Both branches with the convs' own arithmetic: output row o reads
         input rows 2o and 2o + 1 (one window of 2 rows at stride 2). On a
         channel block each branch is gathered whole: the concatenation of
@@ -199,25 +199,32 @@ class FactorizedReduce(nn.Module):
         alone, without a sharded conv's input handling; for an int8 conv
         (``ops/quantize.prepare_int8``) it is the int8 route, which takes
         ``relu=True`` (the ReLU folded into each branch's quantize: it
-        commutes with the shift)."""
+        commutes with the shift). The second branch's dynamic scale is
+        that of the whole input without its first row and column; on rows
+        that do not begin at the image's (``at_top`` False: a space rank
+        below the first) only the first column is left out of it."""
         c0, c1 = self.Conv_0, self.Conv_1
-        y0 = c0._conv_forward(x, c0.weight, c0.bias, **relu)
-        y1 = c1._conv_forward(x[:, :, 1:, 1:], c1.weight, c1.bias, **relu)
+        kw = dict(relu=True) if relu else {}
+        y0 = c0._conv_forward(x, c0.weight, c0.bias, **kw)
+        if relu and not at_top:
+            kw["seen"] = x[:, :, :, 1:]
+        y1 = c1._conv_forward(x[:, :, 1:, 1:], c1.weight, c1.bias, **kw)
         if self.tp is not None:
             y0 = self.tp.whole(y0, c0.out_channels)
             y1 = self.tp.whole(y1, c1.out_channels)
         return torch.cat([y0, y1], dim=1)
 
     def forward(self, x):
-        if folds_relu(self.Conv_0):  # int8: never sharded
-            return self.BatchNorm_0(self._branches(x, relu=True))
-        x = F.relu(x)
+        fold = folds_relu(self.Conv_0)  # int8 (never tensor parallel)
+        if not fold:
+            x = F.relu(x)
         if self.tp is not None:  # once for both convs
             x = self.tp.conv_input(self.Conv_0, x)
         if self.space is not None:
-            return self.BatchNorm_0(self.space.window(x, self._branches, 2,
-                                                      2, 0))
-        return self.BatchNorm_0(self._branches(x))
+            return self.BatchNorm_0(self.space.window(
+                x, lambda t, at_top: self._branches(t, at_top, fold), 2, 2, 0,
+                top=True))
+        return self.BatchNorm_0(self._branches(x, relu=fold))
 
 
 class FacConv(nn.Module):

@@ -32,8 +32,8 @@ gets each one's plain version, and any other device raises:
   NHWC-contiguous (an NCHW view of it), as the conv reads it. Each
   launch's variant, grid and shared memory come from ``_quant_plan``, a
   plain function of the input's size, layout and the card's SM count.
-  ``act_absmax`` (the absmax alone, one launch) serves ``calibrate_acts``
-  only.
+  ``act_absmax`` (the absmax alone, one launch, the ReLU folded in too)
+  serves ``calibrate_acts`` and the dynamic scale on a grid of ranks.
 - ``conv_s8`` (``csrc/int8_conv.cu``; plain version
   ``conv_s8_reference``): the int8 conv of quantized operands with the
   fp32 epilogue float(acc) * (a_scale * w_scale) + bias, in that order.
@@ -46,6 +46,19 @@ gets each one's plain version, and any other device raises:
   (``int8_conv(x, conv, relu=True)``): the call sites of the model's
   ReLU -> dense conv pairs use it, so the int8 forward runs no separate
   ReLU pass there, and the fp forward runs exactly what it ran.
+
+On a grid of ranks (``prepare_int8(model, grid)``, after
+``parallel.spatial.convert_spatial`` where the grid splits rows) each
+rank holds a shard of the batch and of the rows, where npp_tpu's one
+program holds the global activation. npp_tpu's dynamic scale is the max
+over that whole activation, one scale for the global batch and every
+device of its mesh, so a prepared conv takes it so (``grid_quantize``):
+``act_absmax`` of its own input, one MAX all-reduce over the grid
+(``mesh.all_max``), then the static quantize with that scale, which
+gives the int8 values and the scale that the one-device dynamic quantize
+gives on the gathered tensor, bit for bit. A calibrated scale is one
+number on every rank and needs no collective; the calibration records
+the grid's max.
 
 The output dtype follows npp_tpu's ``out_dtype = self.dtype or x.dtype``:
 the autocast dtype where autocast is on (bf16 in the serving forward),
@@ -64,6 +77,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from npp_tpu_torch.ops.heatmaps import nvcc_build
+from npp_tpu_torch.parallel.mesh import all_max, multi_rank
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "int8_conv.cu"
 _QSRC = Path(__file__).resolve().parent / "csrc" / "int8_quantize.cu"
@@ -129,9 +143,13 @@ def quantize_act_reference(x: torch.Tensor,
     return q.to(torch.int8), a_scale
 
 
-def act_absmax_reference(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``act_absmax``: [max|x|, the dynamic scale], as
-    ``quantize_act_reference`` computes them."""
+def act_absmax_reference(x: torch.Tensor, *, relu: bool = False
+                         ) -> torch.Tensor:
+    """Plain version of ``act_absmax``: [max|x|, the dynamic scale] (of
+    ``F.relu(x)`` with ``relu``), as ``quantize_act_reference`` computes
+    them."""
+    if relu:
+        x = F.relu(x)
     amax = x.to(torch.float32).abs().amax()
     return torch.stack([amax, torch.clamp(amax, min=1e-8) / 127.0])
 
@@ -155,8 +173,8 @@ def _quant_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.npp_act_absmax.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p]
         lib.npp_act_absmax.restype = ctypes.c_int
         lib.npp_quantize_act.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -288,15 +306,16 @@ def _counters(device: torch.device, n: int, kernel: str) -> torch.Tensor:
     return buf
 
 
-def act_absmax(x: torch.Tensor) -> torch.Tensor:
+def act_absmax(x: torch.Tensor, *, relu: bool = False) -> torch.Tensor:
     """(2,) float32 on x's device: [max|x|, max(max|x|, 1e-8) / 127], the
-    dynamic scale's two numbers. A CUDA tensor (float32 or bfloat16,
-    4-D, dense) takes one launch of the kernel and no host
-    synchronisation; a CPU tensor gets ``act_absmax_reference``.
-    ``calibrate_acts`` reads it; serving never does (``quantize_act``
-    finds the dynamic scale in its own launch)."""
+    dynamic scale's two numbers (of ``F.relu(x)`` with ``relu``). A CUDA
+    tensor (float32 or bfloat16, 4-D, dense) takes one launch of the
+    kernel and no host synchronisation; a CPU tensor gets
+    ``act_absmax_reference``. ``calibrate_acts`` and ``grid_quantize``
+    read it; one-device serving does not (``quantize_act`` finds the
+    dynamic scale in its own launch)."""
     if x.device.type == "cpu":
-        return act_absmax_reference(x)
+        return act_absmax_reference(x, relu=relu)
     _check_act(x, "act_absmax")
     lib = _quant_library()
     if not (x.is_contiguous()
@@ -312,7 +331,7 @@ def act_absmax(x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.npp_act_absmax(
             x.data_ptr(), _ACT_DTYPE[x.dtype], n, int(x.data_ptr() % 16 == 0),
-            partials.data_ptr(),
+            int(relu), partials.data_ptr(),
             _counters(x.device, 1, "absmax").data_ptr(), stats.data_ptr(),
             blocks, stream)
     if err != 0:
@@ -379,6 +398,44 @@ def quantize_act(x: torch.Tensor, act_scale: torch.Tensor | None = None, *,
 
 
 quantize_act.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def grid_quantize(x: torch.Tensor, group, *, relu: bool = False):
+    """``quantize_act`` with the dynamic scale of the whole activation of
+    which ``x`` is this rank's part (a data shard, a row window): the
+    absmax of x (``act_absmax``, one launch on a card), its max over the
+    ranks of ``group`` (one MAX all-reduce, ``mesh.all_max``), then the
+    static quantize with that scale (one launch). Returns what
+    ``quantize_act(X, relu=relu)`` returns for the gathered X, restricted
+    to x, bit for bit:
+
+    - the scale. The all-reduce takes the max of both numbers of
+      ``act_absmax``, [max|x|, max(max|x|, 1e-8) / 127], and the second
+      is a nondecreasing function of the first (a clamp and a division
+      by a positive constant, each rounded to nearest, which keeps
+      order), so the max of the ranks' scales is the scale of the
+      grid's max, formed by the same arithmetic as the one-device
+      dynamic scale (on a card its multiply by RN(1/127), on the CPU
+      its division; ``quantize_act_reference``);
+    - the int8 values. The static variant divides by that scale and
+      rounds as the dynamic one does, and then clips to +-127, which
+      cannot bite here: every |x| is at most the grid's max A, and
+      A / RN(A / 127) stays within a few units in the last place of 127,
+      far below 127.5 (below the 1e-8 floor, |x| / scale < 127).
+
+    Rows that a window shares with a neighbour (halos) are the
+    neighbour's values, and the image's padding is zeros, so neither
+    moves the max."""
+    return quantize_act(x, grid_absmax(x, group, relu=relu)[1], relu=relu)
+
+
+def grid_absmax(x: torch.Tensor, group, *, relu: bool = False
+                ) -> torch.Tensor:
+    """``act_absmax`` of ``x``, and with a ``group`` its max over the
+    group's ranks (one MAX all-reduce): the two numbers of the dynamic
+    scale of the whole activation (``grid_quantize``)."""
+    stats = act_absmax(x, relu=relu)
+    return stats if group is None else all_max(stats, group)
 
 
 def _out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:
@@ -631,19 +688,47 @@ class Int8Conv2d(nn.Conv2d):
     """A dense ``nn.Conv2d`` served through ``int8_conv``, with the same
     parameter tensors and ``state_dict``. ``prepare_int8`` makes these;
     ``calibrating`` (set by ``calibrate_acts``) records the running
-    absmax of the inputs in ``act_absmax``. ``_conv_forward(...,
-    relu=True)`` is the conv of ``F.relu(x)`` with the ReLU folded into
-    the quantize (``relu_conv``)."""
+    absmax of the inputs in ``act_absmax``. ``forward(x, relu=True)``
+    (and ``_conv_forward(..., relu=True)``, the conv alone) is the conv of
+    ``F.relu(x)`` with the ReLU folded into the quantize (``relu_conv``).
+    ``scale_group``: the ranks over which a dynamic scale is taken (None:
+    this process alone; module docstring)."""
 
     calibrating = False
+    scale_group = None
 
-    def _conv_forward(self, x, weight, bias, relu=False):
-        if self.calibrating:
-            seen = F.relu(x) if relu else x
-            self.act_absmax = torch.maximum(self.act_absmax,
-                                            act_absmax(seen.detach())[0])
+    def forward(self, x, relu=False):
+        return self._conv_forward(x, self.weight, self.bias, relu=relu)
+
+    def _tracing(self) -> bool:
+        """Whether this call belongs to a split model's plan trace (whose
+        outputs are thrown away: it takes no collective and records no
+        calibration)."""
+        return False
+
+    def _conv_forward(self, x, weight, bias, relu=False, seen=None):
+        """``seen``: the rank's part of what the dynamic scale is the max
+        of, where that is not ``x`` (``FactorizedReduce``'s shifted branch
+        on a row window)."""
+        if self.act_scale is not None and not self.calibrating:
+            return int8_conv(x, self, act_scale=self.act_scale, relu=relu)
+        tracing = self._tracing()
+        group = None if tracing else self.scale_group
+        record = self.calibrating and not tracing
+        if group is None and not record:
             return int8_conv(x, self, relu=relu)
-        return int8_conv(x, self, act_scale=self.act_scale, relu=relu)
+        stats = grid_absmax((x if seen is None else seen).detach(), group,
+                            relu=relu)
+        if record:
+            self.act_absmax = torch.maximum(self.act_absmax, stats[0])
+        # The static quantize with the dynamic scale: grid_quantize's
+        # arithmetic, equal to the dynamic quantize's bit for bit.
+        return int8_conv(x, self, act_scale=stats[1], relu=relu)
+
+
+# The int8 class that ``prepare_int8`` gives each dense conv class
+# (``parallel/spatial.py`` adds its row-window conv's).
+INT8_CONVS: dict[type, type] = {nn.Conv2d: Int8Conv2d}
 
 
 def folds_relu(conv: nn.Module) -> bool:
@@ -667,9 +752,7 @@ def relu_conv(conv: nn.Module, x: torch.Tensor, *,
           if weight_dtype else contextlib.nullcontext()):
         if weight_dtype:
             x = x.to(conv.weight.dtype)
-        if fold:
-            return conv._conv_forward(x, conv.weight, conv.bias, relu=True)
-        return conv(x)
+        return conv(x, relu=True) if fold else conv(x)
 
 
 def _out_dtype(x: torch.Tensor) -> torch.dtype:
@@ -717,22 +800,33 @@ def is_int8(model: nn.Module) -> bool:
     return any(isinstance(m, Int8Conv2d) for m in model.modules())
 
 
-def prepare_int8(model: nn.Module) -> nn.Module:
-    """Serve ``model``'s dense convs in int8, in place: each ``nn.Conv2d``
-    with groups 1 becomes an ``Int8Conv2d`` on the same parameters, with
-    its weights quantized now (again, for one that is already prepared:
-    after the weights change, call it again). Activation scales start
-    dynamic. A model split over a grid (``parallel.spatial`` /
-    ``parallel.tensor``) is refused."""
-    if (getattr(model, "_sharding", None) is not None
-            or getattr(model, "_tp", None) is not None):
-        raise ValueError("int8 serving runs an unsharded model; this one is "
-                         "split over a grid (spatial or tensor parallel)")
+def prepare_int8(model: nn.Module, grid=None) -> nn.Module:
+    """Serve ``model``'s dense convs in int8, in place: each dense conv
+    (groups 1) becomes its ``INT8_CONVS`` class on the same parameters
+    (an ``nn.Conv2d`` an ``Int8Conv2d``; the ``ShardedConv2d`` of a model
+    that ``parallel.spatial.convert_spatial`` split over rows a
+    ``ShardedInt8Conv2d``), with its weights quantized now (again, for
+    one that is already prepared: after the weights change, call it
+    again). Activation scales start dynamic, taken over the ranks of
+    ``grid`` (a ``mesh.make_grid`` grid; None: this process alone; module
+    docstring). A model split over rows needs the grid it was split over.
+    A model split over a model axis (``parallel.tensor``) is refused:
+    npp_tpu has no such int8 path."""
+    if getattr(model, "_tp", None) is not None or (
+            grid is not None and grid.n_model > 1):
+        raise ValueError("int8 serving runs on one device or a data x "
+                         "space grid; this model is split over a grid's "
+                         "model axis (tensor parallel)")
+    sharding = getattr(model, "_sharding", None)
+    if sharding is not None and sharding.grid is not grid:
+        raise ValueError("prepare_int8: the model is split over rows; pass "
+                         "the grid it was converted for")
+    group = None if grid is None else multi_rank(grid.world)
 
     def convert(module):
         for name, child in module.named_children():
-            if type(child) is nn.Conv2d and child.groups == 1:
-                child.__class__ = Int8Conv2d
+            if type(child) in INT8_CONVS and child.groups == 1:
+                child.__class__ = INT8_CONVS[type(child)]
                 child.register_buffer("act_scale", None, persistent=False)
             convert(child)
 
@@ -741,6 +835,7 @@ def prepare_int8(model: nn.Module) -> nn.Module:
         for m in model.modules():
             if isinstance(m, Int8Conv2d):
                 _set_qweight(m)
+                m.scale_group = group
     return model
 
 
@@ -750,7 +845,10 @@ def calibrate_acts(model: nn.Module, batches) -> nn.Module:
     (dynamic scales) over ``batches`` (model inputs) records each dense
     conv input's running absmax (of ``F.relu(x)`` where the conv folds
     the ReLU in: what it quantizes); each conv's ``act_scale`` becomes
-    max(absmax, 1e-8) / 127. Returns ``model``."""
+    max(absmax, 1e-8) / 127. On a grid every rank runs its part of each
+    batch, and each call's absmax is the grid's (the dynamic scale's
+    all-reduce), so every rank ends with the same scales, npp_tpu's one
+    replicated tree. Returns ``model``."""
     convs = [m for m in model.modules() if isinstance(m, Int8Conv2d)]
     if not convs:
         raise ValueError("calibrate_acts needs a model prepared by "

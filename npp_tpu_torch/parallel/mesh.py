@@ -144,6 +144,19 @@ def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+def all_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over the ranks of ``group`` (a new
+    tensor in ``wire``'s dtype): one MAX all-reduce, counted in
+    ``all_max.calls``."""
+    t = wire(t).clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    all_max.calls += 1
+    return t
+
+
+all_max.calls = 0  # MAX all-reduces issued, read by the tests and chip_smoke
+
+
 def wire(t: torch.Tensor) -> torch.Tensor:
     """``t`` in a dtype every backend all-reduces (bf16 / fp16 as fp32)."""
     return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t

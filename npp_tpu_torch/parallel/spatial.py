@@ -42,6 +42,11 @@ and records the heights of its ops in call order (the plan); a sharded
 forward then reads them back in the same order and checks each against
 the local height.
 
+npp_tpu's serving layouts run here too: the fused sibling cells (their
+group modules read rows as the ops they merge do) and int8 dense convs
+(``ShardedInt8Conv2d``: the int8 conv on the row window, its dynamic
+scale the grid's, ``ops/quantize.grid_quantize``).
+
 Every exchange is an all-reduce over the space group of a zeroed buffer
 with a slot per rank (``mesh.all_slots``): gloo has no all-gather of
 CUDA tensors, and adding zeros is exact. bf16 and fp16 travel as
@@ -55,6 +60,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from npp_tpu_torch.ops.quantize import INT8_CONVS, Int8Conv2d, is_int8
 from npp_tpu_torch.ops.resize import resize_bilinear, scale_output_size
 from npp_tpu_torch.parallel.mesh import all_slots, wire
 from npp_tpu_torch.parallel.sync_bn import convert_sync_bn
@@ -244,6 +250,12 @@ class Sharding:
         self._calls: list[int] = []
         self._pos = 0
 
+    @property
+    def tracing(self) -> bool:
+        """Whether the forward running now traces the plan (unsharded, on
+        a zero image: nothing it computes is kept)."""
+        return self._mode == "trace"
+
     def is_sharded(self, height: int) -> bool:
         """A level of global ``height`` is split into equal row blocks if
         n divides it, else held whole on every rank of the group."""
@@ -272,18 +284,22 @@ class Sharding:
         return g
 
     def window(self, x: torch.Tensor, fn, extent: int, stride: int,
-               pad: int) -> torch.Tensor:
+               pad: int, *, top: bool = False) -> torch.Tensor:
         """``fn(x)`` for an op whose output row o reads input rows
         [stride * o - pad, stride * o - pad + extent) and pads with its
         own value beyond the image (a conv, a pool, a strided slice).
         Halo rows where each shard's output rows are its own and one
-        neighbour holds the rows it reads; else the whole level."""
+        neighbour holds the rows it reads; else the whole level. With
+        ``top``, ``fn(rows, at_top)``: whether those rows begin at the
+        image's first row."""
         g = self.height(x)
+        call = (lambda t, at_top: fn(t, at_top)) if top else \
+            (lambda t, at_top: fn(t))
         if g is None:
-            return fn(x)
+            return call(x, True)
         grid = self.grid
         if not self.is_sharded(g):
-            return own_rows(fn(x), grid)
+            return own_rows(call(x, True), grid)
         h = g // self.n
         if h % stride == 0 and \
                 (g + 2 * pad - extent) // stride + 1 == g // stride:
@@ -291,9 +307,10 @@ class Sharding:
             below = max(0, extent - pad - stride)
             if above <= h and below <= h:
                 ext = halo_rows(x, grid, above, below)
-                j0 = (grid.s * h - max(0, grid.s * h - above)) // stride
-                return fn(ext)[:, :, j0:j0 + h // stride]
-        return own_rows(fn(gather_rows(x, grid)), grid)
+                start = max(0, grid.s * h - above)
+                j0 = (grid.s * h - start) // stride
+                return call(ext, start == 0)[:, :, j0:j0 + h // stride]
+        return own_rows(call(gather_rows(x, grid), True), grid)
 
     def mean_hw(self, x: torch.Tensor) -> torch.Tensor:
         """``x.mean(dim=(2, 3), keepdim=True)`` over the whole image."""
@@ -363,10 +380,34 @@ class ShardedConv2d(nn.Conv2d):
             x = self.tp.conv_input(self, x)
         if self.space is None:
             return super().forward(x)
+        return self._windowed(x, functools.partial(nn.Conv2d.forward, self))
+
+    def _windowed(self, x, fn):
         extent = self.dilation[0] * (self.kernel_size[0] - 1) + 1
-        return self.space.window(x, functools.partial(nn.Conv2d.forward,
-                                                      self),
-                                 extent, self.stride[0], self.padding[0])
+        return self.space.window(x, fn, extent, self.stride[0],
+                                 self.padding[0])
+
+
+class ShardedInt8Conv2d(ShardedConv2d, Int8Conv2d):
+    """A prepared dense conv (``ops/quantize.prepare_int8``) of a model
+    split over rows: the int8 conv of the rank's row window
+    (``Sharding.window``), its dynamic scale the grid's
+    (``Int8Conv2d.scale_group``). ``forward(x, relu=True)`` folds the ReLU
+    into the window's quantize: the ReLU commutes with the halo exchange
+    (a neighbour's rows are its values) and with the zero padding
+    (relu(0) = 0), so the fold stays exact. The plan's trace runs each
+    rank's own forward on a zero image and keeps nothing, so it takes no
+    collective."""
+
+    def forward(self, x, relu=False):
+        return self._windowed(x, lambda t: self._conv_forward(
+            t, self.weight, self.bias, relu=relu))
+
+    def _tracing(self) -> bool:
+        return self.space.tracing
+
+
+INT8_CONVS[ShardedConv2d] = ShardedInt8Conv2d
 
 
 def sharded_conv(conv: nn.Conv2d) -> ShardedConv2d:
@@ -388,22 +429,9 @@ def _known_modules() -> tuple:
             cells.Cell, cells.UpsampleCell, cells.FusionCell, cells.InterOp,
             P.Zero, P.Identity, P.PoolBN, P.ReLUConvBN, P.DilConvS,
             P.SepConv, P.SEBlock, P.FactorizedReduce, P.FacConv,
-            P.PooledConv, nn.Conv2d, nn.BatchNorm2d, nn.ModuleList)
-
-
-def refuse_serving_layouts(model: nn.Module, what: str, *,
-                           fused_necks: bool = False) -> None:
-    """Raise if ``model`` serves in int8 (``ops/quantize.prepare_int8``)
-    or in the fused sibling-cell layout (or, unless ``fused_necks``, the
-    fused-neck one): ``what`` does not split those over a grid."""
-    from npp_tpu_torch.ops.quantize import is_int8
-    if is_int8(model):
-        raise ValueError(f"{what}: the int8 serving layout runs unsharded; "
-                         f"split the fp model, not a prepared one")
-    if getattr(model, "fused_cells", False) or (
-            getattr(model, "fused_necks", False) and not fused_necks):
-        raise ValueError(f"{what}: the fused serving layout is not split "
-                         f"over a grid; serve the standard layout")
+            P.PooledConv, cells.SiblingConvGroup, cells.SiblingSEGroup,
+            cells.SiblingDilGroup, cells.SiblingSepGroup, nn.Conv2d,
+            nn.BatchNorm2d, nn.ModuleList)
 
 
 def convert_spatial(model: nn.Module, grid) -> nn.Module:
@@ -419,14 +447,19 @@ def convert_spatial(model: nn.Module, grid) -> nn.Module:
     bit. With ``grid.n_space`` 1 the model is returned as it is. A module
     the conversion does not know raises: its rows would be read wrongly
     and silently. The input's height (and for NPPNet height / 4) must
-    divide by ``n_space`` (``check_divisibility``)."""
+    divide by ``n_space`` (``check_divisibility``). int8 serving is
+    prepared after the split (``ops/quantize.prepare_int8(model, grid)``,
+    which makes the ``ShardedInt8Conv2d``); a prepared model is refused."""
     if grid is None or grid.n_space == 1:
         return model
     if getattr(model, "_sharding", None) is not None:
         if model._sharding.grid is not grid:
             raise ValueError("the model is converted for another grid")
         return model
-    refuse_serving_layouts(model, "convert_spatial", fused_necks=True)
+    if is_int8(model):
+        raise ValueError("convert_spatial: the int8 serving layout is "
+                         "prepared after the split; convert the fp model, "
+                         "then prepare_int8(model, grid)")
     known = _known_modules()
     for m in model.modules():
         if not isinstance(m, known):

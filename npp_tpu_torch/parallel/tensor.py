@@ -280,10 +280,19 @@ def convert_tensor_parallel(model: nn.Module, grid) -> nn.Module:
         if tp.grid is not grid:
             raise ValueError("the model is converted for another grid")
         return model
+    from npp_tpu_torch.ops.quantize import is_int8
     from npp_tpu_torch.parallel.spatial import (ShardedConv2d, _known_modules,
-                                                refuse_serving_layouts,
                                                 sharded_conv)
-    refuse_serving_layouts(model, "convert_tensor_parallel")
+    # npp_tpu has no serving path over a model axis.
+    if is_int8(model):
+        raise ValueError("convert_tensor_parallel: the int8 serving layout "
+                         "does not split over a model axis; split the fp "
+                         "model, not a prepared one")
+    if getattr(model, "fused_cells", False) or getattr(model, "fused_necks",
+                                                       False):
+        raise ValueError("convert_tensor_parallel: the fused serving layout "
+                         "does not split over a model axis; serve the "
+                         "standard layout")
     known = _known_modules()
     for mod in model.modules():
         if not isinstance(mod, known):

@@ -36,9 +36,12 @@ seeded by ``--seed``) and the val set (its first ``num_samples`` = 5000
 entries, no augmentation). A LIP directory holds the images, grey PNG
 labels and annotation JSONs of ``config.LIP.data`` (``LIPDataset``, or
 with ``--fast-aug`` the fused warp of ``FastLIPDataset``); ``--gt-csv``
-adds the PCKh of each validation against a LIP pose CSV (without it the
-LIP validation reports mIoU only). A PPP directory holds
-``JPEGImages/<id>.jpg``, ``SegmentationPart/<id>.png`` (8-bit grey part
+adds the PCKh of each validation against a LIP pose CSV, and without it
+the configuration's ``POSE_GT_PATH`` does where that file exists (else
+the LIP validation reports mIoU only). A run that does not resume
+begins at the configuration's ``TRAIN.BEGIN_EPOCH`` (0 in the YAMLs). A
+PPP directory holds ``JPEGImages/<id>.jpg``,
+``SegmentationPart/<id>.png`` (8-bit grey part
 labels 0-6), ``PersonJoints/<id>.mat`` (the GT persons' boxes and
 joints), ``masks/<id>.npy`` (Mask-R-CNN instances) and the id lists
 ``train_id.txt`` and ``val_id.txt`` (``PPPDataset``: one sample per
@@ -198,6 +201,19 @@ def data_source(p: argparse.ArgumentParser, args, preset) -> str | None:
         p.error("--gt-csv is LIP's PCKh ground truth; the "
                 f"{preset.name.upper()} validation scores its heatmap PCK")
     return args.data_root or preset.data["root"]
+
+
+def pose_gt_csv(args, preset, data_root: str | None) -> str | None:
+    """The LIP pose CSV to score PCKh against: ``--gt-csv``, else the
+    configuration's ``POSE_GT_PATH`` where that file exists, as
+    npp_tpu's CLIs take it (LIP from a directory only: a synthetic run
+    and PPP's validation score none)."""
+    if args.gt_csv:
+        return args.gt_csv
+    path = preset.data.get("pose_gt_path", "")
+    if data_root is None or preset.name != "lip" or not path:
+        return None
+    return path if os.path.isfile(path) else None
 
 
 class LimitedLoader:
@@ -437,7 +453,7 @@ def main(argv=None) -> dict:
                     f"{mesh.world_size()}; state initialised")
 
         ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"))
-        begin_epoch, best_iou, best_pck = 0, 0.0, 0.0
+        begin_epoch, best_iou, best_pck = hp["begin_epoch"], 0.0, 0.0
         if args.resume:
             restored, meta = ckpt.restore(state)
             if restored is not None:
@@ -455,6 +471,7 @@ def main(argv=None) -> dict:
 
         train_step = make_train_step(hp, preset)
         eval_step = make_eval_step(state.model, hp, preset)
+        gt_csv = pose_gt_csv(args, preset, data_root)
         epochs = args.epochs or hp["epochs"]
         gstep, train_loss, result = 0, float("nan"), None
         for epoch in range(begin_epoch, epochs):
@@ -465,11 +482,11 @@ def main(argv=None) -> dict:
                 global_step=gstep)
             result = validate(
                 state, eval_step, val_loader, preset, logger.info,
-                gt_csv=args.gt_csv or None,
+                gt_csv=gt_csv,
                 pred_csv=(os.path.join(out_dir, "pose_pred.csv")
-                          if args.gt_csv else None))
+                          if gt_csv else None))
             miou = result["mean_iou"]
-            # PCKh only against --gt-csv; PPP's heatmap PCK always.
+            # PCKh only against a GT CSV; PPP's heatmap PCK always.
             pck = result.get("pck_avg", 0.0)
             logger.info(f"epoch {epoch}: train loss {train_loss:.4f} val "
                         f"loss {result['loss']:.4f} mIoU {miou:.4f} "

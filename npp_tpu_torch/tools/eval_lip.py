@@ -16,7 +16,10 @@ initial ones, as in the JAX CLI. Data: the val set of a LIP directory
 ``--sample`` entries, by default TRAIN.NUM_SAMPLES = 5000) or, with
 ``--synthetic``, 2 x ``--batch`` synthetic images, as the JAX CLI's.
 ``--gt-csv`` adds the PCKh table against that LIP pose CSV (of the
-predictions as the LIP pose CSV holds them);
+predictions as the LIP pose CSV holds them), and without it the
+configuration's ``POSE_GT_PATH`` does where that file exists (read from
+a LIP directory only); the flip is the configuration's
+``TEST.FLIP_TEST``;
 ``--pred-csv`` writes that CSV, ``--json-out`` the metrics as JSON;
 ``--int8`` runs the forwards with int8 dense convs
 (``make_eval_step(quantize="int8")``).
@@ -55,7 +58,8 @@ from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.tools.augment_lip import (add_cfg_argument, data_source,
-                                             resolve_preset, start_ranks)
+                                             pose_gt_csv, resolve_preset,
+                                             start_ranks)
 from npp_tpu_torch.utils.metrics import per_class_table
 
 NUM_CLASSES, NUM_JOINTS = LIP.num_classes, LIP.num_joints
@@ -65,21 +69,22 @@ TINY = LIP.train_config(tiny=True)[0]
 
 def evaluate(model, ds, *, batch: int, crop_size, device,
              pred_csv: str | None = None, gt_csv: str | None = None,
-             quantize: str | None = None) -> dict:
+             quantize: str | None = None, flip_test: bool = True) -> dict:
     """Flip-TTA validation of ``model`` over the dataset ``ds`` (uint8
     images): the loader renders the targets on ``device`` (the heatmap
     kernel on a card), then ``make_eval_step`` + ``validate`` with the
     initial loss lambdas; ``pred_csv`` writes the LIP pose CSV, and with
-    ``gt_csv`` the PCKh against it is added; ``quantize``: as
-    ``make_eval_step``'s."""
+    ``gt_csv`` the PCKh against it is added; ``quantize`` and
+    ``flip_test``: as ``make_eval_step``'s."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
                                     num_joints=NUM_JOINTS, ignore=IGNORE,
                                     normalize_images=True)
     loader = DataLoader(ds, batch, device=device, num_workers=8,
                         renderer=renderer)
     step = E.make_eval_step(model, num_classes=NUM_CLASSES,
-                            class_weights=LIP.class_weights, flip_test=True,
-                            ignore_index=IGNORE, flip_pairs=LIP.flip_pairs,
+                            class_weights=LIP.class_weights,
+                            flip_test=flip_test, ignore_index=IGNORE,
+                            flip_pairs=LIP.flip_pairs,
                             decode_hw=(crop_size[1], crop_size[0]),
                             quantize=quantize)
     crit = init_criterion_params(model.refine_layers + 1, device)
@@ -89,13 +94,15 @@ def evaluate(model, ds, *, batch: int, crop_size, device,
 
 def evaluate_synthetic(model, *, n: int, batch: int, crop_size, device,
                        seed: int = 0, pred_csv: str | None = None,
-                       quantize: str | None = None) -> dict:
+                       quantize: str | None = None,
+                       flip_test: bool = True) -> dict:
     """``evaluate`` over ``n`` synthetic images drawn from ``seed``."""
     ds = SyntheticDataset(length=n, crop_size=crop_size,
                           num_joints=NUM_JOINTS, num_classes=NUM_CLASSES,
                           seed=seed, device_normalize=True)
     return evaluate(model, ds, batch=batch, crop_size=crop_size,
-                    device=device, pred_csv=pred_csv, quantize=quantize)
+                    device=device, pred_csv=pred_csv, quantize=quantize,
+                    flip_test=flip_test)
 
 
 def result_line(result: dict) -> str:
@@ -124,12 +131,13 @@ def run(args, data_root: str | None, device, preset=LIP) -> dict:
         args.ckpt, tiny=args.tiny, genotype=args.genotype, device=device,
         dtype=getattr(torch, args.dtype), seed=args.seed, preset=preset)
     pred_csv = args.pred_csv or None
-    quantize = "int8" if args.int8 else None
+    kw = dict(quantize="int8" if args.int8 else None,
+              flip_test=preset.test["flip_test"])
     if data_root is None:
         result = evaluate_synthetic(model, n=2 * args.batch,
                                     batch=args.batch, crop_size=crop,
                                     device=device, seed=args.seed,
-                                    pred_csv=pred_csv, quantize=quantize)
+                                    pred_csv=pred_csv, **kw)
     else:
         sample = args.sample or preset.train_config()[1]["num_samples"] or -1
         ds = dataset_for(
@@ -138,7 +146,7 @@ def run(args, data_root: str | None, device, preset=LIP) -> dict:
             **preset.reader)
         result = evaluate(model, ds, batch=args.batch, crop_size=crop,
                           device=device, pred_csv=pred_csv,
-                          gt_csv=args.gt_csv or None, quantize=quantize)
+                          gt_csv=pose_gt_csv(args, preset, data_root), **kw)
     if not mesh.is_primary():
         return result
     print(per_class_table(result["per_class_iou"], result["per_class_acc"]))

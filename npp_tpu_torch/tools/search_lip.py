@@ -95,8 +95,8 @@ from npp_tpu_torch.tools.augment_lip import (LimitedLoader,
                                              add_cfg_argument,
                                              add_resume_jax_argument,
                                              data_source, make_lip_eval_step,
-                                             resolve_preset, resume_from_jax,
-                                             start_ranks)
+                                             pose_gt_csv, resolve_preset,
+                                             resume_from_jax, start_ranks)
 from npp_tpu_torch.utils.logging_utils import (MetricWriter, close_logger,
                                                create_logger)
 
@@ -258,6 +258,7 @@ def main(argv=None) -> dict:
         weight_step, arch_step = make_search_steps(hp, preset)
         # The LIP protocol for either dataset, as in the JAX search CLI.
         eval_step = make_lip_eval_step(state.model, hp, preset)
+        gt_csv = pose_gt_csv(args, preset, data_root)
         warmup = (args.warmup_epochs if args.warmup_epochs >= 0
                   else hp["warmup_epochs"])
         epochs = args.epochs or hp["epochs"]
@@ -280,11 +281,11 @@ def main(argv=None) -> dict:
                     global_step=gstep)
             result = validate(
                 state, eval_step, val_loader, preset,
-                gt_csv=args.gt_csv or None,
+                gt_csv=gt_csv,
                 pred_csv=(os.path.join(out_dir, "pose_pred.csv")
-                          if args.gt_csv else None), log_fn=logger.info)
+                          if gt_csv else None), log_fn=logger.info)
             miou = result["mean_iou"]
-            pck = result.get("pck_avg", 0.0)  # PCKh only with --gt-csv
+            pck = result.get("pck_avg", 0.0)  # PCKh only with a GT CSV
             genotype = GP.extract_genotype(S.get_arch_params(state))
             logger.info(f"epoch {epoch}: train loss {train_loss:.4f} val "
                         f"loss {result['loss']:.4f} mIoU {miou:.4f} PCKh "

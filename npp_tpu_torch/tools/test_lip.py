@@ -1,10 +1,11 @@
 """Parsing test CLI: multi-scale evaluation or palette PNG export.
 
 Port of ``tools/test_lip.py``: ``--mode testval`` runs the multi-scale
-sliding-window evaluation with flips at the scales (0.5, 0.75, 1.0, 1.25, 1.5)
-(``experiments/lip/384_384.yaml`` ``TEST``; (0.5, 1.0) under ``--tiny``)
-and prints the parsing metrics; ``--mode test`` writes palette PNGs at
-scale 1.0. The flagship model is built in (bf16 + channels_last on the
+sliding-window evaluation at the configuration's ``TEST.SCALE_LIST``
+((0.5, 0.75, 1, 1.25, 1.5) in ``experiments/lip/384_384.yaml``; (0.5,
+1.0) under ``--tiny``) and prints the parsing metrics; ``--mode test``
+writes palette PNGs at scale 1.0; both flip as ``TEST.FLIP_TEST`` says
+(True in the YAML). The flagship model is built in (bf16 + channels_last on the
 card); ``--cfg`` takes npp_tpu's LIP experiment YAML instead
 (``config.load_preset``; a PPP file is refused), and ``--tiny`` is the
 test one. Data: the test set of a LIP
@@ -45,7 +46,6 @@ from npp_tpu_torch.parallel import mesh as M
 from npp_tpu_torch.tools.augment_lip import (add_cfg_argument, data_source,
                                              resolve_preset, start_ranks)
 
-TEST_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)
 TINY_SCALES = (0.5, 1.0)
 
 
@@ -122,10 +122,12 @@ def run(args, data_root, device, grid) -> dict:
                         process_index=0, process_count=1)
     apply_fn = test_seg.make_parsing_apply_fn(model)
     crop_hw = (size[1], size[0])
+    flip = args.preset.test["flip_test"]
     if args.mode == "testval":
         metrics = test_seg.testval(
             apply_fn, loader, num_classes=config["num_classes"],
-            scales=TINY_SCALES if args.tiny else TEST_SCALES, flip=True,
+            scales=(TINY_SCALES if args.tiny
+                    else args.preset.test["scale_list"]), flip=flip,
             crop_size=crop_hw, ignore=IGNORE, mesh=grid)
         if M.is_primary():
             print(f"pixel_acc {metrics['pixel_acc']:.4f} "
@@ -135,7 +137,7 @@ def run(args, data_root, device, grid) -> dict:
         return metrics
     paths = test_seg.test(apply_fn, loader, args.out,
                           num_classes=config["num_classes"], scales=(1.0,),
-                          flip=True, crop_size=crop_hw, mesh=grid)
+                          flip=flip, crop_size=crop_hw, mesh=grid)
     if M.is_primary():
         print(f"wrote {len(paths)} parsing PNGs to {args.out}")
     return {"paths": paths}

@@ -15,9 +15,18 @@ subset the experiment files use, and ``eval_lip --sample``.
 - a ``--dataset`` that contradicts ``--cfg`` and a PPP file on the
   LIP-only CLIs are refused;
 - ``eval_lip --synthetic --batch 4`` evaluates 8 images (npp_tpu's 2 x
-  ``--batch``), and ``--sample`` caps a LIP tree's val set.
+  ``--batch``), and ``--sample`` caps a LIP tree's val set;
+- the four keys npp_tpu's CLIs read besides the presets' fields, each on
+  an edited YAML against ``load_config`` and the CLI that reads it:
+  ``TRAIN.BEGIN_EPOCH`` (the train CLI's first epoch; a resume wins),
+  ``TEST.FLIP_TEST`` (the eval and test CLIs' flip), ``TEST.SCALE_LIST``
+  (the test CLI's scales; ``--tiny`` keeps (0.5, 1.0)) and
+  ``POSE_GT_PATH`` (scored against where the file exists; ``--gt-csv``
+  wins).
 """
+import argparse
 import dataclasses
+import os
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +36,8 @@ import yaml
 from npp_tpu import config as jconfig
 
 from npp_tpu_torch import config as tconfig
+from npp_tpu_torch.core import evaluate as teval
+from npp_tpu_torch.core import test_seg
 from npp_tpu_torch.tools import (augment_lip, eval_lip, predict, search_lip,
                                  test_lip)
 
@@ -124,7 +135,7 @@ def _as_preset_holds(cfg, name: str) -> dict:
     t, s, d = cfg.train, cfg.search, cfg.dataset
     data = dict(root=d.root, train_imroot=d.train_imroot,
                 val_imroot=d.val_imroot, train_segroot=d.train_segroot,
-                val_segroot=d.val_segroot)
+                val_segroot=d.val_segroot, pose_gt_path=cfg.pose_gt_path)
     if name == "lip":
         data.update(test_imroot=d.test_imroot, train_set=t.train_set,
                     val_set=t.test_set, search_train_set=s.train_set,
@@ -136,18 +147,21 @@ def _as_preset_holds(cfg, name: str) -> dict:
         model=dict(net, layers=t.layers, init_channels=t.init_channels),
         train=dict(run, batch_size=t.batch_size, lr=t.lr,
                    lr_step=tuple(t.lr_step), lr_factor=t.lr_factor,
-                   epochs=t.epochs, num_samples=t.num_samples),
+                   epochs=t.epochs, num_samples=t.num_samples,
+                   begin_epoch=t.begin_epoch),
         search_model=dict(net, layers=s.layers,
                           init_channels=s.init_channels),
         search=dict(run, batch_size=s.batch_size, w_lr=s.w_lr,
                     alpha_lr=s.alpha_lr, lr_step=tuple(s.lr_step),
                     lr_factor=s.lr_factor, warmup_epochs=s.warmup_epochs,
                     entropy_epoch=s.entropy_epoch, epochs=s.epochs),
-        data=data)
+        data=data,
+        test=dict(flip_test=cfg.test.flip_test,
+                  scale_list=tuple(cfg.test.scale_list)))
 
 
 PRESET_CASES = [(n, part) for n in sorted(YAMLS) for part in (
-    "counts", "model", "train", "search_model", "search", "data")]
+    "counts", "model", "train", "search_model", "search", "data", "test")]
 
 
 @pytest.mark.parametrize("name,part", PRESET_CASES,
@@ -269,3 +283,110 @@ def test_sample_caps_the_val_set(lip_tree, sample, n):
                          "--tiny", "--sample", str(sample), "--batch", "2"]
                         + CPU)
     assert res["names"] == [f"val_{i:03d}" for i in range(n)]
+
+
+# -- the keys npp_tpu's CLIs read besides -------------------------------------
+
+def _edited(tmp_path, old: str, new: str) -> str:
+    """The LIP YAML with ``old`` replaced by ``new``, and npp_tpu's reading
+    of it."""
+    text = Path(YAMLS["lip"]).read_text()
+    assert text.count(old) == 1, old
+    path = tmp_path / "edited.yaml"
+    path.write_text(text.replace(old, new))
+    return str(path), jconfig.load_config(str(path))
+
+
+def test_begin_epoch_starts_a_fresh_train_run(tmp_path):
+    """``TRAIN.BEGIN_EPOCH: 1`` with two epochs trains epoch 1 only, as
+    npp_tpu's loop (``range(begin_epoch, epochs)``); ``--resume`` then
+    begins after the restored epoch, whatever the file says."""
+    path, cfg = _edited(tmp_path, "BEGIN_EPOCH: 0", "BEGIN_EPOCH: 1")
+    argv = ["--cfg", path, "--synthetic", "--tiny", "--steps", "1",
+            "--out", str(tmp_path / "run")] + CPU
+    out = augment_lip.main(argv + ["--epochs", "2"])
+    assert out["begin_epoch"] == cfg.train.begin_epoch == 1
+    saved = os.listdir(out["checkpoints"])
+    assert "1" in saved and "0" not in saved, saved
+    again = augment_lip.main(argv + ["--epochs", "3", "--resume"])
+    assert again["begin_epoch"] == 2
+
+
+def _captured(monkeypatch, module, name: str, result=None) -> dict:
+    """The keyword arguments of the next call to ``module.name`` (which
+    then runs, or returns ``result`` if one is given)."""
+    seen, real = {}, getattr(module, name)
+
+    def capture(*args, **kw):
+        seen.update(kw)
+        return real(*args, **kw) if result is None else result
+
+    monkeypatch.setattr(module, name, capture)
+    return seen
+
+
+@pytest.mark.parametrize("cli", ["eval_lip", "test_lip"])
+def test_flip_test_is_the_eval_and_test_flip(tmp_path, monkeypatch, cli):
+    """``TEST.FLIP_TEST: False`` turns the flip off where npp_tpu's CLIs
+    pass ``cfg.test.flip_test``: the eval step of ``eval_lip``, the
+    multi-scale test of ``test_lip``."""
+    path, cfg = _edited(tmp_path, "FLIP_TEST: True", "FLIP_TEST: False")
+    argv = README_LINES[cli] + CPU
+    argv[1] = path
+    if cli == "eval_lip":
+        seen = _captured(monkeypatch, teval, "make_eval_step")
+        eval_lip.main(argv)
+        assert seen["flip_test"] is cfg.test.flip_test is False
+    else:
+        seen = _captured(monkeypatch, test_seg, "testval")
+        test_lip.main(argv)
+        assert seen["flip"] is cfg.test.flip_test is False
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+def test_scale_list_is_the_test_cli_scales(tmp_path, monkeypatch, tiny):
+    """``TEST.SCALE_LIST`` gives ``test_lip``'s scales; ``--tiny`` keeps
+    (0.5, 1.0), as npp_tpu's CLI. The model is the tiny one either way
+    (the flagship's forward is not this test's subject)."""
+    path, cfg = _edited(tmp_path, "SCALE_LIST: [0.5, 0.75, 1, 1.25, 1.5]",
+                        "SCALE_LIST: [0.75, 1.25]")
+    real = test_lip.load_eval_model
+    monkeypatch.setattr(test_lip, "load_eval_model",
+                        lambda *a, **kw: real(*a, **dict(kw, tiny=True)))
+    seen = _captured(monkeypatch, test_seg, "testval")
+    test_lip.main(["--cfg", path, "--synthetic", "--limit", "1"]
+                  + (["--tiny"] if tiny else []) + CPU)
+    want = (0.5, 1.0) if tiny else tuple(cfg.test.scale_list)
+    assert tuple(seen["scales"]) == want
+    assert tiny or want == (0.75, 1.25)
+
+
+def test_pose_gt_path_is_scored_against(tmp_path, lip_tree):
+    """``POSE_GT_PATH`` naming an existing LIP pose CSV adds the PCKh, as
+    npp_tpu's ``resolve_pose_gt_csv(cfg.pose_gt_path)``."""
+    gt = os.path.join(lip_tree, "pose_gt.csv")
+    path, cfg = _edited(tmp_path, "POSE_GT_PATH: 'data/LIP/pose_csv/"
+                        "pose_gt.csv'", f"POSE_GT_PATH: '{gt}'")
+    assert cfg.pose_gt_path == gt
+    res = eval_lip.main(["--cfg", path, "--data-root", lip_tree, "--tiny",
+                         "--sample", "3", "--batch", "2"] + CPU)
+    assert np.isfinite(res["pck_avg"])
+
+
+@pytest.mark.parametrize("case", ["explicit", "configured", "missing",
+                                  "synthetic", "ppp"])
+def test_pose_gt_csv_resolution(tmp_path, case):
+    """``--gt-csv`` wins over ``POSE_GT_PATH``; the configured file is
+    read only where it exists, only from a LIP directory."""
+    gt = tmp_path / "gt.csv"
+    gt.write_text("")
+    preset = dataclasses.replace(tconfig.LIP, data=dict(
+        tconfig.LIP.data, pose_gt_path=str(gt) if case != "missing"
+        else str(tmp_path / "absent.csv")))
+    if case == "ppp":
+        preset = dataclasses.replace(preset, name="ppp")
+    args = argparse.Namespace(gt_csv="other.csv" if case == "explicit"
+                              else "")
+    root = None if case == "synthetic" else str(tmp_path)
+    want = {"explicit": "other.csv", "configured": str(gt)}.get(case)
+    assert augment_lip.pose_gt_csv(args, preset, root) == want

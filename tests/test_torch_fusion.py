@@ -46,7 +46,7 @@ from npp_tpu_torch.models.augment import (build_nppnet, cell_specs,
                                           unfuse_neck_state,
                                           unfuse_sibling_state)
 from npp_tpu_torch.ops.primitives import OPS
-from npp_tpu_torch.parallel import spatial, tensor
+from npp_tpu_torch.parallel import tensor
 from npp_tpu_torch.utils import convert
 
 from test_torch_ops import random_variables
@@ -295,16 +295,20 @@ class _Grid:
 
 
 def test_mesh_refuses_fused_cells_on_a_space_axis(bundle):
+    """The fused cells serve on a space axis of a data x space grid
+    (``tests/test_torch_spatial.py``); a grid with a model axis, space
+    axis or not, is refused before any layout is built: npp_tpu has no
+    such serving path."""
     tm = bundle[2]
-    with pytest.raises(ValueError, match="fused sibling cells"):
-        tpred.Predictor(tm, crop_size=(SIZE, SIZE), mesh=_Grid(n_space=2),
-                        fuse_cells=True)
+    with pytest.raises(ValueError, match="n_model > 1"):
+        tpred.Predictor(tm, crop_size=(SIZE, SIZE),
+                        mesh=_Grid(n_space=2, n_model=2), fuse_cells=True)
 
 
 def test_grid_conversions_refuse_fused_layouts(bundle):
+    """Tensor parallelism refuses both fused layouts; the space axis takes
+    them (``tests/test_torch_spatial.py``)."""
     twin = fused_twin(bundle[2], fused_necks=True, fused_cells=True)
-    with pytest.raises(ValueError, match="fused serving layout"):
-        spatial.convert_spatial(twin, _Grid(n_space=2))
     with pytest.raises(ValueError, match="fused serving layout"):
         tensor.convert_tensor_parallel(twin, _Grid(n_model=2))
     necks = fused_twin(bundle[2], fused_necks=True, fused_cells=False)

@@ -32,6 +32,7 @@ Tolerances:
   above that bound.
 """
 import copy
+import types
 
 import numpy as np
 import pytest
@@ -452,10 +453,17 @@ def test_eval_lip_cli_int8(tmp_path):
 # -- refusals -------------------------------------------------------------------
 
 def test_int8_refusals(bundle):
+    """What stays refused: a model axis (npp_tpu serves int8 over a data x
+    space mesh only; ``tests/test_torch_spatial.py`` serves that mesh),
+    an unknown mode, the eval step of a split model, a row split or a TP
+    conversion of a prepared model (int8 is prepared after the split) and
+    scales for an unprepared one."""
     tm = bundle[2]
-    with pytest.raises(ValueError, match="does not serve int8"):
-        tpred.Predictor(tm, crop_size=(CROP, CROP), mesh=_Grid(n_data=2),
+    with pytest.raises(ValueError, match="n_model > 1"):
+        tpred.Predictor(tm, crop_size=(CROP, CROP), mesh=_Grid(n_model=2),
                         quantize="int8")
+    with pytest.raises(ValueError, match="split over a grid"):
+        tq.prepare_int8(copy.deepcopy(tm), _Grid(n_model=2))
     with pytest.raises(ValueError, match="unknown quantize"):
         tpred.Predictor(tm, crop_size=(CROP, CROP), quantize="int4")
     split = copy.deepcopy(tm)
@@ -472,6 +480,9 @@ def test_int8_refusals(bundle):
         teval.make_eval_step(rows, num_classes=20,
                              class_weights=LIP.class_weights,
                              quantize="int8")
+    rows._sharding = types.SimpleNamespace(grid=_Grid(n_space=2))
+    with pytest.raises(ValueError, match="pass the grid it was converted"):
+        tq.prepare_int8(rows)
     q = tq.prepare_int8(copy.deepcopy(tm))
     with pytest.raises(ValueError, match="int8 serving layout"):
         spatial.convert_spatial(q, _Grid(n_space=2))

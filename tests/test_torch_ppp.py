@@ -205,7 +205,8 @@ def test_preset_matches_npp_tpu_config(name, yaml):
     t = cfg.train
     assert p.train == dict(batch_size=t.batch_size, lr=t.lr,
                            lr_step=t.lr_step, lr_factor=t.lr_factor,
-                           epochs=t.epochs, num_samples=t.num_samples, **run)
+                           epochs=t.epochs, num_samples=t.num_samples,
+                           begin_epoch=t.begin_epoch, **run)
     s = cfg.search
     assert p.search == dict(batch_size=s.batch_size, w_lr=s.w_lr,
                             alpha_lr=s.alpha_lr, lr_step=s.lr_step,
