@@ -138,11 +138,25 @@ npp_tpu's flat tree (``utils/convert.jax_state_tree``, a search in
 npp_tpu's default vmapped layout) in an ``.npz``, loaded into a state of
 another seed (``load_jax_state``): every value of the checkpoint blob
 bit for bit and each moment in its parameter's strides; then one step
-(a search: a weight step and an arch step) from one batch that the
-heatmap kernel renders, on the loaded state, on a twin given its values
-and on the original: the twins' difference is the card's run-to-run
-spread of a step, and the original against the loaded state must stay
-within it.
+(a search: a weight step, then an arch step from the loaded state's
+weights and lambdas) from one batch that the heatmap kernel renders, on
+the loaded state, on EXCHANGE_TWINS twins given its values and on the
+original: the twins' largest difference from the loaded state is the
+card's run-to-run spread of a step, and the original against the loaded
+state must stay within it; 22 the library around the model (right after 5, on its model
+and phase 4/5's first batch): 22a the five context heads
+(``ops/heads.py``) at npp_tpu's default widths on (8, 256, 96, 96), each
+in fp32 (TF32 off) and in bf16 + channels_last, eval and train mode with
+one bf16 backward, bf16 against fp32 by the norm rule, the card's fp32
+against the CPU's at batch 1, the forwards' device times; 22b the
+flagship's parameter count and ``utils/summary.model_flops`` of the bs8
+eval forward, of one flip-TTA serving batch and (right after 21a, on
+phase 7's state) of the bs16 train step; 22c the host helpers without
+cv2: ``get_final_preds`` on the model's heatmaps, ``crop`` of the batch's
+images (the identity box equal to the image), the drawings on phase 5's
+predictions and labels, ``save_debug_batch`` read back with
+``read_png``, and ``zipreader.imread`` / ``xmlread`` on a zip of the LIP
+fixtures equal to the readers, each in ms an image.
 Output: one line per phase and its seconds, then a JSON line of the
 kernels, the
 ``nvidia-smi`` name and power limit, and last
@@ -166,6 +180,7 @@ import sys
 import tempfile
 import time
 import weakref
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -201,9 +216,13 @@ from npp_tpu_torch.ops import quantize as Q
 from npp_tpu_torch.parallel import mesh, spatial, tensor, zero
 from npp_tpu_torch.tools import (augment_lip, eval_lip, eval_ppp_map,
                                  predict, search_lip, test_lip)
+from npp_tpu_torch.ops import heads as H
 from npp_tpu_torch.utils import convert
 from npp_tpu_torch.utils import metrics as M
+from npp_tpu_torch.utils import summary as SM
+from npp_tpu_torch.utils import transforms as TR
 from npp_tpu_torch.utils import vis
+from npp_tpu_torch.utils import zipreader
 
 KERNEL_SHAPES = (  # (B, J, gy, gx, sigma)
     (8, 16, 96, 96, 3.0),    # the eval slice's
@@ -242,7 +261,8 @@ TINY_GRAD_NORM = 3e-2    # ||g_cuda - g_cpu|| / ||g_cpu||, all tensors
 TINY_STATS_RTOL = 1e-3   # x max|ref| per running mean / var, after step 1
 TINY_LAMDA_ATOL = 1e-5   # after 3 steps
 TRAIN_REPEAT = 8         # steps on one batch whose loss must fall
-TRAIN_TIMED = 6          # timed steps; the first is dropped as warm-up
+TRAIN_TIMED = 4          # timed steps; the first is dropped as warm-up (6
+                         # before phase 22 came)
 RESUME_RTOL = 1e-2       # second step after a restore (seen: 1.5e-4 to 3e-4)
 # Phase 8, the tiny search pair on the card against the CPU (fp32, TF32
 # off), with phase 6's tolerances where they carry over: the weight step's
@@ -268,8 +288,11 @@ ENTROPY_RTOL = 1e-6
 STATS_ATOL = 1e-6
 ARCH_TIE = 0.1
 ARCH_ATOL = 1e-6
-SEARCH_TIMED = 3         # timed bi-level pairs; the first is dropped as warm-up
-                         # (3, not 6, so that the script stays near 800 s)
+EPOCH_STEPS = 1          # phase 9's warmup steps and search-epoch pairs (2
+                         # before phase 22 came)
+SEARCH_TIMED = 2         # timed bi-level pairs; the first is dropped as warm-up
+                         # (2 since phase 22 came, 3 before, 6 at first: the
+                         # script's time limit)
 # Phase 10, the tiny Predictor on the card against the CPU (fp32, TF32
 # off): labels agree on LABEL_SHARE of the pixels (an argmax whose top two
 # logits are within rounding may part), keypoints to KP_ATOL px wherever
@@ -281,14 +304,14 @@ UNIQUE_GAP = 1e-4
 SERVE_SIZES = ((200, 160), (150, 300), (128, 128), (97, 61), (400, 250),
                (90, 333))
 # Phase 11, the serving slice at the flagship width.
-SERVE_IMAGES, SERVE_BATCH = 64, 8
+SERVE_IMAGES, SERVE_BATCH = 32, 8  # 64 images before phase 22 came
 # Phase 12, the tiny PPP eval on the card against the CPU (fp32, TF32 off,
 # the same weights and the same rendered batches): the fused heatmaps to
 # PPP_HM_RTOL x max|ref| (fp32 convs summed in other orders), the losses
 # at TINY_LOSS_RTOL[0]; the confusion matrices, parsing labels and PCK
 # vectors equal.
 PPP_HM_RTOL = 1e-4
-LATENCY_CALLS = 20
+LATENCY_CALLS = 10  # 20 before phase 22 came
 BF16_MAP_RTOL = 5e-2   # ||bf16 - fp32|| / ||fp32|| of the fused logits / heatmaps
 # Phase 15: the LIP reader on a tree built from the committed JPEG
 # fixtures (tests/fixtures/make_torch_lip.py writes them).
@@ -299,7 +322,8 @@ LIP_TRAIN, LIP_VAL = 64, 16  # entries of the tree's train and val sets
 # part labels of tests/fixtures/make_torch_ppp.py.
 PPP_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "torch_ppp")
 PPP_TRAIN, PPP_VAL = 32, 8   # ids of the PPP tree's train and val lists
-PPP_STEPS = 8                # PPP train steps from the tree (the first is warm-up)
+PPP_STEPS = 6                # PPP train steps from the tree (the first is warm-up;
+                             # 8 before phase 22 came)
 LIP_EPOCHS = 2               # train epochs of the in-process loop (8 steps)
 STAGE_SAMPLES = 16           # samples timed stage by stage
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
@@ -309,24 +333,33 @@ COLD_RING = 8              # calls whose outputs stay referenced: 8 x 10 MB > 50
 # Phase 21: npp_tpu's optimizer state into the port and back. The
 # original and a loaded twin hold the same values, so their next step may
 # differ only as two runs of one step do on the card (the backward's
-# atomics); the twins' difference measures that spread, and the original
-# against a twin must stay within SPREAD_MARGIN times it, in the step's
-# loss (a forward from equal values: the spread is 0, so equal) and in
-# the norm of the updated parameters' difference (a norm over tens of
-# millions of rounding differences varies far less between two runs than
-# their maximum: original against loaded came out 0.90-1.16 of the twins'
-# norm in this script's first two runs with the phase, on an NVIDIA H100
-# 80GB HBM3 at 700 W). A search pair's arch-step loss follows an update
-# that differs by that spread, and one scalar's difference between two
-# runs is no measure of another's (0.00035 between the twins, 0.00133
-# original against loaded, in one of those runs): it is held to
-# RESUME_RTOL, as the second loss after a restore in phases 7 and 9.
+# atomics); the twins' differences from the loaded state measure that
+# spread, and the original against the loaded state must stay within
+# SPREAD_MARGIN times the largest of them: in each step's loss (a forward
+# from equal values: the spread is 0, so equal), in the norm of the
+# updated weights' difference (a norm over tens of millions of rounding
+# differences varies far less between two runs than their maximum:
+# original against loaded came out 0.90-1.16 of one twin's norm in the
+# phase's first eight runs, on an NVIDIA H100 80GB HBM3 at 700 W) and,
+# for a search pair, in that of the architecture parameters after the arch
+# step, which the arch Adam's carried moments decide. A search pair's arch
+# step starts from the loaded state's weights and lambdas after its weight
+# step, so that its loss too is a forward from equal values. Left to
+# follow each state's own weight step, that loss is a scalar after updates
+# that differ by the spread, which the OHEM loss's pixel selection
+# magnifies: two twins came out 0.0326 apart in one run and 0.000121 in
+# another, and one such run failed the phase. From equal values those
+# losses came out equal and the norms 0.91-1.23 of the largest of three
+# twins' (four runs on that card). Two twins, so that one run's small
+# spread does not set the bound alone.
 SPREAD_MARGIN = 2.0
+EXCHANGE_TWINS = 2
 
 # Phase 20: npp_tpu's serving layouts at the flagship width.
-INT8_CALLS = 40          # timed calls per shape class (cold L2 ring as phase 3)
-INT8_PLAIN_CALLS = 10    # the plain version's (its float64 conv is slow)
-INT8_LIB_CALLS = 20      # a yardstick's: _int_mm, cuDNN, quantize_per_tensor
+INT8_CALLS = 20          # timed calls per shape class (cold L2 ring as phase 3;
+                         # 40 before phase 22 came)
+INT8_PLAIN_CALLS = 5     # the plain version's (its float64 conv is slow; 10)
+INT8_LIB_CALLS = 10      # a yardstick's: _int_mm, cuDNN, quantize_per_tensor (20)
 # One unfused flagship int8 forward at bs8 through the int8 conv's first
 # design (mma.sync, 128 x 64 tiles, one shared stage), NVIDIA H100 80GB
 # HBM3 at 700 W: the sum that phase 20a prints the redesign's beside.
@@ -975,17 +1008,19 @@ def flagship_search(tag: str, out_root: str) -> tuple[dict, dict]:
     # Warmup weight steps, then bi-level pairs through the engine.
     train_loader.set_epoch(0)
     avg_w, _ = engine.train_epoch(
-        weight_step, state, augment_lip.LimitedLoader(train_loader, 2),
+        weight_step, state,
+        augment_lip.LimitedLoader(train_loader, EPOCH_STEPS),
         epoch=0, print_freq=hp["print_freq"])
     train_loader.set_epoch(1)
     mini_loader.set_epoch(1)
     avg_s, _ = engine.search_epoch(
         weight_step, arch_step, state,
-        augment_lip.LimitedLoader(train_loader, 2),
-        augment_lip.LimitedLoader(mini_loader, 2), epoch=1,
+        augment_lip.LimitedLoader(train_loader, EPOCH_STEPS),
+        augment_lip.LimitedLoader(mini_loader, EPOCH_STEPS), epoch=1,
         entropy_epoch=hp["entropy_epoch"], print_freq=hp["print_freq"])
-    print(f"phase 9: train_epoch warmup (2 weight steps) mean loss "
-          f"{avg_w:.6f}; search_epoch (2 pairs) mean weight-step loss "
+    print(f"phase 9: train_epoch warmup ({EPOCH_STEPS} weight step) mean "
+          f"loss {avg_w:.6f}; search_epoch ({EPOCH_STEPS} pair) mean "
+          f"weight-step loss "
           f"{avg_s:.6f} {tag}")
     if not (math.isfinite(avg_w) and math.isfinite(avg_s)):
         raise AssertionError("phase 9: non-finite epoch loss")
@@ -1064,11 +1099,9 @@ def flagship_search(tag: str, out_root: str) -> tuple[dict, dict]:
         raise AssertionError("phase 9: the restored search state does not "
                              "resume the run")
 
-    def pair(st, batches):
-        m = weight_step(st, batches[0])
-        return dict(m, arch_loss=arch_step(st, batches[1], 1.0)["loss"])
-
-    ctx = dict(state=state, loaders=(train_loader, mini_loader), steps=pair,
+    ctx = dict(state=state, loaders=(train_loader, mini_loader),
+               steps=lambda st, b: weight_step(st, b[0]),
+               arch_step=lambda st, b: arch_step(st, b[1], 1.0),
                make=lambda seed: search_lip.init_state(
                    search_lip.FLAGSHIP_SEARCH_MODEL, hp, device="cuda",
                    dtype=torch.bfloat16, seed=seed,
@@ -1076,7 +1109,8 @@ def flagship_search(tag: str, out_root: str) -> tuple[dict, dict]:
     del state, tb, mb
     torch.cuda.empty_cache()
 
-    # The search CLI itself: a warmup epoch and a search epoch of 2 steps.
+    # The search CLI itself: a warmup epoch and a search epoch of 2 steps
+    # (its genotype and checkpoint feed phase 14's chain).
     out = search_lip.main(["--synthetic", "--steps", "2", "--epochs", "2",
                            "--warmup-epochs", "1", "--out", out_root])
     genotype = os.path.join(out["out_dir"], "best_genotype.json")
@@ -1105,28 +1139,53 @@ def moments_in_param_strides(state) -> bool:
                for k, v in entry.items() if k.startswith("exp_avg"))
 
 
-def step_apart(a, b, ma, mb) -> dict:
-    """|loss a - loss b| (and of a search pair's arch-step loss), and the
-    max and norm of the parameters' difference, after one step (or pair)
-    of two states."""
-    out = {k: abs(ma[k].item() - mb[k].item()) for k in ("loss", "arch_loss")
-           if k in ma}
-    sq, top = 0.0, 0.0
-    pb = {**dict(b.model.named_parameters()), **b.lamdas}
-    for k, p in [*a.model.named_parameters(), *a.lamdas.items()]:
-        d = (p.detach() - pb[k].detach()).float()
-        sq += float((d * d).sum())
-        top = max(top, float(d.abs().max()))
-    return dict(out, max=top, norm=sq ** 0.5)
+def exchange_step(ctx: dict, st, batches, ref: dict | None = None) -> dict:
+    """Phase 21's step of ``st`` on ``batches``: the losses, and copies of
+    the weights and lambdas after the train or weight step and (a search,
+    whose ``ctx`` has ``arch_step``) of the architecture parameters after
+    the arch step. The arch step starts from ``ref``'s weights and lambdas
+    (a result of this function), where given."""
+    out = dict(loss=ctx["steps"](st, batches)["loss"].item())
+    arch = st.model.arch_parameters() if "arch_step" in ctx else {}
+    tensors = [*st.model.named_parameters(), *st.lamdas.items()]
+    out["weights"] = {k: p.detach().clone() for k, p in tensors
+                      if k not in arch}
+    if arch:
+        if ref is not None:
+            with torch.no_grad():
+                for k, p in tensors:
+                    if k not in arch:
+                        p.copy_(ref["weights"][k])
+        out["arch_loss"] = ctx["arch_step"](st, batches)["loss"].item()
+        out["arch"] = {k: p.detach().clone() for k, p in arch.items()}
+    return out
+
+
+def step_apart(a: dict, b: dict) -> dict:
+    """Two ``exchange_step`` results apart: |loss a - loss b| (and of the
+    arch step's), the max and norm of the weights' and lambdas'
+    difference, and the norm of the architecture parameters'."""
+    def diff(x, y):
+        d = [(x[k] - y[k]).float() for k in x]
+        return (max(float(t.abs().max()) for t in d),
+                sum(float((t * t).sum()) for t in d) ** 0.5)
+
+    top, norm = diff(a["weights"], b["weights"])
+    out = {k: abs(a[k] - b[k]) for k in ("loss", "arch_loss") if k in a}
+    out.update(max=top, norm=norm)
+    if "arch" in a:
+        out["arch_norm"] = diff(a["arch"], b["arch"])[1]
+    return out
 
 
 def state_exchange(tag: str, phase: str, ctx: dict) -> dict:
     """Phase 21a / 21b: the state in ``ctx`` as npp_tpu's flat tree in an
     ``.npz`` (``convert.jax_state_tree``) and back into a state built from
     another seed (``convert.load_jax_state``), bit for bit; then one step
-    from one batch rendered here by the heatmap kernel, on the loaded
-    state, on its twin (a third state given the loaded one's values) and
-    on the original (module docstring)."""
+    (``exchange_step``) from one batch rendered here by the heatmap
+    kernel, on the loaded state, on EXCHANGE_TWINS twins (a third state
+    given the loaded one's values anew for each) and on the original
+    (module docstring)."""
     state = ctx["state"]
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1146,51 +1205,61 @@ def state_exchange(tag: str, phase: str, ctx: dict) -> dict:
         import_s = time.perf_counter() - t0
     same = same_values(checkpoint.state_dict(state),
                        checkpoint.state_dict(loaded))
-    # The spread's twin: the loaded state again, through the port's own
-    # checkpoint blob (copied: a loaded optimizer would share its tensors).
-    twin = ctx["make"](SEED + 3)
-    checkpoint.load_state_dict(twin, copy.deepcopy(
-        checkpoint.state_dict(loaded)))
-    strides = all(moments_in_param_strides(t) for t in (loaded, twin))
+    # The spread's twins: the loaded state again, through the port's own
+    # checkpoint blob (copied: a loaded optimizer would share its tensors),
+    # into a third state, loaded anew for each twin and held to the blob.
+    blob = copy.deepcopy(checkpoint.state_dict(loaded))
+    strides = moments_in_param_strides(loaded)
     launched = heatmaps.render_heatmaps.launches
     batches = [take(loader, 1)[0] for loader in ctx["loaders"]]
     launched = heatmaps.render_heatmaps.launches - launched
-    m_twin = ctx["steps"](twin, batches)
-    m_loaded = ctx["steps"](loaded, batches)
-    m_orig = ctx["steps"](state, batches)
+    m_loaded = exchange_step(ctx, loaded, batches)
+    del loaded
+    twin, twins = ctx["make"](SEED + 3), []
+    for _ in range(EXCHANGE_TWINS):
+        checkpoint.load_state_dict(twin, copy.deepcopy(blob))
+        same = same and same_values(checkpoint.state_dict(twin), blob)
+        strides = strides and moments_in_param_strides(twin)
+        twins.append(step_apart(exchange_step(ctx, twin, batches, m_loaded),
+                                m_loaded))
+    del twin, blob
+    m_orig = exchange_step(ctx, state, batches, m_loaded)
     torch.cuda.synchronize()
-    spread = step_apart(twin, loaded, m_twin, m_loaded)
-    resumed = step_apart(state, loaded, m_orig, m_loaded)
-    del loaded, twin
+    spread = {k: max(t[k] for t in twins) for k in twins[0]}
+    resumed = step_apart(m_orig, m_loaded)
+    del m_loaded
     torch.cuda.empty_cache()
 
     def fmt(d):
         return ", ".join(f"{k} {v:.3g}" for k, v in d.items())
 
+    gated = [k for k in ("loss", "arch_loss", "norm", "arch_norm")
+             if k in resumed]
     print(f"phase {phase}: npp_tpu state exchange: {n_leaves:,} leaves, "
           f".npz {npz_bytes:,} bytes, export {export_s:.3f} s, import "
           f"{import_s:.3f} s; every value of the "
           f"checkpoint blob identical {same}, moments in their parameters' "
           f"strides {strides}; heatmap launches rendering the resumed "
           f"steps' batches {launched}; one step, the loss "
-          f"{m_orig['loss'].item():.6f}: twins apart (the spread) "
-          f"{fmt(spread)}; original vs loaded {fmt(resumed)} (loss and "
-          f"norm <= {SPREAD_MARGIN} x the spread; an arch loss within "
-          f"{RESUME_RTOL}) {tag}")
+          f"{m_orig['loss']:.6f}"
+          + (f", the arch step's {m_orig['arch_loss']:.6f}"
+             if "arch_loss" in m_orig else "")
+          + f": {EXCHANGE_TWINS} twins apart from the loaded state "
+          f"{'; '.join(fmt(t) for t in twins)}; original vs loaded "
+          f"{fmt(resumed)} ({', '.join(gated)} <= {SPREAD_MARGIN} x the "
+          f"twins' largest) {tag}")
     if not (same and strides):
         raise AssertionError(f"phase {phase}: the loaded state differs from "
                              f"the exported one")
     if launched != len(batches):
         raise AssertionError(f"phase {phase}: {launched} heatmap launches "
                              f"for {len(batches)} batches")
-    arch_ok = ("arch_loss" not in resumed or resumed["arch_loss"] <= max(
-        SPREAD_MARGIN * spread["arch_loss"],
-        RESUME_RTOL * abs(m_orig["arch_loss"].item())))
-    if not (resumed["loss"] <= SPREAD_MARGIN * spread["loss"]
-            and resumed["norm"] <= SPREAD_MARGIN * spread["norm"] and arch_ok
-            and math.isfinite(m_orig["loss"].item())):
+    over = {k: (resumed[k], SPREAD_MARGIN * spread[k]) for k in gated
+            if resumed[k] > SPREAD_MARGIN * spread[k]}
+    if over or not math.isfinite(m_orig["loss"]):
         raise AssertionError(f"phase {phase}: the resumed step leaves the "
-                             f"card's run-to-run spread")
+                             f"card's run-to-run spread (value, bound): "
+                             f"{over}, loss {m_orig['loss']}")
     return dict(leaves=n_leaves, npz_bytes=npz_bytes, export_s=export_s,
                 import_s=import_s, launches=launched, spread=spread,
                 resumed=resumed)
@@ -2372,10 +2441,10 @@ def flagship_ppp(tag: str, out_root: str) -> dict:
     torch.cuda.empty_cache()
     heatmaps.render_heatmaps.launches = 0  # the PPP search path's count
     out = search_lip.main(["--synthetic", "--dataset", "ppp", "--steps",
-                           "2", "--epochs", "1", "--out", out_root])
+                           "1", "--epochs", "1", "--out", out_root])
     genotype = os.path.join(out["out_dir"], "best_genotype.json")
     print(f"phase 13: python -m npp_tpu_torch.tools.search_lip --synthetic "
-          f"--dataset ppp --steps 2 --epochs 1 (supernet L="
+          f"--dataset ppp --steps 1 --epochs 1 (supernet L="
           f"{out['state'].model.layers}, bs{PPP.search['batch_size']}): "
           f"train loss "
           f"{out['train_loss']:.6f}, {eval_lip.result_line(out['result'])}, "
@@ -2399,7 +2468,7 @@ def flagship_ppp(tag: str, out_root: str) -> dict:
 
     torch.cuda.synchronize()
     times, pair_losses = [], []
-    for _ in range(3):
+    for _ in range(SEARCH_TIMED):
         t0 = time.perf_counter()
         pair_losses.append([x.item() for x in pair(state, (tb, mb))])
         times.append(time.perf_counter() - t0)
@@ -2410,7 +2479,8 @@ def flagship_ppp(tag: str, out_root: str) -> dict:
     print(f"phase 13: PPP search pair (L={PPP.search_model['layers']}, "
           f"C={PPP.search_model['init_channels']}, bs{shp['batch_size']}, "
           f"bf16): losses "
-          f"{pair_losses}; median of 2 warm pairs {pair_s * 1e3:.3f} ms "
+          f"{pair_losses}; median of {SEARCH_TIMED - 1} warm pairs "
+          f"{pair_s * 1e3:.3f} ms "
           f"({['%.1f' % (t * 1e3) for t in times]} ms); one profiled pair: "
           f"{sprof['kernels']} device operations, device busy "
           f"{sprof['busy_ms']:.3f} ms, idle share {s_idle:.3f} {tag}")
@@ -2777,7 +2847,8 @@ def lip_from_disk(tag: str, out_root: str, root: str) -> dict:
     bad = [r["image"] for r in records if hashlib.sha256(imgproc.read_jpeg(
         os.path.join(FIXTURES, r["image"])).tobytes()).hexdigest()
         != r["sha256"]]
-    print(f"phase 15: built {lib_path.name} in {build_s:.2f} s; "
+    print(f"phase 15: host library {lib_path.name} ({build_s:.2f} s to build "
+          f"or find: phase 22c builds it first); "
           f"{len(records) - len(bad)} of {len(records)} fixture JPEGs "
           f"({sorted({r['sampling'] for r in records})}, restart intervals "
           f"{sorted({r['restart'] for r in records})}) decode to their "
@@ -2872,11 +2943,11 @@ def lip_from_disk(tag: str, out_root: str, root: str) -> dict:
         raise AssertionError("phase 15: the test CLI failed on the tree")
     cli["test_lip"] = dict(miou=res["mean_iou"])
     out = search_lip.main(["--data-root", root, "--gt-csv", gt, "--steps",
-                           "2", "--epochs", "2", "--warmup-epochs", "1",
+                           "1", "--epochs", "2", "--warmup-epochs", "1",
                            "--out", out_root])
     genotype = os.path.join(out["out_dir"], "best_genotype.json")
     print(f"phase 15: python -m npp_tpu_torch.tools.search_lip --data-root "
-          f"<tree> --gt-csv <tree> --steps 2 --epochs 2 --warmup-epochs 1: "
+          f"<tree> --gt-csv <tree> --steps 1 --epochs 2 --warmup-epochs 1: "
           f"train loss {out['train_loss']:.6f}, "
           f"{eval_lip.result_line(out['result'])}, best_genotype.json "
           f"written {os.path.isfile(genotype)} {tag}")
@@ -3156,7 +3227,8 @@ SHARED_STEPS = 2          # DDP train steps against the one-process run
 # decay. The card's backward is not bit-stable (atomics), so ZeRO is
 # held to plain DDP by the same first-step rules and RESUME_RTOL after.
 N_SHARED_VAL = 5          # validate's set: two ranks do not divide it
-DDP_TIMED = 5             # timed DDP steps (after a warm-up one)
+DDP_TIMED = 3             # timed DDP steps (after a warm-up one; 5 before
+                          # phase 22 came)
 SHARED_TIMED = 1          # 17a's timed flagship steps a rank
 
 
@@ -4853,6 +4925,290 @@ def tensor_parallel(tag: str) -> tuple[dict, int]:
         sum(r["launches"] for r in ranks)
 
 
+# Phase 22: the library around the model. The context heads at npp_tpu's
+# default widths on a bs8 batch of the flagship's 1/4-resolution grid.
+HEAD_INPUT = (8, 256, 96, 96)
+HEAD_CASES = {
+    "strip_pooling": lambda: H.StripPooling(256, (20, 12)),
+    "sphead": lambda: H.SPHead(256, 20, (20, 12)),
+    "psp": lambda: H.PSPModule(256, 512, (1, 2, 3, 6)),
+    "aspp": lambda: H.ASPP(256, 256, (12, 24, 36)),
+    "pmsf": lambda: H.PMSF(256, 256),
+}
+HEAD_CALLS = 10          # timed forwards a head (device_us)
+HEAD_CPU_RTOL = 1e-4     # card fp32 vs CPU fp32 at batch 1, x max|ref|
+
+
+def seeded_head(make, seed: int):
+    """A head with seeded weights: convs ~ N(0, 1/fan_in), biases and
+    running means ~ N(0, 0.1), BN scales and running variances in
+    [0.5, 1.5]."""
+    head = make()
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in head.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               / math.sqrt(fan_in))
+                if m.bias is not None:
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(0.5 + torch.rand(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return head
+
+
+def norm_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).norm() / ref.norm())
+
+
+def check_head(name: str, make, x_cpu: torch.Tensor, tag: str) -> dict:
+    """Phase 22a, one head: fp32 on the card (TF32 off) in eval and train
+    mode; the same in bf16 under autocast, channels_last, with one
+    backward; both against the fp32 ones; the card's fp32 eval forward
+    against the CPU's at batch 1; device times of the forwards."""
+    ref = seeded_head(make, SEED)
+    cpu_ref = copy.deepcopy(ref).eval()
+    ref = ref.cuda().to(memory_format=torch.channels_last)
+    x = x_cpu.cuda().contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        e32 = ref.eval()(x)
+        t32 = copy.deepcopy(ref).train()(x)
+        one32 = ref(x[:1]).cpu()
+        one_cpu = cpu_ref(x_cpu[:1])
+    cpu_err = float((one32 - one_cpu).abs().max() / one_cpu.abs().max())
+    bf = copy.deepcopy(ref)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        with torch.no_grad():
+            e16 = bf.eval()(x)
+        xg = x.detach().clone().requires_grad_(True)
+        t16 = bf.train()(xg)
+        t16.float().square().mean().backward()
+    grads = [p.grad for p in bf.parameters()] + [xg.grad]
+    finite = all(g is not None and bool(torch.isfinite(g).all())
+                 for g in grads)
+    bf.eval()
+
+    def fwd16():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return bf(x)
+
+    def fwd32():
+        with torch.no_grad():
+            return ref(x)
+
+    us16, q16 = device_us(fwd16, HEAD_CALLS)
+    us32, q32 = device_us(fwd32, HEAD_CALLS)
+    out = dict(eval_rel=norm_rel(e16, e32), train_rel=norm_rel(t16, t32),
+               cpu_err=cpu_err, grads_finite=finite,
+               shape=tuple(e16.shape), bf16_ms=us16 / 1e3,
+               fp32_ms=us32 / 1e3, queued=q16 and q32,
+               params=SM.count_parameters(ref))
+    print(f"phase 22a: {name} on x{tuple(x.shape)}: out {out['shape']}, "
+          f"{out['params']:,} parameters; bf16 vs fp32 (||diff|| / ||fp32||) "
+          f"eval {out['eval_rel']:.3g}, train {out['train_rel']:.3g} (<= "
+          f"{BF16_MAP_RTOL}); one bf16 train backward, gradients finite "
+          f"{finite}; card fp32 vs CPU fp32 at batch 1 {cpu_err:.3g} of "
+          f"max|ref| (<= {HEAD_CPU_RTOL}); forward device time bf16 "
+          f"{out['bf16_ms']:.3f} ms, fp32 {out['fp32_ms']:.3f} ms "
+          f"({HEAD_CALLS} calls, queued {out['queued']}) {tag}")
+    if not (out["eval_rel"] <= BF16_MAP_RTOL
+            and out["train_rel"] <= BF16_MAP_RTOL and finite
+            and cpu_err <= HEAD_CPU_RTOL and e16.shape == e32.shape):
+        raise AssertionError(f"phase 22a: the {name} head failed: {out}")
+    return out
+
+
+def flops_line(what: str, flops: float, tag: str) -> None:
+    print(f"phase 22b: model_flops of {what}: {flops:,.0f} "
+          f"({flops / 1e12:.4f} TFLOP; convolutions and matrix products, 2 "
+          f"a multiply-add, FlopCounterMode) {tag}")
+
+
+def model_summary(tag: str, model) -> dict:
+    """Phase 22b on phase 5's flagship (bf16, channels_last): its
+    parameter count and the FLOPs of the bs8 384x384 eval forward and of
+    one flip-TTA serving batch of 8 images (two forwards and the
+    decode's blur); the train step's count comes after phase 21a
+    (``train_flops``)."""
+    x = torch.randn((BATCH, 3, 384, 384), generator=torch.Generator()
+                    .manual_seed(SEED)).cuda().contiguous(
+                        memory_format=torch.channels_last)
+    with torch.no_grad():
+        eval_fwd = SM.model_flops(model, x)
+    pred = Predictor(model, crop_size=(384, 384))
+    ims = serve_images(BATCH, SERVE_SIZES)
+    with torch.no_grad():
+        serve = SM.model_flops(pred.predict_batch, ims)
+    params = SM.count_parameters(model)
+    print(f"phase 22b: flagship NPPNet (L=16, C=64, 20 classes, 16 joints): "
+          f"{params:,} parameters ({SM.count_parameters_in_mb(model):.4f} "
+          f"x 2^20) {tag}")
+    flops_line(f"the bs{BATCH} 384x384 eval forward", eval_fwd, tag)
+    flops_line(f"one flip-TTA serving batch of {BATCH} images "
+               f"(Predictor.predict_batch)", serve, tag)
+    print(f"phase 22b: the serving batch / (2 x the eval forward) = "
+          f"{serve / (2 * eval_fwd):.6f} {tag}")
+    # two forwards, and the decode's blur and fusion on top
+    if not (eval_fwd > 0 and 2 * eval_fwd <= serve < 2.1 * eval_fwd):
+        raise AssertionError(f"phase 22b: the serving batch counts {serve} "
+                             f"against the forward's {eval_fwd}")
+    return dict(params=params, eval_forward_bs8=eval_fwd,
+                serve_batch_bs8=serve)
+
+
+def train_flops(tag: str, ctx: dict, eval_fwd: float) -> float:
+    """Phase 22b after 21a: the FLOPs of one flagship bs16 train step
+    (forward, backward; Adam's elementwise update counts nothing) on
+    phase 7's state and loader."""
+    batch = take(ctx["loaders"][0], 1)
+    flops = SM.model_flops(ctx["steps"], ctx["state"], batch)
+    flops_line("one bs16 384x384 train step (forward and backward)", flops,
+               tag)
+    print(f"phase 22b: the train step / (2 x the bs8 eval forward) = "
+          f"{flops / (2 * eval_fwd):.4f} (a backward counts about twice its "
+          f"forward) {tag}")
+    if not 4 * eval_fwd < flops < 8 * eval_fwd:
+        raise AssertionError(f"phase 22b: the train step counts {flops}, "
+                             f"the bs8 forward {eval_fwd}: the backward was "
+                             f"not counted")
+    return flops
+
+
+def per_image_ms(fn, n: int) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def host_helpers(tag: str, model, res: dict) -> dict:
+    """Phase 22c on phase 4/5's first flagship batch, without cv2: the
+    affine decode of the model's heatmaps, crops of its images, the
+    drawings on its predictions, a debug dump read back, and the zip
+    reader on the committed LIP fixtures."""
+    ds = SyntheticDataset(length=N_IMAGES, crop_size=(384, 384), seed=SEED,
+                          device_normalize=True)
+    items = [ds[i] for i in range(BATCH)]
+    images = np.stack([it["image"] for it in items])  # (B, H, W, 3) uint8
+    mean, std = np.asarray(IMAGENET_MEAN), np.asarray(IMAGENET_STD)
+    norm = (images / 255.0 - mean) / std
+    x = torch.from_numpy(norm.astype(np.float32)).permute(0, 3, 1, 2)
+    x = x.cuda().contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        pose_list, par_list = model(x)
+        hm = pose_list[-1][0][:, :16].float().cpu().numpy()
+        par = F.interpolate(par_list[-1][0].float(), size=(384, 384),
+                            mode="bilinear", align_corners=True)
+        labels = par.argmax(1).cpu().numpy()
+    out, ms = {}, {}
+    n = len(images)
+    t0 = time.perf_counter()
+    lib_path, _ = imgproc.build_library()  # the first use in the script
+    build_s = time.perf_counter() - t0
+    center = np.tile(np.float32([192, 192]), (n, 1))
+    scale = np.full(n, 384 / 200.0)
+    ms["get_final_preds"] = per_image_ms(
+        lambda: out.update(dec=TR.get_final_preds(hm, center, scale)), n)
+    preds, maxvals = out["dec"]
+    coords = M._np_max_preds(hm)[0]
+    # this box maps the 96x96 map onto the 384x384 image by x -> 4x, and
+    # the quarter offset moves a peak by a quarter of a map pixel at most
+    off = np.abs(preds - 4 * coords).max()
+    if not (preds.shape == (n, 16, 2) and np.isfinite(preds).all()
+            and off <= 4 * 0.25 + 1e-6):
+        raise AssertionError(f"phase 22c: get_final_preds {preds.shape}, "
+                             f"{off} px from the argmax's image position")
+    ms["crop"] = per_image_ms(lambda: out.update(crops=[
+        TR.crop(im, np.float32([192, 192]), 384 / 200.0, (384, 384))
+        for im in images]), n)
+    rotated = [TR.crop(im, np.float32([180, 200]), 1.5, (256, 256), 30.0)
+               for im in images]
+    identity = all(np.array_equal(c, im)
+                   for c, im in zip(out["crops"], images))
+    if not (identity and all(r.shape == (256, 256, 3) for r in rotated)):
+        raise AssertionError("phase 22c: the identity crop is not the image")
+    joints = res["pose_preds"][:n, :, :2]  # phase 5's decoded joints
+    ms["draw_skeleton"] = per_image_ms(lambda: out.update(drawn=[
+        vis.draw_skeleton(im, j) for im, j in zip(images, joints)]), n)
+    ms["overlay_parsing"] = per_image_ms(lambda: out.update(parsed=[
+        vis.overlay_parsing(im, lab) for im, lab in zip(images, labels)]), n)
+    ms["overlay_heatmap"] = per_image_ms(lambda: out.update(heated=[
+        vis.overlay_heatmap(im, h[0]) for im, h in zip(images, hm)]), n)
+    same = all(np.array_equal(vis.overlay_parsing(im, lab, alpha=0.0), im)
+               for im, lab in zip(images[:2], labels[:2]))
+    changed = sum(int((d != im).any()) for d, im in zip(out["drawn"], images))
+    with tempfile.TemporaryDirectory() as tmp:
+        gt = np.stack([it["joints"] for it in items])
+        gv = np.stack([it["visibility"] for it in items])
+        ms["save_debug_batch"] = per_image_ms(lambda: out.update(
+            paths=vis.save_debug_batch(norm, gt, tmp, visibility=gv,
+                                       mean=mean, std=std)), n)
+        back = [vis.read_png(p)[0] for p in out["paths"]]
+        want = [vis.draw_skeleton(np.clip((im * std + mean) * 255, 0, 255)
+                                  .astype(np.uint8), j, v)
+                for im, j, v in zip(norm, gt, gv)]
+        dumped = all(np.array_equal(a, b) for a, b in zip(back, want))
+        # the zip reader on the committed LIP fixtures
+        names = sorted(f for f in os.listdir(FIXTURES)
+                       if f.endswith((".jpg", ".png")))
+        archive = os.path.join(tmp, "lip.zip")
+        with zipfile.ZipFile(archive, "w") as z:
+            for f in names:
+                z.write(os.path.join(FIXTURES, f), f"images/{f}")
+            z.writestr("ann.xml", "<annotation><person>1</person>"
+                                  "</annotation>")
+        got = {}
+        ms["zip_imread"] = per_image_ms(lambda: got.update(
+            {f: zipreader.imread(f"{archive}@images/{f}") for f in names}),
+            len(names))
+        zipped = all(np.array_equal(
+            got[f][:, :, ::-1],
+            imgproc.read_jpeg(os.path.join(FIXTURES, f)) if f.endswith(".jpg")
+            else vis.read_image(os.path.join(FIXTURES, f))) for f in names)
+        grey = all(np.array_equal(
+            zipreader.imread(f"{archive}@images/{f}", 0),
+            vis.read_png(os.path.join(FIXTURES, f))[0])
+            for f in names if f.endswith(".png"))
+        xml = zipreader.xmlread(f"{archive}@ann.xml").find("person").text
+    checks = dict(library=lib_path.name, build_s=round(build_s, 2),
+                  identity_crop=identity, overlay_alpha0=same,
+                  drawn_changed=changed, debug_round_trip=dumped,
+                  zip_equal=zipped, zip_grey_equal=grey, xml=xml == "1",
+                  zip_members=len(names))
+    print(f"phase 22c: host helpers on phase 4/5's first batch ({n} images, "
+          f"384x384) without cv2: ms an image {json.dumps({k: round(v, 3) for k, v in ms.items()})}; "
+          f"checks {checks} {tag}")
+    if not (same and dumped and zipped and grey and checks["xml"]
+            and changed == n):
+        raise AssertionError(f"phase 22c: a host helper failed: {checks}")
+    return dict(ms_per_image=ms, **checks)
+
+
+def library_slice(tag: str, model, res: dict) -> dict:
+    """Phase 22: the heads (22a), the summary (22b) and the host helpers
+    (22c), on phase 5's model and phase 4/5's batch; each section's
+    seconds."""
+    seconds, t0 = {}, time.perf_counter()
+    x = torch.randn(HEAD_INPUT, generator=torch.Generator().manual_seed(SEED))
+    heads_out = {name: check_head(name, make, x, tag)
+                 for name, make in HEAD_CASES.items()}
+    torch.cuda.empty_cache()
+    seconds["22a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    flops = model_summary(tag, model)
+    seconds["22b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    helpers = host_helpers(tag, model, res)
+    seconds["22c"] = time.perf_counter() - t0
+    print(f"phase 22: seconds by section "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})} {tag}")
+    return dict(heads=heads_out, flops=flops, helpers=helpers,
+                seconds=seconds)
+
+
 class PhaseClock:
     """Prints each phase's wall time on the host clock, and the total."""
 
@@ -4951,8 +5307,14 @@ def main() -> int:
     print(f"phase 5: warm pass {N_IMAGES} images in {dt:.4f} s = "
           f"{N_IMAGES / dt:.2f} img/s (bf16, bs{BATCH}, flip-TTA, loader "
           f"and decode included); peak memory {peak / 2**30:.3f} GiB {tag}")
-    del model
     clock.done(5)
+
+    # Phase 22: the library around the model, on phase 5's model and phase
+    # 4/5's batch (the train step's FLOPs come after phase 21a).
+    library = library_slice(tag, model, res16)
+    del model
+    torch.cuda.empty_cache()
+    clock.done(22)
 
     # Phase 6: the tiny train step, card against CPU (fp32, TF32 off).
     tiny = check_tiny_train(tag)
@@ -4971,9 +5333,14 @@ def main() -> int:
     heatmaps.render_heatmaps.launches = 0  # the exchange path's count
     exchange = {"train": state_exchange(tag, "21a", train_ctx)}
     launches["exchange"] = heatmaps.render_heatmaps.launches
+    clock.done("21a")
+
+    # Phase 22b: the FLOPs of one flagship train step, on phase 7's state.
+    library["flops"]["train_step_bs16"] = train_flops(
+        tag, train_ctx, library["flops"]["eval_forward_bs8"])
     del train_ctx
     torch.cuda.empty_cache()
-    clock.done("21a")
+    clock.done("22b")
 
     # Phase 8: the tiny search pair, card against CPU (fp32, TF32 off).
     tiny_search = check_tiny_search(tag)
@@ -5090,7 +5457,8 @@ def main() -> int:
                "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
                "lip_disk": from_disk, "ppp_and_fused_disk": more_disk,
                "ddp_shared_card": shared, "ddp_nccl": nccl,
-               "spatial": sp, "tensor": tp, "state_exchange": exchange}
+               "spatial": sp, "tensor": tp, "state_exchange": exchange,
+               "library": library}
     print(f"summary: heatmap kernel launches on the main paths: {launches}; "
           f"phase seconds {json.dumps(seconds)}; "
           f"summary {json.dumps(summary)}")

@@ -1,6 +1,7 @@
-// Host image library of the port's LIP reader: a baseline JPEG decoder,
-// resize by a factor and affine warps with a constant border, each with
-// OpenCV's rules, so that the reader gives what cv2 gives without cv2.
+// Host image library of the port's readers and helpers: a baseline JPEG
+// decoder, resize by a factor and affine warps (nearest, linear, cubic)
+// with a constant border, each with OpenCV's rules, so that the port
+// gives what cv2 gives without cv2.
 //
 // Built with the host C++ compiler (-O2 -std=c++17 -fPIC -shared
 // -ffp-contract=off; never -ffast-math: the warps' float rounding is part
@@ -840,6 +841,28 @@ inline void cubic_px(const uint8_t* src, int h, int w, float xs, float ys,
   for (int c = 0; c < CN; c++) px[c] = round_u8(acc[c]);
 }
 
+// One pixel of the linear warp at source (xs, ys), cn channels: the four
+// taps around floor(xs), floor(ys) (a tap outside the image takes the
+// border) blended along x, then along y, each blend fmaf(t, b - a, a) in
+// float32; rounded half to even and saturated.
+inline void linear_px(const uint8_t* src, int h, int w, int cn, float xs,
+                      float ys, int border, uint8_t* px) {
+  const int sx = static_cast<int>(std::floor(xs));
+  const int sy = static_cast<int>(std::floor(ys));
+  const float a = xs - float(sx), b = ys - float(sy);
+  auto tap = [&](int yy, int xx, int c) -> float {
+    const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
+    return float(in ? src[(size_t(yy) * w + xx) * cn + c] : border);
+  };
+  for (int c = 0; c < cn; c++) {
+    const float p00 = tap(sy, sx, c), p01 = tap(sy, sx + 1, c);
+    const float p10 = tap(sy + 1, sx, c), p11 = tap(sy + 1, sx + 1, c);
+    const float v0 = std::fmaf(a, p01 - p00, p00);
+    const float v1 = std::fmaf(a, p11 - p10, p10);
+    px[c] = round_u8(std::fmaf(b, v1 - v0, v0));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -941,17 +964,19 @@ void npp_resize_nearest_u8(const uint8_t* src, int h, int w, int cn,
 // uint8 with cn channels, by OpenCV 5's coordinate rule: M inverted in
 // float64 (invertAffineTransform), the inverse cast to float32 (m); per
 // row base = f32(f32(m01 * y) + m02), per pixel xs = fmaf(m00, x, base)
-// (ys likewise). cubic = 0: nearest, xs and ys rounded half to even, a
-// source outside the image takes the border. cubic = 1 (cn = 3 only):
-// float32 taps (A = -0.75) around floor(xs), floor(ys); a tap outside the
-// image takes the border; the four taps of each row summed, then the
-// rows; rounded and saturated. Returns 1 for a cubic warp of cn != 3.
+// (ys likewise). interp = 0: nearest, xs and ys rounded half to even, a
+// source outside the image takes the border. interp = 1, cubic (cn = 3
+// only): float32 taps (A = -0.75) around floor(xs), floor(ys); a tap
+// outside the image takes the border; the four taps of each row summed,
+// then the rows; rounded and saturated. interp = 2: linear (linear_px).
+// Returns 1 for a cubic warp of cn != 3.
 // Built twice, with and without the FMA instructions (chosen at load
 // time): fmaf is exact either way, the hardware one is faster.
 __attribute__((target_clones("fma", "default")))
 int npp_warp_affine_u8(const uint8_t* src, int h, int w, int cn,
                        uint8_t* dst, int oh, int ow, const double* M,
-                       int cubic, int border) {
+                       int interp, int border) {
+  const bool cubic = interp == 1;
   if (cubic && cn != 3) return 1;
   double D = M[0] * M[4] - M[1] * M[3];
   D = D != 0 ? 1. / D : 0;
@@ -976,7 +1001,9 @@ int npp_warp_affine_u8(const uint8_t* src, int h, int w, int cn,
         for (int c = 0; c < cn; c++) px[c] = bv;
         continue;
       }
-      if (!cubic) {
+      if (interp == 2) {
+        linear_px(src, h, w, cn, xs, ys, border, px);
+      } else if (!cubic) {
         long ix = std::lrintf(xs), iy = std::lrintf(ys);
         if (ix < 0 || iy < 0 || ix >= w || iy >= h) {
           for (int c = 0; c < cn; c++) px[c] = bv;

@@ -23,7 +23,10 @@ and warp in parallel.
   (H, W, 3) uint8, nearest for (H, W) uint8.
 - ``warp_affine``: ``cv2.warpAffine(im, m, (w, h), flags,
   BORDER_CONSTANT, border)``: cubic for (H, W, 3) uint8, nearest for
-  (H, W) uint8, by OpenCV 5's coordinate rule (see the C source).
+  (H, W) uint8, linear for either, by OpenCV 5's coordinate rule (see
+  the C source).
+- ``resize_linear``: ``cv2.resize(plane, (w, h))`` (``INTER_LINEAR``)
+  for an (H, W) uint8 plane, in numpy, exactly.
 """
 from __future__ import annotations
 
@@ -173,16 +176,20 @@ def read_jpeg(path: str) -> np.ndarray:
         return decode_jpeg(f.read(), str(path))
 
 
-def _check(im: np.ndarray, interpolation: str) -> tuple[np.ndarray, int]:
+_SHAPES = {"cubic": ((3,), "(H, W, 3)"), "nearest": ((2,), "(H, W)"),
+           "linear": ((2, 3), "(H, W) or (H, W, 3)")}
+
+
+def _check(im: np.ndarray, interpolation: str,
+           allowed=("cubic", "nearest")) -> tuple[np.ndarray, int]:
     """The contiguous image and its channel count, or ValueError: cubic
-    takes (H, W, 3) uint8, nearest (H, W) uint8."""
-    want = {"cubic": 3, "nearest": 2}
-    if interpolation not in want:
-        raise ValueError(f"interpolation must be 'cubic' or 'nearest', got "
+    takes (H, W, 3) uint8, nearest (H, W) uint8, linear either."""
+    if interpolation not in allowed:
+        raise ValueError(f"interpolation must be one of {allowed}, got "
                          f"{interpolation!r}")
-    if im.dtype != np.uint8 or im.ndim != want[interpolation] or (
+    ndims, shape = _SHAPES[interpolation]
+    if im.dtype != np.uint8 or im.ndim not in ndims or (
             im.ndim == 3 and im.shape[2] != 3) or min(im.shape[:2]) < 1:
-        shape = "(H, W, 3)" if interpolation == "cubic" else "(H, W)"
         raise ValueError(f"{interpolation} takes {shape} uint8, got "
                          f"{im.dtype} {im.shape}")
     return np.ascontiguousarray(im), (3 if im.ndim == 3 else 1)
@@ -207,13 +214,17 @@ def resize(im: np.ndarray, scale: float, interpolation: str) -> np.ndarray:
     return out
 
 
+_INTERP = {"nearest": 0, "cubic": 1, "linear": 2}
+
+
 def warp_affine(im: np.ndarray, m: np.ndarray, dsize: tuple[int, int],
                 interpolation: str, border: int) -> np.ndarray:
-    """``cv2.warpAffine(im, m, dsize=(w, h), flags=INTER_CUBIC or
-    INTER_NEAREST, borderMode=BORDER_CONSTANT, borderValue=border)`` for
-    the 2x3 forward matrix ``m``: 'nearest' (1-channel) equal to OpenCV
-    5's, 'cubic' (3-channel) within one grey level of it."""
-    src, cn = _check(im, interpolation)
+    """``cv2.warpAffine(im, m, dsize=(w, h), flags=INTER_CUBIC,
+    INTER_NEAREST or INTER_LINEAR, borderMode=BORDER_CONSTANT,
+    borderValue=border)`` for the 2x3 forward matrix ``m``: 'nearest'
+    (1-channel) and 'linear' (1- or 3-channel) equal to OpenCV 5's,
+    'cubic' (3-channel) within one grey level of it."""
+    src, cn = _check(im, interpolation, tuple(_INTERP))
     ow, oh = int(dsize[0]), int(dsize[1])
     if ow < 1 or oh < 1:
         raise ValueError(f"empty output size {dsize}")
@@ -222,6 +233,46 @@ def warp_affine(im: np.ndarray, m: np.ndarray, dsize: tuple[int, int],
     if _library().npp_warp_affine_u8(
             _ptr(src), src.shape[0], src.shape[1], cn, _ptr(out), oh, ow,
             mat.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            int(interpolation == "cubic"), int(border)):
+            _INTERP[interpolation], int(border)):
         raise ValueError(f"the cubic warp takes 3 channels, not {cn}")
     return out
+
+
+def _linear_taps(n_in: int, n_out: int, clamp: bool):
+    """Source index and 11-bit weights (1 - f, f) of each output index:
+    f32((d + 0.5) * (1 / (n_out / n_in)) - 0.5), split at its floor. The
+    horizontal taps are clamped to the edge pixel with f = 0; the
+    vertical ones are not (their rows are, when read)."""
+    pos = ((np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+           ).astype(np.float32)
+    idx = np.floor(pos).astype(np.int64)
+    frac = (pos - idx).astype(np.float32)
+    if clamp:
+        low, high = idx < 0, idx >= n_in - 1
+        frac[low | high] = 0
+        idx[low], idx[high] = 0, n_in - 1
+    return (idx, np.rint((1 - frac) * 2048).astype(np.int64),
+            np.rint(frac * 2048).astype(np.int64))
+
+
+def resize_linear(plane: np.ndarray, dsize: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(plane, dsize=(w, h), interpolation=INTER_LINEAR)`` for
+    an (H, W) uint8 plane, exactly (OpenCV's fixed-point rule): each row
+    is blended along x in integers with 11-bit weights, then each output
+    value is sum((row >> 4) * weight >> 16) over its two rows, plus 2,
+    shifted right by 2 and saturated."""
+    if plane.dtype != np.uint8 or plane.ndim != 2 or min(plane.shape) < 1:
+        raise ValueError(f"resize_linear takes an (H, W) uint8 plane, got "
+                         f"{plane.dtype} {plane.shape}")
+    ow, oh = int(dsize[0]), int(dsize[1])
+    if ow < 1 or oh < 1:
+        raise ValueError(f"empty output size {dsize}")
+    h, w = plane.shape
+    sx, ax0, ax1 = _linear_taps(w, ow, clamp=True)
+    sy, ay0, ay1 = _linear_taps(h, oh, clamp=False)
+    src = plane.astype(np.int64)
+    rows = src[:, sx] * ax0 + src[:, np.minimum(sx + 1, w - 1)] * ax1
+    r0 = rows[np.clip(sy, 0, h - 1)] >> 4
+    r1 = rows[np.clip(sy + 1, 0, h - 1)] >> 4
+    v = ((r0 * ay0[:, None]) >> 16) + ((r1 * ay1[:, None]) >> 16)
+    return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)

@@ -1,5 +1,5 @@
-"""Weight bridge: a flax NPPNet or SearchNet variable tree -> the port's
-state_dict.
+"""Weight bridge: a flax NPPNet, SearchNet or context-head variable tree
+-> the port's state_dict.
 
 ``load_jax_variables(model, variables_np)`` takes the flax
 ``{"params": ..., "batch_stats": ...}`` tree of numpy arrays (standard
@@ -22,8 +22,10 @@ by ordinal buckets instead):
 
 - a list member ``name_<i>`` becomes ``name.<i>`` (``cells1_3`` ->
   ``cells1.3``); compact children ``Conv_<k>``, ``BatchNorm_<k>`` and
-  ``DilConvS_<k>`` keep their names; a parameter at the top of the tree
-  (an architecture parameter) keeps its name;
+  ``DilConvS_<k>``, and the context heads' ``_ConvBN_<k>`` and
+  ``StripPooling_<k>`` (``ops/heads.py``), keep their names; a
+  parameter at the top of the tree (an architecture parameter) keeps
+  its name;
 - the inner ``Conv_0`` of the JAX ``Conv`` wrapper is dropped
   (``.../Conv_1/Conv_0/kernel`` -> ``...Conv_1.weight``);
 - leaves: conv ``kernel`` HWIO -> ``weight`` OIHW (depthwise (3,3,1,C) ->
@@ -68,7 +70,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_COMPACT = re.compile(r"^(Conv|BatchNorm|DilConvS)_\d+$")
+_COMPACT = re.compile(
+    r"^(Conv|BatchNorm|DilConvS|_ConvBN|StripPooling)_\d+$")
 _LIST_MEMBER = re.compile(r"^(.+)_(\d+)$")
 _TABLES = {
     "params": {"kernel": "weight", "scale": "weight", "bias": "bias"},

@@ -6,8 +6,11 @@ jax already (tests/conftest.py). Importing also builds nothing: neither
 the heatmap kernel nor the readers' host library. The search,
 serving, PPP / chain, LIP reader, PPP reader / fused-warp,
 data-parallel, spatial, tensor-parallel and serving-layout slices'
-modules are also imported each on its own, so that none of them leans on
-another module having been imported first.
+modules, and the library modules (the context heads, the summary, the
+keypoint transforms, the zip reader), are also imported each on its own,
+so that none of them leans on another module having been imported first.
+``import npp_tpu_torch`` alone imports none of its submodules; its lazy
+exports resolve.
 """
 import os
 import subprocess
@@ -73,6 +76,10 @@ LAYOUT_MODULES = ("npp_tpu_torch.ops.quantize",
                   "npp_tpu_torch.models.cells",
                   "npp_tpu_torch.models.augment",
                   "npp_tpu_torch.utils.convert")
+LIBRARY_MODULES = ("npp_tpu_torch.ops.heads",
+                   "npp_tpu_torch.utils.summary",
+                   "npp_tpu_torch.utils.transforms",
+                   "npp_tpu_torch.utils.zipreader")
 
 
 def _run(code: str) -> str:
@@ -117,10 +124,35 @@ def test_port_imports_no_jax_cv2_yaml_or_npp_tpu():
 @pytest.mark.parametrize("module",
                          SEARCH_MODULES + SERVE_MODULES + PPP_MODULES
                          + LIP_MODULES + DATA_MODULES + PARALLEL_MODULES
-                         + LAYOUT_MODULES)
+                         + LAYOUT_MODULES + LIBRARY_MODULES)
 def test_search_module_imports_alone_without_jax(module):
     bad = _run(f"import importlib, sys\n"
                f"importlib.import_module({module!r})\n"
                f"print(sorted(m for m in sys.modules\n"
                f"             if m.split('.')[0] in {BANNED!r}))")
+    assert bad.strip() == "[]", bad
+
+
+LAZY_PROBE = """
+import sys
+import npp_tpu_torch
+loaded = sorted(m for m in sys.modules if m.startswith("npp_tpu_torch."))
+assert not loaded, loaded
+names = list(npp_tpu_torch.__all__)
+for name in names:
+    getattr(npp_tpu_torch, name)
+from npp_tpu_torch.ops import heatmaps, quantize
+from npp_tpu_torch.data import imgproc
+assert not heatmaps._LIBRARY and not quantize._LIBRARY
+assert not imgproc._LIBRARY
+print(len(names), sorted(m for m in sys.modules
+                         if m.split(".")[0] in BANNED))
+""".replace("BANNED", repr(BANNED))
+
+
+def test_top_level_import_is_light_and_exports_resolve():
+    """``import npp_tpu_torch`` imports no submodule; resolving every
+    export builds nothing and imports none of ``BANNED``."""
+    n, bad = _run(LAZY_PROBE).split(" ", 1)
+    assert int(n) == 12
     assert bad.strip() == "[]", bad

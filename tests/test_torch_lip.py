@@ -233,7 +233,9 @@ def test_resize_and_warp_check_their_input():
     with pytest.raises(ValueError, match="cubic takes"):
         imgproc.resize(im[..., 0], 2.0, "cubic")
     with pytest.raises(ValueError, match="interpolation"):
-        imgproc.warp_affine(im, np.eye(2, 3), (5, 4), "linear", 0)
+        imgproc.warp_affine(im, np.eye(2, 3), (5, 4), "area", 0)
+    with pytest.raises(ValueError, match="interpolation"):
+        imgproc.resize(im, 2.0, "linear")  # resize_linear takes a dsize
     with pytest.raises(ValueError, match="empty"):
         imgproc.resize(im, 0.01, "cubic")
 
