@@ -156,10 +156,37 @@ cv2: ``get_final_preds`` on the model's heatmaps, ``crop`` of the batch's
 images (the identity box equal to the image), the drawings on phase 5's
 predictions and labels, ``save_debug_batch`` read back with
 ``read_png``, and ``zipreader.imread`` / ``xmlread`` on a zip of the LIP
-fixtures equal to the readers, each in ms an image.
-Output: one line per phase and its seconds, then a JSON line of the
-kernels, the
-``nvidia-smi`` name and power limit, and last
+fixtures equal to the readers, each in ms an image; 23 npp_tpu's
+one-dispatch programs as CUDA graphs (``core/graphs.py``): 23a (right
+after 22b) the tiny fp32 train of 8 updates as captured dispatches of 3,
+3 (across the schedule's boundary) and a tail of 2 against three eager
+runs with the same capturable Adam (the state's norms within 2x the
+eager twins' spread, each lambda's gradient sum within 1% of its norm,
+the first loss, counts and learning rates equal),
+then on phase 7's flagship bs16 state one dispatch of 4 captured steps
+(ms a step, device operations, busy, idle, peak, capture and
+instantiation seconds) beside phase 7's eager step, and capturable
+against plain Adam; 23b (right after 20, on phase 11's model) the tiny
+eval epoch with a tail batch against ``validate`` and the flagship bs8
+flip-TTA eval per batch against ``--scanned``, fp and int8 with dynamic
+scales, every output bit for bit, the int8 kernels of a replay counted
+by name on the device's record and held against the calls the capture
+recorded; 23c ``augment_lip --synthetic --steps-per-dispatch 4`` over two
+epochs of 4 steps (a finite, falling loss), ``eval_lip --synthetic
+--scanned`` and ``--scanned --int8``.
+Order: 1-5, 22, 7, 21a, 22b, 23a (flagship), 9, 21b, 11, 20, 23b, 23c
+(eval CLIs), 13, 15, 16, 17b's DDP step, then the ranks: one spawned
+pair of gloo ranks runs 17a and then 18, 19's four ranks are spawned as
+18 begins; what keeps no times runs beside their tiny work in this
+process (6, 8, 10, 12, 23a's tiny check and 17b's torchrun CLIs beside
+17a; 14 and 23c's train CLI beside 18's untimed work), and each rank's
+timed flagship step, and 18's timed bf16 forward, wait for this
+process's word that the card is quiet.
+Output: one line per phase and its seconds, each line that begins with
+"phase" ending with the script's cumulative seconds (``[t=... s]``, the
+spawned ranks' too; stdout and stderr are line-buffered, so a run cut
+at its limit keeps what it printed), then a JSON line of the kernels,
+the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -172,6 +199,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -193,6 +221,7 @@ from npp_tpu_torch import engine
 from npp_tpu_torch.config import LIP, PPP
 from npp_tpu_torch.core import checkpoint
 from npp_tpu_torch.core import evaluate as E
+from npp_tpu_torch.core import graphs
 from npp_tpu_torch.core import inference as I
 from npp_tpu_torch.core import test_seg
 from npp_tpu_torch.core import search as S
@@ -223,6 +252,28 @@ from npp_tpu_torch.utils import summary as SM
 from npp_tpu_torch.utils import transforms as TR
 from npp_tpu_torch.utils import vis
 from npp_tpu_torch.utils import zipreader
+
+# The script's start (``time.time()``), inherited by the processes it
+# spawns, so that every phase line, theirs too, carries the script's
+# cumulative seconds.
+T0 = float(os.environ.setdefault("CHIP_SMOKE_T0", repr(time.time())))
+_print = print
+
+
+def print(*args, **kw):  # noqa: A001 - the module's own print
+    """``print``, with the script's cumulative seconds (``[t=... s]``)
+    after every line that begins with "phase"."""
+    if args and isinstance(args[0], str) and args[0].startswith("phase "):
+        args = (*args, f"[t={time.time() - T0:.1f} s]")
+    _print(*args, **kw)
+
+
+def line_buffered() -> None:
+    """Flush stdout and stderr at each line, so that a run cut at its time
+    limit keeps every phase line it printed (under a pipe Python buffers
+    them by blocks)."""
+    sys.stdout.reconfigure(line_buffering=True)
+    sys.stderr.reconfigure(line_buffering=True)
 
 KERNEL_SHAPES = (  # (B, J, gy, gx, sigma)
     (8, 16, 96, 96, 3.0),    # the eval slice's
@@ -665,10 +716,12 @@ def take(loader, n: int) -> list:
         it.close()
 
 
-def profile_step(step, state, batch) -> dict:
+def profile_step(step, state, batch, counted=None) -> dict:
     """Device operations (kernels, copies, fills) and device busy time of
     one step (``torch.profiler``, device activity only; busy = the union
-    of their spans), with the eight largest by device time."""
+    of their spans), with the eight largest by device time; with
+    ``counted`` ({key: regex}), ``counted`` in the result holds the
+    number of device operations whose name each regex finds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -676,11 +729,15 @@ def profile_step(step, state, batch) -> dict:
         step(state, batch)
         torch.cuda.synchronize()
     # Kernels and memory operations; not the ranges that user annotations
-    # (such as the optimizer's step) draw on the device's timeline.
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not e.name.startswith("Optimizer.")]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    # (such as the optimizer's step) draw on the device's timeline. Read
+    # from the profiler's raw results: ``prof.events()`` would build a
+    # Python event for each first, ~60 us apiece (seconds for the 115,000
+    # operations of a search pair; before phase 23 came it did).
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation() and not e.is_hidden_event()
+              and not e.name().startswith("Optimizer.")]
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events)
     busy, end = 0.0, -math.inf
     for a, b in spans:
         if b > end:
@@ -688,14 +745,19 @@ def profile_step(step, state, batch) -> dict:
             end = b
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in events:
-        by_name[e.name][0] += e.time_range.end - e.time_range.start
-        by_name[e.name][1] += 1
+        by_name[e.name()][0] += e.duration_ns() / 1e3
+        by_name[e.name()][1] += 1
     top = sorted(((t, n, k) for k, (t, n) in by_name.items()),
                  reverse=True)[:8]
     if not spans:
         raise AssertionError("torch.profiler recorded no device operation")
-    return dict(kernels=len(spans), busy_ms=busy / 1e3,
-                top=[(k[:70], n, round(t / 1e3, 3)) for t, n, k in top])
+    out = dict(kernels=len(spans), busy_ms=busy / 1e3,
+               top=[(k[:70], n, round(t / 1e3, 3)) for t, n, k in top])
+    if counted:
+        out["counted"] = {key: sum(n for k, (_, n) in by_name.items()
+                                   if re.search(rx, k))
+                          for key, rx in counted.items()}
+    return out
 
 
 def fp32_loss(state, batch, hp, class_weights=LIP_CLASS_WEIGHTS) -> float:
@@ -1109,14 +1171,15 @@ def flagship_search(tag: str, out_root: str) -> tuple[dict, dict]:
     del state, tb, mb
     torch.cuda.empty_cache()
 
-    # The search CLI itself: a warmup epoch and a search epoch of 2 steps
-    # (its genotype and checkpoint feed phase 14's chain).
-    out = search_lip.main(["--synthetic", "--steps", "2", "--epochs", "2",
+    # The search CLI itself: a warmup epoch and a search epoch of 1 step
+    # (2 before phase 23 came; its genotype and checkpoint feed phase 14's
+    # chain).
+    out = search_lip.main(["--synthetic", "--steps", "1", "--epochs", "2",
                            "--warmup-epochs", "1", "--out", out_root])
     genotype = os.path.join(out["out_dir"], "best_genotype.json")
     wrote = os.path.isfile(genotype)
     print(f"phase 9: python -m npp_tpu_torch.tools.search_lip --synthetic "
-          f"--steps 2 --epochs 2 --warmup-epochs 1: train loss "
+          f"--steps 1 --epochs 2 --warmup-epochs 1: train loss "
           f"{out['train_loss']:.6f}, {eval_lip.result_line(out['result'])}, "
           f"best_genotype.json written {wrote} {tag}")
     if not (wrote and math.isfinite(out["train_loss"])):
@@ -2911,11 +2974,12 @@ def lip_from_disk(tag: str, out_root: str, root: str) -> dict:
 
     # The CLIs on the tree.
     cli = {}
+    # One step (3 before phase 23 came): the val set is one batch either way.
     out = augment_lip.main(["--data-root", root, "--gt-csv", gt, "--steps",
-                            "3", "--epochs", "1", "--out", out_root])
+                            "1", "--epochs", "1", "--out", out_root])
     r = out["result"]
     print(f"phase 15: python -m npp_tpu_torch.tools.augment_lip --data-root "
-          f"<tree> --gt-csv <tree> --steps 3 --epochs 1: train loss "
+          f"<tree> --gt-csv <tree> --steps 1 --epochs 1: train loss "
           f"{out['train_loss']:.6f}, {eval_lip.result_line(r)} {tag}")
     if not (math.isfinite(out["train_loss"]) and math.isfinite(r["loss"])
             and math.isfinite(r["pck_avg"])):
@@ -3071,12 +3135,13 @@ def ppp_and_fused_from_disk(tag: str, out_root: str, lip_root: str,
         raise AssertionError("phase 16: validate_ppp failed on the tree")
     del state, first, eval_step, train_loader, val_loader
     torch.cuda.empty_cache()
+    # One step (3 before phase 23 came): one val batch either way.
     out = augment_lip.main(["--dataset", "ppp", "--data-root", root,
-                            "--steps", "3", "--epochs", "1", "--out",
+                            "--steps", "1", "--epochs", "1", "--out",
                             out_root])
     r = out["result"]
     print(f"phase 16: python -m npp_tpu_torch.tools.augment_lip --dataset "
-          f"ppp --data-root <PPP tree> --steps 3 --epochs 1: train loss "
+          f"ppp --data-root <PPP tree> --steps 1 --epochs 1: train loss "
           f"{out['train_loss']:.6f}, val loss {r['loss']:.6f}, mIoU "
           f"{r['mean_iou']:.4f}, PCK avg {r['pck_avg']:.3f} {tag}")
     if not (math.isfinite(out["train_loss"]) and math.isfinite(r["loss"])
@@ -3179,10 +3244,11 @@ def ppp_and_fused_from_disk(tag: str, out_root: str, lip_root: str,
                              f"{len(steps)} fused-reader steps")
     del state, train_loader
     torch.cuda.empty_cache()
+    # One step (3 before phase 23 came).
     out = augment_lip.main(["--fast-aug", "--data-root", lip_root, "--steps",
-                            "3", "--epochs", "1", "--out", out_root])
+                            "1", "--epochs", "1", "--out", out_root])
     print(f"phase 16: python -m npp_tpu_torch.tools.augment_lip --fast-aug "
-          f"--data-root <LIP tree> --steps 3 --epochs 1: train loss "
+          f"--data-root <LIP tree> --steps 1 --epochs 1: train loss "
           f"{out['train_loss']:.6f}, {eval_lip.result_line(out['result'])} "
           f"{tag}")
     if not (math.isfinite(out["train_loss"])
@@ -3210,6 +3276,8 @@ def ppp_and_fused_from_disk(tag: str, out_root: str, lip_root: str,
 # the train, eval and search CLIs under torchrun.
 SHARED_WORLD = 2          # gloo ranks on cuda:0
 SHARED_TIMEOUT_S = 420    # a rank that has not ended by then fails the phase
+GO_TIMEOUT_S = 900        # a rank waits that long for the word to take its
+                          # timed flagship step (``wait_file``)
 SHARED_STEPS = 2          # DDP train steps against the one-process run
 # 17a's bounds are tests/test_torch_parallel.py's where they carry over:
 # the first step's losses and lambda gradients at rtol 1e-5, its running
@@ -3227,8 +3295,8 @@ SHARED_STEPS = 2          # DDP train steps against the one-process run
 # decay. The card's backward is not bit-stable (atomics), so ZeRO is
 # held to plain DDP by the same first-step rules and RESUME_RTOL after.
 N_SHARED_VAL = 5          # validate's set: two ranks do not divide it
-DDP_TIMED = 3             # timed DDP steps (after a warm-up one; 5 before
-                          # phase 22 came)
+DDP_TIMED = 1             # timed DDP steps (after a warm-up one; 5 before
+                          # phase 22 came, 3 before phase 23)
 SHARED_TIMED = 1          # 17a's timed flagship steps a rank
 
 
@@ -3389,11 +3457,13 @@ def shared_card_flagship(device, group) -> dict:
     return out
 
 
-def shared_card_rank(rank: int, port: int, out_dir: str) -> None:
-    """A 17a rank (spawned): joins the gloo group of SHARED_WORLD ranks on
+def pair_rank(rank: int, port: int, out_dir: str, spawned: float) -> None:
+    """A rank of phases 17a and 18 (spawned at ``spawned``,
+    ``time.time()``): joins the gloo group of SHARED_WORLD ranks on
     cuda:0 through torchrun's variables, runs ``shared_card_work`` and
-    ``shared_card_flagship``, saves its results and its heatmap kernel
-    launches."""
+    ``shared_card_flagship`` and saves their results and its heatmap
+    kernel launches, then runs ``sp_work`` and saves its results."""
+    line_buffered()
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(SHARED_WORLD),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     torch.backends.cudnn.allow_tf32 = False
@@ -3401,11 +3471,23 @@ def shared_card_rank(rank: int, port: int, out_dir: str) -> None:
     if not mesh.initialize_distributed("cuda:0", backend="gloo"):
         raise RuntimeError("the gloo group did not start")
     try:
+        started = time.time() - spawned
+        t0 = time.perf_counter()
         heatmaps.render_heatmaps.launches = 0
         out = shared_card_work("cuda:0", mesh.data_group())
+        work_s = time.perf_counter() - t0
+        wait_file(os.path.join(out_dir, "flagship.go"), GO_TIMEOUT_S)
         out["flagship"] = shared_card_flagship("cuda:0", mesh.data_group())
         out["launches"] = heatmaps.render_heatmaps.launches
-        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        out["seconds"] = {"start": round(started, 1),
+                          "tiny": round(work_s, 1),
+                          "flagship (after the go)": round(
+                              time.perf_counter() - t0 - work_s, 1)}
+        save_atomic(out, os.path.join(out_dir, f"rank{rank}_17a.pt"))
+        del out
+        torch.cuda.empty_cache()
+        out = sp_work("cuda:0", os.path.join(out_dir, "sp.go"))
+        save_atomic(out, os.path.join(out_dir, f"rank{rank}_18.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -3458,36 +3540,103 @@ def stats_err(got: dict, ref: dict) -> float:
                for n, r in ref.items())
 
 
-def shared_card(tag: str, train: dict) -> tuple[dict, int]:
-    """17a: SHARED_WORLD gloo ranks share cuda:0 (spawned processes), the
-    tiny configuration in fp32 with TF32 off at batch 2 a rank, against
-    one process at batch 4 on the same card fed the ranks' batches
-    concatenated in rank order; then each rank's flagship bf16 step at
-    bs8, beside phase 7's unwrapped bs16 step (``train``). Returns the
-    numbers and the ranks' heatmap kernel launches."""
-    torch.backends.cudnn.allow_tf32 = False  # as in the ranks
-    torch.backends.cuda.matmul.allow_tf32 = False
-    port = free_port()
-    ctx = torch.multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=shared_card_rank, args=(r, port, tmp))
-                 for r in range(SHARED_WORLD)]
-        for p in procs:
+class RankPair:
+    """The SHARED_WORLD (= SP_WORLD) gloo ranks on cuda:0 that phases 17a
+    and 18 share (``pair_rank``; one spawn, one start for both): each
+    rank saves its 17a results, then runs phase 18's work and saves
+    those. Before phase 23 came, 17a and 18 each spawned a pair."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        self.spawned = time.time()
+        port = free_port()
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.procs = [ctx.Process(target=pair_rank,
+                                  args=(r, port, self.tmp.name, self.spawned))
+                      for r in range(SHARED_WORLD)]
+        for p in self.procs:
             p.start()
-        one = shared_card_work("cuda", None)  # the one-process run, meanwhile
-        deadline = time.monotonic() + SHARED_TIMEOUT_S
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
-        for p in procs:
+
+    def go(self, part: str = "17a") -> None:
+        """Let the ranks take 17a's timed flagship step (after 17b's CLIs,
+        which run beside their tiny work, have ended) or, with ``part``
+        "18", phase 18's timed sections (after phase 14, 23c's train CLI,
+        phase 18's one-process references and test_lip --mesh, and phase
+        19's tiny steps have ended)."""
+        name = "flagship.go" if part == "17a" else "sp.go"
+        open(os.path.join(self.tmp.name, name), "w").close()
+
+    def stop(self) -> None:
+        for p in self.procs:
             if p.is_alive():
                 p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * SHARED_WORLD:
-            raise AssertionError(f"phase 17a: the ranks exited with {codes}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False)
+            p.join()
+        self.tmp.cleanup()
+
+    def results(self, part: str, timeout: float) -> list:
+        """Every rank's results of ``part`` ("17a" or "18"), waiting up to
+        ``timeout`` seconds; a rank that exits without them, or the
+        timeout, stops the pair and fails the phase. After "18" the ranks
+        must exit 0."""
+        paths = [os.path.join(self.tmp.name, f"rank{r}_{part}.pt")
                  for r in range(SHARED_WORLD)]
+        deadline = time.monotonic() + timeout
+        while not all(os.path.exists(x) for x in paths):
+            if (time.monotonic() > deadline
+                    or any(p.exitcode is not None for p in self.procs)):
+                codes = [p.exitcode for p in self.procs]
+                self.stop()
+                raise AssertionError(f"phase {part}: the ranks gave no "
+                                     f"results (exit codes {codes})")
+            time.sleep(0.2)
+        out = [torch.load(x, weights_only=False) for x in paths]
+        if part == "18":
+            for p in self.procs:
+                p.join(timeout=max(1.0, deadline - time.monotonic()))
+            codes = [p.exitcode for p in self.procs]
+            self.stop()
+            if codes != [0] * SHARED_WORLD:
+                raise AssertionError(f"phase 18: the ranks exited with "
+                                     f"{codes}")
+        return out
+
+
+def wait_file(path: str, timeout: float) -> None:
+    """Wait for ``path`` to exist (a rank waits so for the main process's
+    word that the card is quiet enough for its timed flagship step)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no {os.path.basename(path)} in {timeout} s")
+        time.sleep(0.2)
+
+
+def save_atomic(obj, path: str) -> None:
+    """``torch.save`` to ``path`` by way of a temporary name, so that a
+    reader polling for ``path`` never sees it half written."""
+    torch.save(obj, path + ".part")
+    os.replace(path + ".part", path)
+
+
+def shared_card(tag: str, train: dict, pair: RankPair,
+                before_flagship=None) -> tuple[dict, int]:
+    """17a: SHARED_WORLD gloo ranks share cuda:0 (``pair``), the tiny
+    configuration in fp32 with TF32 off at batch 2 a rank, against one
+    process at batch 4 on the same card fed the ranks' batches
+    concatenated in rank order; then each rank's flagship bf16 step at
+    bs8, beside phase 7's unwrapped bs16 step (``train``), once
+    ``before_flagship()`` (the one-process run's follow-up, if given) has
+    returned. Returns the numbers and the ranks' heatmap kernel
+    launches."""
+    torch.backends.cudnn.allow_tf32 = False  # as in the ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = shared_card_work("cuda", None)  # the one-process run, meanwhile
+    if before_flagship is not None:
+        before_flagship()
+    pair.go()
+    ranks = pair.results("17a", SHARED_TIMEOUT_S)
+    print(f"phase 17a: seconds by section, per rank (start: from the spawn "
+          f"to the group) {[r['seconds'] for r in ranks]}")
     lr = augment_lip.TINY_TRAIN["lr"]
     ddp = [r["ddp"] for r in ranks]
     # Both ranks hold the same state after every step.
@@ -3639,6 +3788,7 @@ def cli_rank(module: str, out_json: str, argv: list) -> int:
     OUT_JSON ARGS``): runs ``MODULE.main(ARGS)`` as ``python -m MODULE``
     would and writes rank 0's train loss (or the test CLI's pixel
     accuracy) and launches of the heatmap kernel to OUT_JSON."""
+    line_buffered()
     mod = importlib.import_module(module)
     heatmaps.render_heatmaps.launches = 0
     out = mod.main(argv)
@@ -3693,15 +3843,14 @@ def first_logged_loss(run_dir: str) -> float:
     raise AssertionError(f"phase 17b: no first-step loss in {logs[0]}")
 
 
-def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict]:
-    """17b: NCCL at world size 1. In this process: the flagship bs16 bf16
-    train step under DDP (the model wrapped, find_unused_parameters off
-    and on), timed, profiled and its peak memory, beside phase 7's
-    unwrapped step (``train``); the fp32 loss of the train CLI's first
-    batch. Then under torchrun: the train CLI, the train CLI with
-    ``--zero`` and the search CLI (``--tiny --zero``) side by side, and
-    the eval CLI on the train CLI's checkpoint once that is written.
-    Returns the numbers and the heatmap kernel's launches by path."""
+def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict, float]:
+    """17b's first part: NCCL at world size 1 in this process: the
+    flagship bs16 bf16 train step under DDP (the model wrapped,
+    find_unused_parameters off and on), timed, profiled and its peak
+    memory, beside phase 7's unwrapped step (``train``); the fp32 loss of
+    the train CLI's first batch. Returns the numbers, the heatmap
+    kernel's launches on the DDP train path and that loss. The CLIs under
+    torchrun are ``DdpClis``."""
     launches = {}
     hp = augment_lip.FLAGSHIP_TRAIN
     os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
@@ -3754,10 +3903,25 @@ def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict]:
             dist.destroy_process_group()
         for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
             os.environ.pop(k, None)
+    return dict(ddp_step=timed[False], ddp_step_find_unused=timed[True]), \
+        launches["ddp_train"], loss32
 
-    with tempfile.TemporaryDirectory() as tmp:
-        common = ["--synthetic", "--steps", "3", "--epochs", "1"]
-        procs = {
+
+class DdpClis:
+    """17b's second part: under torchrun (NCCL at world size 1) the train
+    CLI, the train CLI with ``--zero`` and the search CLI (``--tiny
+    --zero``) side by side, and the eval CLI on the train CLI's checkpoint
+    once that is written. They start with phase 17a's rank pair and run
+    beside its tiny work (17a's and 18's checks do not read times;
+    before phase 23 came they ran after 17a's ranks had ended)."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        tmp = self.tmp.name
+        # One step each (3 and 2 before phase 23 came): the first logged
+        # loss and the checkpoint are what the phase checks.
+        common = ["--synthetic", "--steps", "1", "--epochs", "1"]
+        self.procs = {
             "train": run_under_torchrun(
                 "npp_tpu_torch.tools.augment_lip",
                 common + ["--out", os.path.join(tmp, "ddp")], tmp, "train"),
@@ -3767,9 +3931,22 @@ def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict]:
                 "zero"),
             "search": run_under_torchrun(
                 "npp_tpu_torch.tools.search_lip",
-                ["--synthetic", "--tiny", "--steps", "2", "--epochs", "2",
+                ["--synthetic", "--tiny", "--steps", "1", "--epochs", "2",
                  "--warmup-epochs", "1", "--zero", "--out",
                  os.path.join(tmp, "search")], tmp, "search")}
+
+    def stop(self) -> None:
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        self.tmp.cleanup()
+
+    def finish(self, tag: str, loss32: float) -> tuple[dict, dict]:
+        """Wait for the CLIs and check them; ``loss32`` is the fp32 loss
+        of the train CLI's first batch (``nccl_world_one``). Returns the
+        numbers and the heatmap kernel's launches by path."""
+        tmp, procs = self.tmp.name, self.procs
         # The eval CLI reads the train CLI's checkpoint while the other two
         # still run.
         res = {"train": finish(*procs.pop("train"), "train")}
@@ -3783,34 +3960,36 @@ def nccl_world_one(tag: str, train: dict) -> tuple[dict, dict]:
         module_keys = sum(k.startswith("module.") for k in blob["model"])
         del blob
         res.update({k: finish(*v, k) for k, v in procs.items()})
+        procs.clear()
         firsts = {k: first_logged_loss(os.path.join(tmp, d, "lip", "augment",
                                                     "flagship"))
                   for k, d in (("train", "ddp"), ("zero", "zero"))}
-    rel = {k: abs(v - loss32) / abs(loss32) for k, v in firsts.items()}
-    print(f"phase 17b: under python -m torch.distributed.run "
-          f"--nproc_per_node=1 (NCCL): augment_lip --synthetic --steps 3 "
-          f"--epochs 1 train loss {res['train']['train_loss']:.6f}, val loss "
-          f"{res['train']['loss']:.6f}; with --zero "
-          f"{res['zero']['train_loss']:.6f} / {res['zero']['loss']:.6f}; "
-          f"first logged losses {firsts} vs fp32 {loss32:.6f} on the same "
-          f"batch, relative { {k: round(v, 6) for k, v in rel.items()} } (<= "
-          f"{BF16_RTOL}); the checkpoint holds {module_keys} 'module.' keys; "
-          f"eval_lip --ckpt: loss {res['eval']['loss']:.6f}; search_lip "
-          f"--tiny --zero: train loss {res['search']['train_loss']:.6f} "
-          f"{tag}")
-    losses = [res["train"]["train_loss"], res["train"]["loss"],
-              res["zero"]["train_loss"], res["zero"]["loss"],
-              res["eval"]["loss"], res["search"]["train_loss"]]
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"phase 17b: non-finite CLI losses {losses}")
-    if not (max(rel.values()) <= BF16_RTOL and module_keys == 0):
-        raise AssertionError("phase 17b: the CLI's first loss or its "
-                             "checkpoint is off")
-    launches["ddp_train"] += res["train"]["launches"] + res["zero"]["launches"]
-    launches["ddp_search"] = res["search"]["launches"]
-    launches["ddp_eval"] = res["eval"]["launches"]
-    return dict(ddp_step=timed[False], ddp_step_find_unused=timed[True],
-                cli_first_loss_rel=rel), launches
+        self.stop()
+        rel = {k: abs(v - loss32) / abs(loss32) for k, v in firsts.items()}
+        print(f"phase 17b: under python -m torch.distributed.run "
+              f"--nproc_per_node=1 (NCCL): augment_lip --synthetic --steps 1 "
+              f"--epochs 1 train loss {res['train']['train_loss']:.6f}, val loss "
+              f"{res['train']['loss']:.6f}; with --zero "
+              f"{res['zero']['train_loss']:.6f} / {res['zero']['loss']:.6f}; "
+              f"first logged losses {firsts} vs fp32 {loss32:.6f} on the same "
+              f"batch, relative { {k: round(v, 6) for k, v in rel.items()} } (<= "
+              f"{BF16_RTOL}); the checkpoint holds {module_keys} 'module.' keys; "
+              f"eval_lip --ckpt: loss {res['eval']['loss']:.6f}; search_lip "
+              f"--tiny --zero: train loss {res['search']['train_loss']:.6f} "
+              f"{tag}")
+        losses = [res["train"]["train_loss"], res["train"]["loss"],
+                  res["zero"]["train_loss"], res["zero"]["loss"],
+                  res["eval"]["loss"], res["search"]["train_loss"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 17b: non-finite CLI losses {losses}")
+        if not (max(rel.values()) <= BF16_RTOL and module_keys == 0):
+            raise AssertionError("phase 17b: the CLI's first loss or its "
+                                 "checkpoint is off")
+        launches = {"ddp_train": res["train"]["launches"]
+                    + res["zero"]["launches"],
+                    "ddp_search": res["search"]["launches"],
+                    "ddp_eval": res["eval"]["launches"]}
+        return dict(cli_first_loss_rel=rel), launches
 
 
 # Phase 18: spatial partitioning. Two gloo ranks share cuda:0 (NCCL
@@ -4095,8 +4274,12 @@ def sp_layout(device, grid, base, ims) -> dict:
     return out
 
 
-def sp_work(device) -> dict:
-    """Phase 18's work on one rank of the two (``sp_rank``)."""
+def sp_work(device, go_path: str) -> dict:
+    """Phase 18's work on one rank of the two (``pair_rank``); its timed
+    and profiled sections (18a's bf16 forward, 18c's flagship step) wait
+    for ``go_path``, the main process's word that nothing else runs on
+    the card but these two ranks (before phase 23 came nothing else did
+    while phase 18 ran)."""
     space, data = mesh.make_grid(1, SP_WORLD), mesh.make_grid(SP_WORLD, 1)
     out = {"s": space.s, "d": data.d, "seconds": {}}
     t0 = time.perf_counter()
@@ -4106,7 +4289,8 @@ def sp_work(device) -> dict:
         out["seconds"][section] = round(time.perf_counter() - t0, 1)
         t0 = time.perf_counter()
 
-    # 18a: the fp32 forward, then the bf16 one profiled.
+    # 18a: the fp32 forward; the bf16 one is timed and profiled after the
+    # go, below.
     model = spatial.convert_spatial(sp_flagship(device), space)
     x = spatial.shard_batch_spatial({"image": sp_images(SP_FWD_BATCH)},
                                     space)["image"].to(device)
@@ -4115,15 +4299,9 @@ def sp_work(device) -> dict:
         pose_list, par_list = model(x)
         out["fwd"] = [t.float().cpu() for stage in (pose_list, par_list)
                       for pair in stage for t in pair]
+        del pose_list, par_list
         model.dtype = torch.bfloat16
         model(x)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, out["collectives"] = count_collectives(lambda: model(x))
-        torch.cuda.synchronize()
-        out["bf16_ms"] = (time.perf_counter() - t0) * 1e3
-        out["bf16_prof"] = profile_step(lambda m, b: m(b), model, x)
-    del model
     done("18a forward")
     # 18a / 18b: Predictor(mesh=) on the space grid and on the data grid.
     ims = serve_images(SP_SERVE_IMAGES)
@@ -4168,30 +4346,23 @@ def sp_work(device) -> dict:
                              ignore_index=eval_lip.IGNORE,
                              ohem_thres=hp["ohem_thres"],
                              ohem_keep=hp["ohem_keep"], grid=space)
+    done("18c flagship build")
+    wait_file(go_path, GO_TIMEOUT_S)
+    done("wait for the go")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out["collectives"] = count_collectives(lambda: model(x))
+        torch.cuda.synchronize()
+        out["bf16_ms"] = (time.perf_counter() - t0) * 1e3
+        out["bf16_prof"] = profile_step(lambda m, b: m(b), model, x)
+    del model
+    done("18a bf16 forward")
     out["flagship"] = timed_train_step(step, state, batches, SP_TIMED)
     out["flagship"]["rows"] = tuple(batches[0]["image"].shape)
     out["launches"] = heatmaps.render_heatmaps.launches
     done("18c flagship")
     return out
-
-
-def sp_rank(rank: int, port: int, out_dir: str, spawned: float) -> None:
-    """A phase 18 rank (spawned at ``spawned``, ``time.time()``): joins the
-    gloo group of SP_WORLD ranks on cuda:0, runs ``sp_work`` and saves its
-    results."""
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_WORLD),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    if not mesh.initialize_distributed("cuda:0", backend="gloo"):
-        raise RuntimeError("the gloo group did not start")
-    try:
-        started = time.time() - spawned
-        out = sp_work("cuda:0")
-        out["seconds"] = {"start": round(started, 1), **out["seconds"]}
-        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
 
 
 def serve_agreement(got: list, ref: list, unique: np.ndarray) -> tuple:
@@ -4209,19 +4380,17 @@ def serve_agreement(got: list, ref: list, unique: np.ndarray) -> tuple:
     return crop, full, float(kp[unique].max()), score
 
 
-def spatial_parallel(tag: str) -> tuple[dict, int]:
-    """Phase 18 (see the constants above). Returns the numbers and the
-    ranks' heatmap kernel launches on the sp train path."""
+def spatial_parallel(tag: str, pair: RankPair,
+                     before_timed=None) -> tuple[dict, int]:
+    """Phase 18 (see the constants above) on ``pair``'s ranks, which have
+    gone on from 17a to ``sp_work``. They take their timed sections once
+    this process's references and test_lip --mesh have ended and
+    ``before_timed()`` (a wait for other work on the card, if given) has
+    returned. Returns the numbers and the ranks' heatmap kernel launches
+    on the sp train path."""
     torch.backends.cudnn.allow_tf32 = False  # as in the ranks
     torch.backends.cuda.matmul.allow_tf32 = False
-    port = free_port()
-    ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        spawned = time.time()
-        procs = [ctx.Process(target=sp_rank, args=(r, port, tmp, spawned))
-                 for r in range(SP_WORLD)]
-        for p in procs:
-            p.start()
         # The one process's references, meanwhile.
         t_main = time.perf_counter()
         model = sp_flagship("cuda")
@@ -4273,20 +4442,12 @@ def spatial_parallel(tag: str) -> tuple[dict, int]:
             "npp_tpu_torch.tools.test_lip",
             ["--synthetic", "--tiny", "--mesh", "--limit", "2"], tmp,
             "test_lip_mesh")
-        main_s = time.perf_counter() - t_main
-        deadline = time.monotonic() + SP_TIMEOUT_S
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * SP_WORLD:
-            raise AssertionError(f"phase 18: the ranks exited with {codes}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(SP_WORLD)]
         cli_out = finish(cli, cli_json, "test_lip --mesh", timeout=300)
+        main_s = time.perf_counter() - t_main
+        if before_timed is not None:
+            before_timed()
+        pair.go("18")
+        ranks = pair.results("18", SP_TIMEOUT_S)
     # 18a: every rank's rows of the 8 outputs.
     fwd_err = 0.0
     for r in ranks:
@@ -4724,6 +4885,7 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
     cuda:0, runs 19c on the 2x1x2 grid, then 19a (ranks 2-3) or 19b
     (ranks 0-1) on its 1x1x2 grid, and saves its results and its heatmap
     kernel launches."""
+    line_buffered()
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_WORLD),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     torch.backends.cudnn.allow_tf32 = False
@@ -4743,6 +4905,7 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
             out["tiny"] = tp_tiny_step("cuda:0", pair)
             out["eval"] = tp_tiny_eval("cuda:0", pair)
         else:
+            wait_file(os.path.join(out_dir, "flagship.go"), GO_TIMEOUT_S)
             out["flagship"] = tp_flagship("cuda:0", pair)
         out["launches"] = heatmaps.render_heatmaps.launches
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -4761,33 +4924,78 @@ def moment_rule(got: dict, ref: dict) -> tuple:
     return worst, norm
 
 
-def tensor_parallel(tag: str) -> tuple[dict, int]:
-    """Phase 19 (see the constants above). Returns the numbers and the
-    ranks' heatmap kernel launches on the TP train path."""
-    torch.backends.cudnn.allow_tf32 = False  # as in the ranks
-    torch.backends.cuda.matmul.allow_tf32 = False
-    port = free_port()
-    ctx = torch.multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=tp_rank, args=(r, port, tmp))
-                 for r in range(TP_WORLD)]
-        for p in procs:
+class TpRanks:
+    """Phase 19's TP_WORLD gloo ranks on cuda:0 (``tp_rank``), spawned
+    while phase 18's ranks work: their tiny steps (19c, 19a) run beside
+    phase 18, and ranks 0-1 take 19b's timed flagship step once ``go``
+    says that phase 18 has ended (before phase 23 came they were spawned
+    after it)."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        port = free_port()
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.procs = [ctx.Process(target=tp_rank,
+                                  args=(r, port, self.tmp.name))
+                      for r in range(TP_WORLD)]
+        for p in self.procs:
             p.start()
-        # The one process's references, meanwhile.
-        one = tp_tiny_step("cuda")
-        one_eval = tp_tiny_eval("cuda")
+
+    def go(self) -> None:
+        open(os.path.join(self.tmp.name, "flagship.go"), "w").close()
+
+    def wait_tiny(self) -> None:
+        """Wait until the tiny steps are done: ranks 2-3 save their
+        results after 19c and 19a, which ranks 0-1 share up to their
+        wait for ``go``."""
+        paths = [os.path.join(self.tmp.name, f"rank{r}.pt")
+                 for r in range(2, TP_WORLD)]
         deadline = time.monotonic() + TP_TIMEOUT_S
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
-        for p in procs:
+        while not all(os.path.exists(x) for x in paths):
+            codes = [p.exitcode for p in self.procs]
+            if time.monotonic() > deadline or any(codes):
+                raise AssertionError(f"phase 19: the tiny steps gave no "
+                                     f"results (exit codes {codes})")
+            time.sleep(0.2)
+
+    def stop(self) -> None:
+        for p in self.procs:
             if p.is_alive():
                 p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
+            p.join()
+        self.tmp.cleanup()
+
+    def results(self) -> list:
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for p in self.procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        codes = [p.exitcode for p in self.procs]
         if codes != [0] * TP_WORLD:
+            self.stop()
             raise AssertionError(f"phase 19: the ranks exited with {codes}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(TP_WORLD)]
+        out = [torch.load(os.path.join(self.tmp.name, f"rank{r}.pt"),
+                          weights_only=False) for r in range(TP_WORLD)]
+        self.stop()
+        return out
+
+
+def tp_references() -> tuple[dict, dict]:
+    """Phase 19's one-process references: the tiny step and eval (TF32
+    off, as in the ranks), taken while the ranks' tiny work runs."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return tp_tiny_step("cuda"), tp_tiny_eval("cuda")
+
+
+def tensor_parallel(tag: str, tp_ranks: TpRanks,
+                    refs: tuple[dict, dict]) -> tuple[dict, int]:
+    """Phase 19 (see the constants above) on ``tp_ranks``, against the
+    one-process references ``refs`` (``tp_references``). Returns the
+    numbers and the ranks' heatmap kernel launches on the TP train
+    path."""
+    tp_ranks.go()
+    one, one_eval = refs
+    ranks = tp_ranks.results()
     lr = augment_lip.TINY_TRAIN["lr"]
 
     def held(got, ref, tp_ranks) -> dict:
@@ -5209,6 +5417,501 @@ def library_slice(tag: str, model, res: dict) -> dict:
                 seconds=seconds)
 
 
+# Phase 23: npp_tpu's one-dispatch programs as CUDA graphs
+# (``core/graphs.py``): K train steps a replay, the eval epoch a replay.
+SCAN_K = 4               # the flagship's steps a dispatch (--steps-per-dispatch)
+SCAN_TINY_K = 3          # the tiny check: dispatches of 3 and 3, a tail of 2
+SCAN_TINY_STEPS = 8
+SCAN_TINY_LR_STEP = 4    # the schedule's boundary at update 4: inside the
+                         # second dispatch (updates 3-5)
+SCAN_TWINS = 3           # eager runs: the first is the reference, the others'
+                         # distance from it the card's run-to-run spread
+SCAN_EVAL_BATCHES = 2    # flagship bs8 batches of the timed eval epochs
+SCAN_TINY_VAL = 5        # tiny eval set: batches of 2, 2 and a tail of 1
+
+
+def scan_snapshot(state, losses) -> dict:
+    """A tiny train run's end: its losses, and flat float64 copies of the
+    weights with the lambdas (as phase 21's ``step_apart``), the BN
+    statistics, Adam's moments, the lambdas' gradient sum, and the
+    counts and learning rates."""
+    opt = state.optimizer
+
+    def flat(ts):
+        return torch.cat([t.detach().double().reshape(-1).cpu() for t in ts])
+
+    entries = [opt.state[p] for g in opt.param_groups for p in g["params"]]
+    return dict(
+        losses=[float(x) for x in losses],
+        weights=flat([*state.model.parameters(), *state.lamdas.values()]),
+        stats=flat([t for n, t in state.model.state_dict().items()
+                    if "running" in n]),
+        exp_avg=flat([e["exp_avg"] for e in entries]),
+        exp_avg_sq=flat([e["exp_avg_sq"] for e in entries]),
+        accum=flat([p.grad for p in state.lamdas.values()]),
+        accum_by={k: flat([p.grad]) for k, p in state.lamdas.items()},
+        counts=sorted({float(e["step"]) for e in entries}),
+        lrs=[float(x) for x in state.scheduler.get_last_lr()],
+        step=state.step)
+
+
+SCAN_NORMS = ("weights", "stats", "exp_avg", "exp_avg_sq", "accum")
+# The parts held to the eager twins' spread: norms over many values (the
+# weights with the lambdas and each moment, 1,107,150 values at L=8, C=8;
+# the BN statistics, 13,184).
+SCAN_GATED = ("weights", "stats", "exp_avg", "exp_avg_sq")
+# The lambdas' gradient sum is four values, too few for a spread of two
+# twins to bound: its captured distance came out 0.65-2.4 x the twins'
+# largest in the phase's first three runs (NVIDIA H100 80GB HBM3, 700 W).
+# It is held to its own size instead, each lambda's sum within
+# SCAN_ACCUM_RTOL of the eager one in norm. On the CPU the sums after the
+# 8 steps are about (-76, -87) for lamda_pose and (5.9, 5.4) for
+# lamda_par, and the captured and twin distances on the card were
+# 0.007-0.030 for all four together: at most 0.4% of lamda_par's norm.
+# A sum that restarted at each dispatch, or that a replay did not add to
+# in place, would miss by the sum of the earlier dispatches' gradients,
+# tens of percent of it; the phase measures that distance on the eager
+# run and fails if the bound would not catch it.
+SCAN_ACCUM_RTOL = 1e-2
+
+
+def scan_apart(a: dict, b: dict) -> dict:
+    """Two tiny runs apart: the first two steps' |loss difference| (each a
+    forward from weights that are equal where the runs are
+    deterministic), the norm of the later losses' differences, and the
+    norm of each state part's difference."""
+    d = [abs(x - y) for x, y in zip(a["losses"], b["losses"])]
+    out = {"loss1": d[0], "loss2": d[1],
+           "losses3+": math.sqrt(sum(x * x for x in d[2:]))}
+    out.update({k: float((a[k] - b[k]).norm()) for k in SCAN_NORMS})
+    return out
+
+
+def scanned_tiny_train(tag: str) -> dict:
+    """23a: the tiny configuration in fp32 (TF32 off), SCAN_TINY_STEPS
+    updates from the seeded state: captured (dispatches of SCAN_TINY_K,
+    the second across the schedule's boundary, then a tail) against
+    SCAN_TWINS eager runs of the same steps with the same Adam
+    (``train.make_capturable``: its arithmetic differs from the plain
+    Adam's in the last bits, which ``adam_capturable_gap`` measures), so
+    that only the graph differs. The first loss is a forward from equal
+    weights and the counts and learning rates are host arithmetic: equal.
+    The state's norms over many values (SCAN_GATED) within SPREAD_MARGIN
+    x the eager twins' largest distance from the first eager run, as
+    phase 21's; each lambda's gradient sum within SCAN_ACCUM_RTOL of its
+    own norm. A single later loss follows updates that differ by the
+    spread, which the OHEM pixel selection magnifies (in one run a
+    loss's twins came out 0.00113 apart and the captured run 0.00421;
+    the second loss, after one update, came out equal on both twins and
+    3.8e-6 off on the captured run in one run, and 3.8e-6 off on a twin
+    in another): those are reported."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = dict(augment_lip.TINY_TRAIN, lr_step=(SCAN_TINY_LR_STEP,))
+    batches = [tiny_batch("cuda", seed=SEED + 20 + i)
+               for i in range(SCAN_TINY_STEPS)]
+
+    # One state, given the seeded one's values anew for each run through
+    # the port's checkpoint blob (as phase 21's twins): the runs start from
+    # equal values without a model build each.
+    st = augment_lip.init_state(eval_lip.TINY, hp, device="cuda",
+                                dtype=torch.float32, seed=SEED,
+                                steps_per_epoch=1)
+    blob = copy.deepcopy(checkpoint.state_dict(st))
+
+    def fresh():
+        checkpoint.load_state_dict(st, copy.deepcopy(blob))
+        return st
+
+    eager = augment_lip.make_train_step(hp)
+    last = (SCAN_TINY_STEPS - 1) // SCAN_TINY_K * SCAN_TINY_K
+    runs, t0 = [], time.perf_counter()
+    for twin in range(SCAN_TWINS):
+        fresh()
+        T.make_capturable(st)
+        losses = []
+        for i, b in enumerate(batches):
+            if twin == 0 and i == last:  # where the last dispatch starts
+                before_last = {k: p.grad.detach().double().norm().item()
+                               for k, p in st.lamdas.items()}
+            losses.append(eager(st, b)["loss"])
+        runs.append(scan_snapshot(st, losses))
+    eager_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    fresh()
+    scanned = augment_lip.make_train_step(hp, scanned=True)
+    keys = [k for k in batches[0] if k not in ("names", "index")]
+    losses, sizes = [], []
+    for i in range(0, SCAN_TINY_STEPS, SCAN_TINY_K):
+        chunk = batches[i:i + SCAN_TINY_K]
+        sizes.append(len(chunk))
+        out = scanned(st, {k: graphs.stack([b[k] for b in chunk])
+                           for k in keys})
+        losses += out["loss"].tolist()
+    captured = scan_snapshot(st, losses)
+    captured_s = time.perf_counter() - t0
+    graphs_made = len(scanned.programs)
+    del st, scanned
+    ref = runs[0]
+    twins = [scan_apart(r, ref) for r in runs[1:]]
+    spread = {k: max(t[k] for t in twins) for k in twins[0]}
+    got = scan_apart(captured, ref)
+    # Gated: the norms over many values. The later losses are single
+    # numbers after updates that differ by the spread: reported with the
+    # twins' spread, as phase 21 reports a loss it cannot gate.
+    gated = list(SCAN_GATED)
+    over = {k: (got[k], SPREAD_MARGIN * spread[k]) for k in gated
+            if got[k] > SPREAD_MARGIN * spread[k]}
+    # Each lambda's sum within SCAN_ACCUM_RTOL of its own size; a sum
+    # restarted at each dispatch would be the earlier dispatches' sum
+    # (``before_last``, in norm) away from the eager one.
+    accum = {k: (float((captured["accum_by"][k] - r).norm()),
+                 SCAN_ACCUM_RTOL * float(r.norm()), before_last[k])
+             for k, r in ref["accum_by"].items()}
+    over.update({f"accum {k}": (d, b) for k, (d, b, _) in accum.items()
+                 if d > b})
+    powerless = {k: (f, b) for k, (_, b, f) in accum.items() if f <= b}
+    accum_s = ", ".join(f"{k} ({d:.3g}, {b:.3g}, {f:.3g})"
+                        for k, (d, b, f) in accum.items())
+    exact = (captured["losses"][0] == ref["losses"][0]
+             and captured["counts"] == ref["counts"] == [SCAN_TINY_STEPS]
+             and captured["lrs"] == ref["lrs"]
+             and captured["step"] == ref["step"] == SCAN_TINY_STEPS)
+    print(f"phase 23a: tiny fp32 train (L=8, C=8, 128x128, bs4, TF32 off), "
+          f"{SCAN_TINY_STEPS} updates as captured dispatches of {sizes} "
+          f"({graphs_made} graphs; lr_step at update {SCAN_TINY_LR_STEP}, "
+          f"inside the second) vs {SCAN_TWINS} eager runs: losses "
+          f"{['%.6f' % x for x in captured['losses']]} vs "
+          f"{['%.6f' % x for x in ref['losses']]}; first loss, counts "
+          f"{captured['counts']}, learning rates {captured['lrs']} equal "
+          f"{exact}; captured vs eager "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in got.items())}; the twins' "
+          f"spread {', '.join(f'{k} {v:.3g}' for k, v in spread.items())} "
+          f"({', '.join(gated)} <= {SPREAD_MARGIN} x); each lambda's "
+          f"gradient sum (captured distance, bound {SCAN_ACCUM_RTOL} x its "
+          f"norm, a sum restarted at each dispatch) {accum_s}; the eager "
+          f"runs {eager_s:.1f} s, the captured one "
+          f"{captured_s:.1f} s {tag}")
+    if not exact:
+        raise AssertionError("phase 23a: the captured run's first loss, "
+                             "counts or learning rates differ from eager")
+    if powerless:
+        raise AssertionError(f"phase 23a: a gradient sum restarted at each "
+                             f"dispatch would pass the bound (distance, "
+                             f"bound): {powerless}")
+    if over or not all(math.isfinite(x) for x in captured["losses"]):
+        raise AssertionError(f"phase 23a: the captured train run leaves the "
+                             f"eager twins' spread (value, bound): {over}")
+    return dict(sizes=sizes, apart=got, spread=spread, accum=accum)
+
+
+def adam_capturable_gap(state) -> dict:
+    """Capturable Adam (device counts, a tensor learning rate) against the
+    eager foreach Adam on copies of ``state``'s parameters, three updates
+    from the same seeded gradients: max |difference| in units of lr, and
+    the share of elements that differ."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = [p.detach().float().clone() for p in state.model.parameters()]
+    grads = [[torch.randn(p.shape, generator=gen, device="cuda")
+              for p in params] for _ in range(3)]
+    a = [torch.nn.Parameter(p.clone()) for p in params]
+    b = [torch.nn.Parameter(p.clone()) for p in params]
+    lr = 1e-3
+    opt_a = torch.optim.Adam(a, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    opt_b = torch.optim.Adam(b, lr=torch.tensor(lr, device="cuda"),
+                             betas=(0.9, 0.999), eps=1e-8, capturable=True)
+    for g in grads:
+        for pa, pb, gi in zip(a, b, g):
+            pa.grad, pb.grad = gi.clone(), gi.clone()
+        opt_a.step()
+        opt_b.step()
+    with torch.no_grad():
+        diff = [(x - y).abs() for x, y in zip(a, b)]
+    n = sum(d.numel() for d in diff)
+    out = dict(max_lr=max(float(d.max()) for d in diff) / lr,
+               differ=sum(int((d > 0).sum()) for d in diff) / n, elements=n)
+    del a, b, opt_a, opt_b, grads, params, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+# The hand-written kernels' names on the device's record (each wrapper
+# launches one of these a call), by the keys of ``int8_counts``.
+INT8_KERNEL_NAMES = {
+    "conv": r"\bint8_conv(_tiny)?_kernel\b",
+    "quantize": r"\bquantize_(nhwc|flat|nchw_dynamic|nchw_static)_kernel\b",
+    "absmax": r"\babsmax_kernel\b"}
+
+
+# The profiler's record of a run can miss an event: one profiled replay
+# of the bs8 int8 eval epoch listed 2,207 of the 2,208 quantize launches
+# its capture recorded, with every output bit for bit (so each kernel
+# ran), and the same per-batch pass lists 6,700-6,712 device operations
+# from run to run (NVIDIA H100 80GB HBM3, 700 W). A replay's int8 kernels
+# on the record are held to at least REPLAY_SEEN of the calls recorded
+# into the graph, and to no more: a graph whose int8 nodes were dropped
+# or replaced would list far fewer.
+REPLAY_SEEN = 0.99
+
+
+def graph_profile(fn, per: int) -> dict:
+    """``profile_step`` of ``fn()``, each count and time per one of its
+    ``per`` steps or batches; ``int8`` holds the int8 kernels that ran in
+    all, counted by name on the device's record (INT8_KERNEL_NAMES)."""
+    prof = profile_step(lambda s, b: fn(), None, None,
+                        counted=INT8_KERNEL_NAMES)
+    return dict(kernels=prof["kernels"] / per, busy_ms=prof["busy_ms"] / per,
+                top=prof["top"][:4], int8=prof["counted"])
+
+
+def scanned_flagship_train(tag: str, ctx: dict, train: dict) -> dict:
+    """23a: phase 7's flagship bs16 bf16 state, one dispatch of SCAN_K
+    captured steps (the capture and the instantiation timed apart), timed
+    and profiled, beside phase 7's eager step (``train``: its median,
+    profile and peak in this call; 23a timed its own eager steps before
+    the cuts that made room for it); then capturable Adam against the
+    eager one."""
+    state, loader = ctx["state"], ctx["loaders"][0]
+    hp = augment_lip.FLAGSHIP_TRAIN
+    batches = take(loader, SCAN_K)
+    scanned = augment_lip.make_train_step(hp, scanned=True)
+    stacked = {k: graphs.stack([b[k] for b in batches])
+               for k in batches[0] if k not in ("names", "index")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = scanned(state, stacked)["loss"]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    prog = next(iter(scanned.programs.values()))[1]
+    t0 = time.perf_counter()
+    losses = scanned(state, stacked)["loss"]
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3 / SCAN_K
+    scan_peak = torch.cuda.max_memory_allocated() / 2**30
+    s_prof = graph_profile(lambda: scanned(state, stacked), SCAN_K)
+    losses = first.tolist() + losses.tolist()
+    gap = adam_capturable_gap(state)
+    s_idle = 1.0 - s_prof["busy_ms"] / scan_ms
+    print(f"phase 23a: flagship train step (bs16, 384x384, bf16, "
+          f"channels_last) on phase 7's state: eager (phase 7) "
+          f"{train['step_ms']:.3f} ms a step, {train['kernels']} device "
+          f"operations, busy {train['busy_ms']:.3f} ms, idle share "
+          f"{train['idle_share']:.3f}, peak {train['peak_gib']:.3f} GiB; "
+          f"--steps-per-dispatch {SCAN_K}: {scan_ms:.3f} ms a step (one "
+          f"replay of {SCAN_K}), {s_prof['kernels']:.0f} device operations "
+          f"a step, busy {s_prof['busy_ms']:.3f} ms, idle share "
+          f"{s_idle:.3f}, peak {scan_peak:.3f} GiB; capture "
+          f"{prog.capture_s:.3f} s, instantiate {prog.instantiate_s:.3f} s, "
+          f"first dispatch {first_s:.3f} s in all; losses of the two "
+          f"dispatches {['%.4f' % x for x in losses]}; capturable Adam vs "
+          f"eager Adam, 3 updates of {gap['elements']:,} parameters: max "
+          f"|diff| {gap['max_lr']:.3g} lr, {gap['differ']:.3g} of the "
+          f"elements differ {tag}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 23a: non-finite losses {losses}")
+    return dict(scanned_ms=scan_ms, scanned=s_prof, scanned_idle=s_idle,
+                scanned_peak_gib=scan_peak, capture_s=prog.capture_s,
+                instantiate_s=prog.instantiate_s, first_s=first_s,
+                adam_gap=gap)
+
+
+def eval_batches(device, n: int, batch: int, crop, tiny: bool = False,
+                 seed: int = SEED) -> list:
+    """``n`` synthetic eval images at ``batch`` through the loader with
+    ``cache_on_device`` (targets rendered by the heatmap kernel once),
+    as the epoch's batch list."""
+    renderer = L.make_target_renderer(stride=4, sigma=eval_lip.SIGMA,
+                                      num_joints=eval_lip.NUM_JOINTS,
+                                      ignore=eval_lip.IGNORE,
+                                      normalize_images=True)
+    ds = SyntheticDataset(length=n, crop_size=crop,
+                          num_joints=eval_lip.NUM_JOINTS,
+                          num_classes=eval_lip.NUM_CLASSES, seed=seed,
+                          device_normalize=True)
+    loader = L.DataLoader(ds, batch, device=device, num_workers=4,
+                          renderer=renderer, cache_on_device=True)
+    return list(loader)
+
+
+def same_result(a: dict, b: dict) -> bool:
+    """Two validate results equal bit for bit: matrix, loss, predictions,
+    names."""
+    return (np.array_equal(a["cm"], b["cm"]) and a["loss"] == b["loss"]
+            and np.array_equal(a["pose_preds"], b["pose_preds"])
+            and a["names"] == b["names"])
+
+
+def timed_pass(run, n_images: int) -> tuple[float, dict]:
+    """(img/s of ``run()`` on the host clock after a warm call, its
+    result)."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    return n_images / (time.perf_counter() - t0), res
+
+
+def scanned_eval(tag: str, model) -> tuple[dict, dict]:
+    """23b: the tiny eval epoch with a tail batch against ``validate``;
+    the flagship bs8 flip-TTA eval (phase 11's bf16 model) per batch
+    against ``--scanned`` in fp and int8 (dynamic scales): every output
+    bit for bit, img/s, device operations, busy time and idle share a
+    batch, the graphs' capture and instantiation; the int8 kernels'
+    launches inside the graph. Returns the numbers and the int8 launch
+    counts of the scanned int8 path."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tiny = build_nppnet(device="cuda", dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(SEED),
+                        **eval_lip.TINY).to(memory_format=torch.channels_last)
+    kw = dict(num_classes=eval_lip.NUM_CLASSES,
+              class_weights=LIP_CLASS_WEIGHTS, ignore_index=eval_lip.IGNORE,
+              flip_pairs=LIP.flip_pairs)
+    crit = init_criterion_params(2, "cuda")
+    tb = eval_batches("cuda", SCAN_TINY_VAL, 2, (128, 128), tiny=True)
+    quiet = dict(num_classes=eval_lip.NUM_CLASSES, log_fn=lambda s: None)
+    plain = E.validate(E.make_eval_step(tiny, decode_hw=(128, 128), **kw),
+                       crit, tb, **quiet)
+    scan = E.validate_scanned(E.make_eval_epoch(tiny, decode_hw=(128, 128),
+                                                **kw), crit, tb, **quiet)
+    tiny_same = same_result(scan, plain)
+    del tiny
+    batches = eval_batches("cuda", SCAN_EVAL_BATCHES * BATCH, BATCH,
+                           (384, 384))
+    n = len(batches) * BATCH
+    crit = init_criterion_params(model.refine_layers + 1, "cuda")
+    out, counts = {}, {}
+    for mode in ("fp", "int8"):
+        q = "int8" if mode == "int8" else None
+        step = E.make_eval_step(model, decode_hw=(384, 384), quantize=q, **kw)
+        epoch = E.make_eval_epoch(model, decode_hw=(384, 384), quantize=q,
+                                  **kw)
+        rate_b, res_b = timed_pass(
+            lambda: E.validate(step, crit, batches, **quiet), n)
+        p_b = graph_profile(lambda: E.validate(step, crit, batches, **quiet),
+                            len(batches))
+        # The wrappers count the first call's warm-up (eager launches)
+        # and record the capture; a replay goes through no wrapper, so
+        # its int8 launches are counted by name on the profiled replay's
+        # device record and held against what the capture recorded.
+        reset_int8_counts()
+        t0 = time.perf_counter()
+        E.validate_scanned(epoch, crit, batches, **quiet)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first = int8_counts()
+        rate_s, res_s = timed_pass(
+            lambda: E.validate_scanned(epoch, crit, batches, **quiet), n)
+        p_s = graph_profile(
+            lambda: E.validate_scanned(epoch, crit, batches, **quiet),
+            len(batches))
+        eager_after = int8_counts()  # no wrapper ran in the replays
+        prog = next(iter(epoch.programs.values()))
+        recorded = dict(zip(("heatmap", "conv", "quantize", "absmax"),
+                            prog.captured))
+        replayed = p_s["int8"]
+        counts[mode] = dict(launched=first, replayed=replayed)
+        same = same_result(res_s, res_b)
+        ms_b, ms_s = 1e3 * BATCH / rate_b, 1e3 * BATCH / rate_s
+        out[mode] = dict(
+            batch_img_s=rate_b, scanned_img_s=rate_s, same=same,
+            batch=p_b, scanned=p_s, batch_idle=1 - p_b["busy_ms"] / ms_b,
+            scanned_idle=1 - p_s["busy_ms"] / ms_s, capture_s=prog.capture_s,
+            instantiate_s=prog.instantiate_s, first_s=first_s,
+            captured=recorded, first_counts=first, replayed=replayed)
+        print(f"phase 23b: flagship flip-TTA eval ({mode}, bs{BATCH}, "
+              f"{n} images, phase 11's bf16 model): per batch "
+              f"{rate_b:.2f} img/s, {p_b['kernels']:.0f} device operations "
+              f"and busy {p_b['busy_ms']:.3f} ms a batch, idle share "
+              f"{out[mode]['batch_idle']:.3f}; --scanned {rate_s:.2f} img/s, "
+              f"{p_s['kernels']:.0f} operations and busy "
+              f"{p_s['busy_ms']:.3f} ms a batch, idle share "
+              f"{out[mode]['scanned_idle']:.3f}; capture "
+              f"{prog.capture_s:.3f} s, instantiate {prog.instantiate_s:.3f}"
+              f" s; calls recorded into the graph {recorded}; int8 kernels "
+              f"on the device's record of one replay {replayed}; the "
+              f"wrappers' launches (the warm-up) {first}, after the replays "
+              f"{eager_after}; every output equal to the per-batch pass "
+              f"{same} {tag}")
+        if not same:
+            raise AssertionError(f"phase 23b: the scanned {mode} eval "
+                                 f"differs from the per-batch one")
+        if eager_after != first:
+            raise AssertionError(f"phase 23b: the {mode} replays went "
+                                 f"through the wrappers {eager_after} "
+                                 f"(after the warm-up {first})")
+        if not all(REPLAY_SEEN * recorded[k] <= replayed[k] <= recorded[k]
+                   for k in replayed):
+            raise AssertionError(f"phase 23b: the {mode} replay ran the int8 "
+                                 f"kernels {replayed} on the device; the "
+                                 f"capture recorded {recorded}")
+        del step, epoch, prog
+        torch.cuda.empty_cache()
+    print(f"phase 23b: tiny fp32 eval epoch ({SCAN_TINY_VAL} images: "
+          f"batches of 2, 2 and a tail of 1, TF32 off), validate_scanned "
+          f"vs validate: every output equal {tiny_same} {tag}")
+    if not tiny_same:
+        raise AssertionError("phase 23b: the tiny scanned eval differs")
+    for kind in ("launched", "replayed"):
+        check_int8_counts(f"scanned_eval_int8 ({kind})",
+                          counts["int8"][kind], "dynamic")
+        check_int8_counts(f"scanned_eval_fp ({kind})", counts["fp"][kind],
+                          None)
+    return dict(out, tiny_same=tiny_same), counts["int8"]
+
+
+def scanned_train_cli(tag: str) -> dict:
+    """23c: ``augment_lip --synthetic --steps-per-dispatch SCAN_K`` over
+    two epochs of SCAN_K steps (the synthetic set's 4 batches), one
+    dispatch each: a finite loss that falls from the first dispatch to
+    the second. It keeps no times, so it runs beside phase 18's ranks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = augment_lip.main(["--synthetic", "--steps", str(SCAN_K),
+                                "--epochs", "2", "--steps-per-dispatch",
+                                str(SCAN_K), "--out", tmp])
+        means = []  # each dispatch's logged mean (the meter is per epoch)
+        for root, _, files in os.walk(tmp):
+            for f in sorted(files):
+                if f.endswith(".log"):
+                    with open(os.path.join(root, f)) as fh:
+                        means += [float(line.split("Loss: ")[1].split()[0])
+                                  for line in fh if "steps/dispatch" in line]
+    out = dict(train_loss=res["train_loss"], dispatch_means=means)
+    print(f"phase 23c: python -m npp_tpu_torch.tools.augment_lip --synthetic "
+          f"--steps {SCAN_K} --epochs 2 --steps-per-dispatch {SCAN_K}: "
+          f"mean loss of each dispatch {['%.4f' % x for x in means]}, train "
+          f"loss {res['train_loss']:.6f}, "
+          f"{eval_lip.result_line(res['result'])} {tag}")
+    if not (len(means) == 2 and all(math.isfinite(x) for x in means)
+            and means[1] < means[0]):
+        raise AssertionError(f"phase 23c: the scanned train CLI's loss "
+                             f"{means} is not finite and falling")
+    return out
+
+
+def scanned_eval_clis(tag: str) -> dict:
+    """23c: ``eval_lip --synthetic --scanned`` and ``--scanned --int8``,
+    with their wrappers' int8 launches (the graph's warm-up: a replay
+    goes through no wrapper; 23b counts a replay's on the device)."""
+    out = {}
+    for name, extra in (("eval", []), ("eval_int8", ["--int8"])):
+        reset_int8_counts()
+        res = eval_lip.main(["--synthetic", "--scanned", *extra])
+        counts = int8_counts()
+        check_int8_counts(f"eval_lip --scanned {' '.join(extra)}", counts,
+                          "dynamic" if extra else None)
+        out[name] = dict(loss=res["loss"], mean_iou=res["mean_iou"],
+                         int8=counts)
+        print(f"phase 23c: python -m npp_tpu_torch.tools.eval_lip "
+              f"--synthetic --scanned {' '.join(extra)}: "
+              f"{eval_lip.result_line(res)}; the wrappers' int8 launches "
+              f"(the warm-up) {counts} {tag}")
+        if not (math.isfinite(res["loss"]) and len(res["names"]) == 16):
+            raise AssertionError(f"phase 23c: {name} failed")
+    return out
+
+
 class PhaseClock:
     """Prints each phase's wall time on the host clock, and the total."""
 
@@ -5225,6 +5928,7 @@ class PhaseClock:
 
 
 def main() -> int:
+    line_buffered()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -5316,10 +6020,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.done(22)
 
-    # Phase 6: the tiny train step, card against CPU (fp32, TF32 off).
-    tiny = check_tiny_train(tag)
-    clock.done(6)
-
     # Phases 7 and 9 leave their CLI runs here for phase 11.
     runs = tempfile.TemporaryDirectory()
 
@@ -5338,13 +6038,17 @@ def main() -> int:
     # Phase 22b: the FLOPs of one flagship train step, on phase 7's state.
     library["flops"]["train_step_bs16"] = train_flops(
         tag, train_ctx, library["flops"]["eval_forward_bs8"])
-    del train_ctx
-    torch.cuda.empty_cache()
     clock.done("22b")
 
-    # Phase 8: the tiny search pair, card against CPU (fp32, TF32 off).
-    tiny_search = check_tiny_search(tag)
-    clock.done(8)
+    # Phase 23a: K train steps a dispatch (one CUDA graph replay), the tiny
+    # run against eager twins, then on phase 7's state (which it leaves
+    # with a capturable Adam).
+    heatmaps.render_heatmaps.launches = 0  # the scanned train path's count
+    scanned = {"train": scanned_flagship_train(tag, train_ctx, train)}
+    launches["scanned_train"] = heatmaps.render_heatmaps.launches
+    del train_ctx
+    torch.cuda.empty_cache()
+    clock.done("23a")
 
     # Phase 9: the search slice at the reference scale.
     heatmaps.render_heatmaps.launches = 0  # the search path's count
@@ -5360,10 +6064,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.done("21b")
 
-    # Phase 10: the tiny Predictor, card against CPU (fp32, TF32 off).
-    tiny_serve = check_tiny_serve(tag)
-    clock.done(10)
-
     # Phase 11: the serving slice at the flagship width. It renders no
     # targets, so the heatmap kernel must not run on it.
     heatmaps.render_heatmaps.launches = 0  # the serving path's count
@@ -5378,28 +6078,26 @@ def main() -> int:
     layouts, int8_entry, quant_entry = serving_layouts(tag, serve_ctx,
                                                        serve)
     launches["eval_int8"] = layouts.pop("heatmap_launches")
+    clock.done(20)
+
+    # Phase 23b-c: the eval epoch as one CUDA graph replay, on phase 11's
+    # model, fp and int8 (its int8 launches by path), then the CLIs.
+    heatmaps.render_heatmaps.launches = 0  # the scanned eval path's count
+    scanned["eval"], scanned_int8 = scanned_eval(tag, serve_ctx["model"])
     del serve_ctx
     torch.cuda.empty_cache()
-    clock.done(20)
+    clock.done("23b")
+    reset_int8_counts()
+    scanned["cli"] = scanned_eval_clis(tag)
+    launches["scanned_eval"] = heatmaps.render_heatmaps.launches
+    clock.done("23c eval CLIs")
     reset_int8_counts()  # phases 12-19 are fp paths
-
-    # Phase 12: the tiny PPP eval and merge, card against CPU (fp32, TF32
-    # off).
-    tiny_ppp = check_tiny_ppp(tag)
-    clock.done(12)
 
     # Phase 13: the PPP path at the flagship width; it counts the kernel's
     # launches on the PPP train and search paths itself.
     ppp, ppp_launches = flagship_ppp(tag, runs.name)
     launches.update(ppp_launches)
     clock.done(13)
-
-    # Phase 14: the search -> train -> eval chain on phase 9's artifacts.
-    heatmaps.render_heatmaps.launches = 0  # the chain's count
-    chained = chain(tag, runs.name, search["genotype"],
-                    search["search_checkpoints"])
-    launches["chain"] = heatmaps.render_heatmaps.launches
-    clock.done(14)
 
     # Phase 15: the LIP reader and the paths fed from a LIP tree on disk.
     trees = tempfile.TemporaryDirectory()
@@ -5416,33 +6114,90 @@ def main() -> int:
     launches.update(disk_launches)
     clock.done(16)
     trees.cleanup()
-    runs.cleanup()
 
-    # Phase 17a: two gloo ranks sharing the card against one process; they
-    # count the heatmap kernel's launches themselves.
-    shared, launches["ddp_shared_card"] = shared_card(tag, train)
-    clock.done("17a")
-    # Phase 17b: NCCL at world size 1, the DDP step and the CLIs under
-    # torchrun; it counts the launches on the DDP train, search and eval
-    # paths itself.
-    nccl, nccl_launches = nccl_world_one(tag, train)
-    launches.update(nccl_launches)
-    clock.done("17b")
-    fp_counts = int8_counts()
-    check_int8_counts("phases 12-17", fp_counts, None)
-    # Phase 18: spatial partitioning; its ranks count the heatmap kernel's
-    # launches on the sp train path, and the int8 kernels' on the mesh
-    # serving paths (its one-process references count theirs).
-    sp, launches["sp_train"], sp_int8 = spatial_parallel(tag)
-    clock.done(18)
-    reset_int8_counts()  # phase 19 is an fp path
-    # Phase 19: tensor parallelism; its ranks count the heatmap kernel's
-    # launches on the TP paths (19a-c's batches).
-    tp, launches["tp_train"] = tensor_parallel(tag)
-    clock.done(19)
+    # Phase 17b's first part: NCCL at world size 1 in this process, the
+    # DDP step timed on a quiet card; it counts the launches on the DDP
+    # train path.
+    nccl, launches["ddp_train"], loss32 = nccl_world_one(tag, train)
+    clock.done("17b DDP step")
+    # Phases 17a and 18 share one pair of gloo ranks on the card (one
+    # spawn), and 19's four ranks are spawned as 18 begins. What has no
+    # times to keep runs beside the ranks' tiny work: 17b's CLIs under
+    # torchrun, the card-against-CPU checks of phases 6, 8, 10 and 12 and
+    # 23a's tiny check beside 17a's, phase 14's chain and 23c's train CLI
+    # beside 18's untimed work, 19's tiny steps beside 18 (before phase 23
+    # came each ran alone, in the order of its number). A rank takes its
+    # timed flagship step, and 18's ranks their timed sections, only once
+    # this process has said the card is quiet (``go``). The ranks count the
+    # heatmap kernel's launches themselves (18's on the sp train path,
+    # and the int8 kernels' on the mesh serving paths; its one-process
+    # references count theirs), the CLIs theirs on the DDP paths.
+    clis, pair, tp_ranks = DdpClis(), RankPair(), None
+    side = {}
+
+    def beside_17a():
+        clock.done("17a one process")
+        side["tiny"] = check_tiny_train(tag)
+        clock.done(6)
+        side["tiny_search"] = check_tiny_search(tag)
+        clock.done(8)
+        side["tiny_serve"] = check_tiny_serve(tag)
+        clock.done(10)
+        side["tiny_ppp"] = check_tiny_ppp(tag)
+        clock.done(12)
+        side["scanned_tiny"] = scanned_tiny_train(tag)
+        clock.done("23a tiny")
+        side["cli"], side["cli_launches"] = clis.finish(tag, loss32)
+        clock.done("17b CLIs")
+
+    try:
+        shared, launches["ddp_shared_card"] = shared_card(
+            tag, train, pair, before_flagship=beside_17a)
+        nccl.update(side["cli"])
+        launches["ddp_train"] += side["cli_launches"].pop("ddp_train")
+        launches.update(side["cli_launches"])
+        clock.done("17a")
+        tp_ranks = TpRanks()
+        tp_refs = tp_references()
+        # Phase 14: the search -> train -> eval chain on phase 9's
+        # artifacts.
+        heatmaps.render_heatmaps.launches = 0  # the chain's count
+        chained = chain(tag, runs.name, search["genotype"],
+                        search["search_checkpoints"])
+        launches["chain"] = heatmaps.render_heatmaps.launches
+        runs.cleanup()
+        clock.done(14)
+        heatmaps.render_heatmaps.launches = 0  # 23c's train CLI's count
+        scanned["train_cli"] = scanned_train_cli(tag)
+        launches["scanned_train"] += heatmaps.render_heatmaps.launches
+        scanned["tiny_train"] = side["scanned_tiny"]
+        clock.done("23c train CLI")
+        fp_counts = int8_counts()
+        check_int8_counts("phases 12-17", fp_counts, None)
+        sp, launches["sp_train"], sp_int8 = spatial_parallel(
+            tag, pair, before_timed=tp_ranks.wait_tiny)
+        clock.done(18)
+        reset_int8_counts()  # phase 19 is an fp path
+        # Phase 19: tensor parallelism; its ranks count the heatmap
+        # kernel's launches on the TP paths (19a-c's batches).
+        tp, launches["tp_train"] = tensor_parallel(tag, tp_ranks, tp_refs)
+        clock.done(19)
+    finally:
+        clis.stop()
+        pair.stop()
+        if tp_ranks is not None:
+            tp_ranks.stop()
     tp_counts = int8_counts()
     check_int8_counts("phase 19", tp_counts, None)
-    for path, got in (("phases_12_17", fp_counts), ("phase_19", tp_counts),
+    for entry, key in ((int8_entry, "conv"), (quant_entry, "quantize")):
+        # Launched by a graph's replay, without the wrapper: one profiled
+        # replay's kernels by name (phase 23b), apart from ``launches``.
+        entry["replay_launches_by_path"] = {
+            "scanned_eval_int8": scanned_int8["replayed"][key]}
+    for path, got in (("scanned_eval_int8", scanned_int8["launched"]),
+                      ("eval_scanned_int8_cli", scanned["cli"]["eval_int8"]
+                       ["int8"]),
+                      ("phases_12_17", fp_counts), ("phase_19", tp_counts),
                       *sp_int8.items()):
         int8_entry["launches_by_path"][path] = got["conv"]
         quant_entry["launches_by_path"][path] = (got["quantize"]
@@ -5450,22 +6205,23 @@ def main() -> int:
         quant_entry["quantize_launches_by_path"][path] = got["quantize"]
         quant_entry["absmax_launches_by_path"][path] = got["absmax"]
     seconds = {k: round(v, 1) for k, v in clock.seconds.items()}
-    summary = {"tiny_train": tiny, "train_step": train,
-               "tiny_search": tiny_search, "search_pair": search,
-               "tiny_serve": tiny_serve, "serve": serve,
+    summary = {"tiny_train": side["tiny"], "train_step": train,
+               "tiny_search": side["tiny_search"], "search_pair": search,
+               "tiny_serve": side["tiny_serve"], "serve": serve,
                "serving_layouts": layouts,
-               "tiny_ppp": tiny_ppp, "ppp": ppp, "chain": chained,
+               "tiny_ppp": side["tiny_ppp"], "ppp": ppp, "chain": chained,
                "lip_disk": from_disk, "ppp_and_fused_disk": more_disk,
                "ddp_shared_card": shared, "ddp_nccl": nccl,
                "spatial": sp, "tensor": tp, "state_exchange": exchange,
-               "library": library}
+               "library": library, "scanned": scanned}
     print(f"summary: heatmap kernel launches on the main paths: {launches}; "
           f"phase seconds {json.dumps(seconds)}; "
           f"summary {json.dumps(summary)}")
     for path in ("eval", "train", "search", "ppp_train", "ppp_search",
                  "chain", "lip_disk", "ppp_disk", "lip_fast_disk",
                  "ddp_shared_card", "ddp_train", "ddp_search", "ddp_eval",
-                 "sp_train", "tp_train", "eval_int8", "exchange"):
+                 "sp_train", "tp_train", "eval_int8", "exchange",
+                 "scanned_train", "scanned_eval"):
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  f"heatmap kernel")

@@ -36,6 +36,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from npp_tpu_torch.core.graphs import constant
 from npp_tpu_torch.ops.resize import resize_bilinear
 from npp_tpu_torch.parallel.mesh import all_concat, all_sum
 from npp_tpu_torch.parallel.spatial import resize_sharded
@@ -139,8 +140,8 @@ def ohem_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     loss is the plain mean of the kept weighted pixel losses. With
     ``group``, of the global batch (module docstring)."""
     gt_logp, valid, tgt = _gt_log_prob(logits, target, ignore_index)
-    cw = torch.as_tensor(class_weights, dtype=torch.float32,
-                         device=logits.device)
+    cw = constant(tuple(float(w) for w in class_weights), torch.float32,
+                  logits.device)
     pixel_losses = -gt_logp * cw[tgt]
     gt_prob = torch.exp(gt_logp.detach())  # selects pixels; no gradient
 

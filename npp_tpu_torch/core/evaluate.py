@@ -26,6 +26,15 @@ evaluates the same batch and returns the same whole outputs. The passes
 refuse such a model, as they refuse a spatially converted one: they
 gather over every rank, and npp_tpu has no such path.
 
+``make_eval_epoch`` / ``validate_scanned`` are npp_tpu's one-dispatch
+eval (``evaluate.py:125-200, 331-400``): the stacked batches of an epoch
+through the eval step, the confusion matrix summed on the device; on a
+card that is one CUDA graph replay (``core/graphs.Program``), on the
+CPU the step runs batch by batch. A short tail batch is scored by the
+step alone, never padded (OHEM's k-th value is a whole-batch quantity).
+One process only: npp_tpu's multi-process branch is not ported, and the
+pass refuses a process group.
+
 ``make_eval_step(quantize="int8")`` runs both forwards with int8 dense
 convs (``ops/quantize.py``) on a copy of the model whose weights are
 quantized when the step is made; the losses, the decode and the metrics
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 from npp_tpu_torch.core import criterion as crit
+from npp_tpu_torch.core import graphs
 from npp_tpu_torch.core.inference import (FLIPPED_POSEIDX,
                                           FLIPPED_POSEIDX_PPP,
                                           decode_pose_validate,
@@ -216,6 +226,137 @@ def validate(eval_step, criterion_params, loader, *, num_classes: int,
     if gt_csv is not None and all_names:
         pck = M.pckh_against_csv(gt_csv, M.as_pose_csv_reads(preds),
                                  eval_num=len(all_names))
+        result["pck"] = pck
+        result["pck_avg"] = float(pck[-1][-1])
+        log_fn(M.pckh_table(pck[-1]))
+    return result
+
+
+class _EvalEpoch:
+    """``make_eval_epoch``'s program: ``__call__(criterion_params,
+    stacked)`` runs the epoch, ``step`` is the per-batch eval step (for a
+    tail batch) and ``programs`` the captured graphs, one per batch count
+    and shape."""
+
+    def __init__(self, step):
+        self.step = step
+        self.programs: dict = {}
+
+    def _body(self, inputs: dict, n: int) -> dict:
+        crit_params = {k[5:]: v for k, v in inputs.items()
+                       if k.startswith("crit/")}
+        cm, ys = None, {"loss": [], "pose_pred": [], "par_pred": []}
+        for i in range(n):
+            out = self.step(crit_params, {k: v[i] for k, v in inputs.items()
+                                          if not k.startswith("crit/")})
+            cm = out["cm"] if cm is None else cm + out["cm"]
+            for k, v in ys.items():
+                v.append(out[k])
+        return {"cm": cm, **{k: torch.stack(v) for k, v in ys.items()}}
+
+    def __call__(self, criterion_params: dict, stacked: dict) -> dict:
+        """{cm (C, C) summed, loss (N,), pose_pred (N, B, J, 3), par_pred
+        (N, B, H, W)} of N stacked batches."""
+        n = stacked["image"].shape[0]
+        inputs = dict(stacked, **{f"crit/{k}": v
+                                  for k, v in criterion_params.items()})
+        if stacked["image"].device.type != "cuda":
+            return self._body(inputs, n)
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(inputs.items()))
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = graphs.Program(lambda x: self._body(x, n), inputs,
+                                  warmup=lambda x: self._body(x, 1))
+            self.programs[key] = prog
+        return {k: v.clone() for k, v in prog(inputs).items()}
+
+
+def make_eval_epoch(model, **kw) -> _EvalEpoch:
+    """The whole eval epoch as one program (npp_tpu's ``make_eval_epoch``):
+    ``epoch(criterion_params, stacked)`` over batches stacked on a leading
+    axis (``stack_batches``), ``make_eval_step(model, **kw)``'s step on
+    each, the confusion matrix summed on the device. On a card one CUDA
+    graph replay a call (captured at the first call of each batch count
+    and shape, over the model's weights as they are at each replay); on
+    the CPU the step batch by batch. ``epoch.step`` scores a tail batch."""
+    return _EvalEpoch(make_eval_step(model, **kw))
+
+
+def stack_batches(batches: list[dict]):
+    """(stacked, names, dataset indices, tail) of a pass's loader batches:
+    the device tensors stacked on a new leading axis (``graphs.stack``),
+    a short last batch split off as ``tail`` (None if there is none) and
+    never padded, the names and indices on the host in loader order (the
+    tail's last). ``stacked`` is None when the tail is the only batch."""
+    if not batches:
+        raise ValueError("stack_batches: no batches")
+    keys = [k for k in batches[0] if k not in ("names", "index")]
+    lead = {k: max(b[k].shape[0] for b in batches) for k in keys}
+    tail = None
+    if any(batches[-1][k].shape[0] != lead[k] for k in keys):
+        tail, batches = batches[-1], batches[:-1]
+    for k in keys:
+        shapes = {tuple(b[k].shape) for b in batches}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"stack_batches needs shape-uniform batches (apart from one "
+                f"short tail batch at the end); key {k!r} has shapes "
+                f"{sorted(shapes)}")
+    out = ({k: graphs.stack([b[k] for b in batches]) for k in keys}
+           if batches else None)
+    names, idxs = [], []
+    for b in batches + ([tail] if tail is not None else []):
+        names.extend(b.get("names", []))
+        if b.get("index") is not None:
+            idxs.append(np.asarray(b["index"]))
+    return out, names, (np.concatenate(idxs) if idxs else None), tail
+
+
+def validate_scanned(eval_epoch: _EvalEpoch, criterion_params, loader, *,
+                     num_classes: int, pred_csv: str | None = None,
+                     gt_csv: str | None = None, log_fn=print) -> dict:
+    """``validate`` in one dispatch (npp_tpu's ``validate_scanned``): the
+    loader's batches stacked (``stack_batches``; best with a
+    ``cache_on_device`` loader) and run by ``eval_epoch``
+    (``make_eval_epoch``), a short tail batch by ``eval_epoch.step``. The
+    same result as ``validate``. One process only."""
+    _check_pass(eval_epoch.step)
+    graphs.one_process("validate_scanned",
+                       "npp_tpu's multi-process validate_scanned")
+    stacked, names, idxs, tail = stack_batches(list(loader))
+    if stacked is not None:
+        out = eval_epoch(criterion_params, stacked)
+        cm = out["cm"].cpu().numpy().astype(np.float64)
+        losses = out["loss"].cpu().numpy().astype(np.float64)
+        preds = out["pose_pred"].cpu().numpy()
+        preds = preds.reshape((-1,) + preds.shape[2:])
+    else:
+        cm = np.zeros((num_classes, num_classes), np.float64)
+        losses = np.zeros((0,), np.float64)
+        preds = None
+    if tail is not None:
+        tail_in = {k: v for k, v in tail.items()
+                   if k not in ("names", "index")}
+        log_fn(f"validate_scanned: short tail batch of "
+               f"{tail_in['image'].shape[0]} sample(s) scored in a separate "
+               f"exact step (not padded/dropped)")
+        tout = eval_epoch.step(criterion_params, tail_in)
+        cm = cm + tout["cm"].cpu().numpy().astype(np.float64)
+        losses = np.concatenate(
+            [losses, [float(tout["loss"].cpu().double())]])
+        tpred = tout["pose_pred"].cpu().numpy()
+        preds = tpred if preds is None else np.concatenate([preds, tpred])
+    if idxs is not None:
+        preds, names = merge_eval_shards(preds, idxs, names)
+    result = {"loss": float(losses.mean()) if losses.size else float("nan"),
+              **M.seg_metrics(cm)}
+    result.update(cm=cm, pose_preds=preds, names=names)
+    if pred_csv is not None and names:
+        M.save_pose_csv(names, preds, pred_csv)
+    if gt_csv is not None and names:
+        pck = M.pckh_against_csv(gt_csv, M.as_pose_csv_reads(preds),
+                                 eval_num=len(names))
         result["pck"] = pck
         result["pck_avg"] = float(pck[-1][-1])
         log_fn(M.pckh_table(pck[-1]))

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from npp_tpu_torch.core.graphs import constant
 from npp_tpu_torch.ops.resize import resize_bilinear
 
 # Pose stream left/right remap under horizontal flip: LIP 16 joints and
@@ -137,8 +138,8 @@ def gaussian_blur(x: torch.Tensor, sigma: float,
                   truncate: float = 4.0) -> torch.Tensor:
     """Separable Gaussian blur of (B, C, H, W) maps with scipy's 'reflect'
     (= symmetric) boundary, as ``gaussian_filter(heatmap, sigma)``."""
-    k = torch.as_tensor(_gauss_kernel(float(sigma), truncate),
-                        device=x.device)
+    k = constant(tuple(_gauss_kernel(float(sigma), truncate).tolist()),
+                 torch.float32, x.device)
     r = (k.shape[0] - 1) // 2
     c, h, w = x.shape[1], x.shape[2], x.shape[3]
     x = x.index_select(2, _symmetric_index(h, r, x.device))
@@ -164,7 +165,8 @@ def decode_pose_validate(pred_pose: torch.Tensor,
     hm = resize_bilinear(pred_pose.float(), out_hw, align_corners=False)
     if flip_pred_pose is not None:
         fl = flip_pred_pose.float()
-        perm = torch.as_tensor(flip_idx[:fl.shape[1]], device=fl.device)
+        perm = constant(tuple(flip_idx[:fl.shape[1]]), torch.int64,
+                        fl.device)
         fl = resize_bilinear(fl.index_select(1, perm), out_hw,
                              align_corners=False)
         hm = 0.5 * (hm + fl.flip(3))  # unflip horizontally
@@ -257,5 +259,5 @@ def flip_parsing_fuse(pred_par: torch.Tensor, flip_pred_par: torch.Tensor,
     for a, b in flip_pairs:
         perm[a], perm[b] = perm[b], perm[a]
     fl = flip_pred_par.index_select(
-        1, torch.as_tensor(perm, device=flip_pred_par.device))
+        1, constant(tuple(perm), torch.int64, flip_pred_par.device))
     return 0.5 * (pred_par + fl.flip(3))

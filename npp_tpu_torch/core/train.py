@@ -19,8 +19,20 @@ Port of ``npp_tpu/core/train.py:33-176, 218-247, 281-293``:
 
 The step runs eagerly and mutates the state in place; its metrics stay
 device tensors (the host reads nothing inside a step). Not ported: the
-scanned multi-step dispatch and the batch-tiling warning, both TPU
-workarounds.
+batch-tiling warning, a TPU workaround.
+
+``make_train_step_scanned`` is npp_tpu's K steps a dispatch
+(``train.py:250-264``, a ``lax.scan`` of the step body): on a card the K
+steps are one CUDA graph replay (``core/graphs.Program``), on the CPU
+the same body runs K times. For the capture, Adam becomes
+``capturable`` (its counts on the device) with a device tensor for each
+group's learning rate, which the graph sets at each step from a (K,
+groups) table filled before each replay from the schedule, so a
+dispatch that straddles an ``lr_step`` boundary steps as K single steps
+do; the lambdas' gradient sum is a tensor made before the capture and
+added to in place. One process only: under a process group it refuses
+(gloo's collectives cannot be captured; npp_tpu's ZeRO path with
+``steps_per_dispatch`` is not ported).
 
 Under a process group (``init_train_state(group=)``, ``parallel/``) the
 model's BNs take cross-rank moments (more than one rank), DDP wraps it
@@ -53,7 +65,7 @@ import torch
 import torch.nn as nn
 from torch.optim.lr_scheduler import LambdaLR
 
-from npp_tpu_torch.core import criterion
+from npp_tpu_torch.core import criterion, graphs
 from npp_tpu_torch.models.augment import build_nppnet
 from npp_tpu_torch.parallel import mesh, zero as Z
 from npp_tpu_torch.parallel.spatial import convert_spatial
@@ -137,10 +149,14 @@ class TrainState:
             self.net = self.model
 
     def zero_grad(self) -> None:
+        """The model's gradients to None; without accumulation the
+        lambdas' to zero, in place (0 + g is g), so that a captured step
+        keeps writing the tensor it recorded."""
         self.model.zero_grad(set_to_none=True)
         if not self.criterion_grad_accum:
             for p in self.lamdas.values():
-                p.grad = None
+                if p.grad is not None:
+                    p.grad.zero_()
 
     def apply_update(self) -> None:
         self.optimizer.step()
@@ -264,12 +280,161 @@ def make_train_step(*, class_weights, ignore_index: int = 255,
 
     def step(state: TrainState, batch: dict) -> dict:
         state.net.train()
-        state.zero_grad()
-        loss, metrics, _ = compute_losses(state.net, state.lamdas, batch,
-                                          group=state.group, **loss_kw)
-        backward(loss, state.lamdas, state.group)
-        share_replicated(state.model, state.lamdas.values())
-        state.apply_update()
+        metrics = train_update(state, batch, **loss_kw)
+        state.scheduler.step()
+        state.step += 1
         return metrics
 
+    return step
+
+
+def train_update(state: TrainState, batch: dict, lrs=None,
+                 **loss_kw) -> dict:
+    """The body of one train step, shared by the eager step
+    (``make_train_step``) and each step of the scanned one, captured or
+    not: the gradients zeroed (``TrainState.zero_grad``), forward, loss,
+    backward, one Adam update. With ``lrs`` (a row of ``lr_table``) each
+    group's learning rate is set from it first: written in place where
+    the group's rate is a device tensor (a capturable Adam), else as a
+    Python float. The schedule's step and the count of updates stay on
+    the host, with the caller."""
+    state.zero_grad()
+    loss, metrics, _ = compute_losses(state.net, state.lamdas, batch,
+                                      group=state.group, **loss_kw)
+    backward(loss, state.lamdas, state.group)
+    share_replicated(state.model, state.lamdas.values())
+    if lrs is not None:
+        for group, lr in zip(state.optimizer.param_groups, lrs):
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"] = float(lr)
+    state.optimizer.step()
+    return metrics
+
+
+def make_capturable(state: TrainState) -> list:
+    """Make ``state``'s Adam capturable, in place, and return its learning
+    rate tensors (one a group): each group's ``lr`` becomes a float32
+    device tensor and ``capturable`` is set, every parameter gets its
+    state (a device ``step`` count, the two moments; zero where it had
+    none, as Adam's first step would make them), and the lambdas' running
+    gradient sum exists (zeros where it was None; 0 + g is g). Adam's
+    arithmetic is then the capturable one, whose bias corrections run on
+    the device in float32: it may differ from the eager one in the last
+    bits."""
+    opt = state.optimizer
+    if not isinstance(opt, torch.optim.Adam):
+        raise ValueError(f"the scanned step captures a plain Adam, not "
+                         f"{type(opt).__name__}")
+    for p in state.lamdas.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    lrs = []
+    for group in opt.param_groups:
+        dev = group["params"][0].device
+        lr = group["lr"]
+        if not (isinstance(lr, torch.Tensor) and lr.device == dev
+                and lr.dtype == torch.float32):  # a restored one: on the CPU
+            group["lr"] = torch.tensor(float(lr), dtype=torch.float32,
+                                       device=dev)
+        group["capturable"] = True
+        lrs.append(group["lr"])
+        for p in group["params"]:
+            st = opt.state[p]
+            if "step" not in st:
+                st["step"] = torch.zeros((), dtype=torch.float32, device=dev)
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            else:
+                st["step"] = st["step"].to(device=dev, dtype=torch.float32)
+    return lrs
+
+
+def _state_tensors(state: TrainState) -> list:
+    """Every tensor a train step updates: weights, buffers (BN
+    statistics), the lambdas and their gradient sum, Adam's state and
+    learning rates."""
+    out = [*state.model.parameters(), *state.model.buffers()]
+    for p in state.lamdas.values():
+        out += [p, p.grad]
+    for st in state.optimizer.state.values():
+        out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    out += [g["lr"] for g in state.optimizer.param_groups]
+    return out
+
+
+def lr_table(state: TrainState, k: int) -> torch.Tensor:
+    """(k, groups) float64 on the host: each group's learning rate at the
+    state's next k updates, as ``LambdaLR`` would set it before each (a
+    capturable Adam's float32 rates take it rounded)."""
+    sched = state.scheduler
+    t0 = sched.last_epoch
+    return torch.tensor(
+        [[base * fn(t0 + i) for base, fn in zip(sched.base_lrs,
+                                                sched.lr_lambdas)]
+         for i in range(k)], dtype=torch.float64)
+
+
+def make_train_step_scanned(*, class_weights, ignore_index: int = 255,
+                            ohem_thres: float = 0.9, ohem_keep: int = 131072,
+                            use_target_weight: bool = False,
+                            task: str = "both"):
+    """Returns ``step(state, stacked) -> metrics``: K steps of
+    ``train_update`` on a batch stacked on a leading axis of K
+    (``graphs.stack`` of K loader batches), the metrics (K,) tensors,
+    each step's learning rates read from ``lr_table``, so that a dispatch
+    across an ``lr_step`` boundary steps as K single steps. On a CUDA
+    device the K steps are one replay of a CUDA graph captured at the
+    first call of each K and batch shape (module docstring; its
+    ``programs`` are kept on the step); on the CPU the same body runs K
+    times eagerly with the plain Adam (the plain version). The state
+    moves by K updates."""
+    loss_kw = dict(class_weights=class_weights, ignore_index=ignore_index,
+                   ohem_thres=ohem_thres, ohem_keep=ohem_keep,
+                   use_target_weight=use_target_weight, task=task)
+    programs: dict = {}
+
+    def body(state: TrainState, inputs: dict, k: int) -> dict:
+        metrics = [train_update(state,
+                                {n: v[i] for n, v in inputs.items()
+                                 if n != "lr"}, inputs["lr"][i], **loss_kw)
+                   for i in range(k)]
+        return {n: torch.stack([m[n] for m in metrics]) for n in metrics[0]}
+
+    def program(state: TrainState, stacked: dict, k: int) -> graphs.Program:
+        key = (id(state), k, tuple((n, tuple(v.shape), v.dtype)
+                                   for n, v in sorted(stacked.items())))
+        if key in programs:
+            return programs[key][1]
+        lrs = make_capturable(state)
+        inputs = dict(stacked, lr=torch.zeros((k, len(lrs)),
+                                              dtype=torch.float32,
+                                              device=stacked["image"].device))
+        prog = graphs.Program(lambda x: body(state, x, k), inputs,
+                              warmup=lambda x: body(state, x, 1),
+                              restore=_state_tensors(state))
+        state.model.zero_grad(set_to_none=True)
+        programs[key] = (state, prog)  # the state kept: its id stays its own
+        return prog
+
+    def step(state: TrainState, stacked: dict) -> dict:
+        graphs.one_process("the scanned train step",
+                           "npp_tpu's ZeRO steps_per_dispatch")
+        k = stacked["image"].shape[0]
+        state.net.train()
+        inputs = dict(stacked, lr=lr_table(state, k))
+        if stacked["image"].device.type == "cuda":
+            out = {n: v.clone() for n, v in
+                   program(state, stacked, k)(inputs).items()}
+        else:
+            out = body(state, inputs, k)
+        for _ in range(k):
+            state.scheduler.step()
+        state.step += k
+        return out
+
+    step.programs = programs
     return step

@@ -90,9 +90,16 @@ class DataLoader:
     ``grid`` (``parallel/mesh.make_grid``) the shard is data index
     ``grid.d`` of ``grid.n_data`` and, after the renderer, each image,
     label, edge and heatmap keeps this rank's rows
-    (``spatial.shard_batch_spatial``). npp_tpu's batch caches
-    (``cache_batches``, ``cache_on_device``) serve only its scanned eval
-    and are not ported."""
+    (``spatial.shard_batch_spatial``).
+
+    npp_tpu's batch caches (``loader.py:97-131, 189-240``), valid only
+    with ``shuffle=False`` (asserted): ``cache_batches`` keeps the first
+    whole epoch's collated host batches and replays them in later epochs
+    (the upload and the rendering still run each epoch);
+    ``cache_on_device`` keeps the first whole epoch's device batches,
+    targets rendered, and yields them again (no upload, no rendering).
+    ``eval_lip --scanned`` reads the second. An epoch cut short fills
+    neither."""
 
     prefetch = 2  # host batches kept ready ahead of the consumer
 
@@ -100,7 +107,9 @@ class DataLoader:
                  shuffle: bool = False, drop_last: bool = False,
                  seed: int = 0, num_workers: int = 8, renderer=None,
                  process_index: int | None = None,
-                 process_count: int | None = None, grid=None):
+                 process_count: int | None = None, grid=None,
+                 cache_batches: bool = False,
+                 cache_on_device: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -117,6 +126,12 @@ class DataLoader:
                               else process_index)
         self.process_count = (mesh.world_size() if process_count is None
                               else process_count)
+        self.cache_batches = cache_batches
+        self.cache_on_device = cache_on_device
+        self._batch_cache: list | None = None
+        self._device_cache: list | None = None
+        assert not ((cache_batches or cache_on_device) and shuffle), \
+            "batch caching requires shuffle=False (deterministic batches)"
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -167,6 +182,16 @@ class DataLoader:
         return out
 
     def __iter__(self) -> Iterator[dict]:
+        if self.cache_on_device and self._device_cache is not None:
+            for dev_batch in self._device_cache:
+                yield dict(dev_batch)
+            return
+        if self.cache_batches and self._batch_cache is not None:
+            for host_batch in self._batch_cache:
+                yield self._to_device(dict(host_batch))
+            return
+        cache: list = []
+        dev_cache: list = []
         batches = self._indices()
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -194,7 +219,16 @@ class DataLoader:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                yield self._to_device(item)
+                if self.cache_batches:
+                    cache.append(dict(item))
+                dev = self._to_device(item)
+                if self.cache_on_device:
+                    dev_cache.append(dict(dev))
+                yield dev
+            if self.cache_batches:
+                self._batch_cache = cache
+            if self.cache_on_device:
+                self._device_cache = dev_cache
         finally:
             stop.set()
             while producer.is_alive():  # unblock a producer stuck on put

@@ -2,16 +2,18 @@
 
 Port of ``npp_tpu/engine.py:15-49, 99-141`` (the reference's
 ``core/function.py`` ``train`` and ``train_with_alpha`` loops and the
-best-model rule of its entry scripts). The scanned-dispatch epoch is not
-ported. Under a process group the loss read at each ``print_freq`` is the
-mean over the ranks (one all-reduce there, none per step), so every rank
-returns the same mean. The logger and the metric writer are quiet off
-rank 0 (``utils/logging_utils.py``).
+best-model rule of its entry scripts), with ``train_epoch_scanned``
+(``engine.py:52-103``, K steps a dispatch). Under a process group the
+loss read at each ``print_freq`` is the mean over the ranks (one
+all-reduce there, none per step), so every rank returns the same mean.
+The logger and the metric writer are quiet off rank 0
+(``utils/logging_utils.py``).
 """
 from __future__ import annotations
 
 import time
 
+from npp_tpu_torch.core.graphs import stack
 from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.utils.logging_utils import AverageMeter
 
@@ -57,6 +59,48 @@ def train_epoch(train_step, state, loader, *, epoch: int, logger=None,
                 global_step += 1
     if n_pending:
         ave_loss.update(_read_mean(loss_sum, n_pending), n=n_pending)
+    return ave_loss.average(), global_step
+
+
+def train_epoch_scanned(multi_step, state, loader, *, epoch: int,
+                        steps_per_dispatch: int = 8, logger=None,
+                        writer=None, global_step: int = 0):
+    """``train_epoch`` with K = ``steps_per_dispatch`` steps a dispatch:
+    K loader batches stacked on a leading axis (``graphs.stack``), one
+    call of ``multi_step`` (``core/train.make_train_step_scanned``: one
+    CUDA graph replay on a card). A short tail chunk runs at its own size
+    (one more graph for each tail size). One loss read and one log line a
+    dispatch. Returns (mean loss, global_step)."""
+    ave_loss = AverageMeter()
+    tic = time.time()
+    chunk: list = []
+    i_iter = 0
+
+    def dispatch(chunk, i_iter, global_step):
+        stacked = {k: stack([b[k] for b in chunk])
+                   for k in chunk[0] if k not in ("names", "index")}
+        metrics = multi_step(state, stacked)
+        ave_loss.update(float(metrics["loss"].mean()), n=len(chunk))
+        if logger:
+            logger.info(
+                f"Epoch: [{epoch}][{i_iter}/{len(loader)}] "
+                f"Loss: {ave_loss.average():.6f} "
+                f"({len(chunk)} steps/dispatch) "
+                f"{time.time() - tic:.2f}s")
+        if writer is not None:
+            writer.scalar("train_loss", ave_loss.average(), global_step)
+            global_step += 1
+        return global_step
+
+    for batch in loader:
+        chunk.append(batch)
+        i_iter += 1
+        if len(chunk) == steps_per_dispatch:
+            global_step = dispatch(chunk, i_iter, global_step)
+            chunk = []
+            tic = time.time()
+    if chunk:
+        global_step = dispatch(chunk, i_iter, global_step)
     return ave_loss.average(), global_step
 
 

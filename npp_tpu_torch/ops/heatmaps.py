@@ -233,8 +233,21 @@ def render_heatmaps(joints: torch.Tensor, visibility: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"render_heatmaps kernel launch failed: "
                            f"cudaError_t {err}")
-    render_heatmaps.launches += 1
+    count_launch(render_heatmaps)
     return main, aux
 
 
+def count_launch(wrapper) -> None:
+    """Count one call of ``wrapper`` that reached its kernel:
+    ``wrapper.launches`` where the kernel ran, ``wrapper.captured`` where
+    the current stream was being captured into a CUDA graph (the kernel
+    then runs at each replay, which launches it without the wrapper and
+    counts nothing)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 render_heatmaps.launches = 0  # kernel launches, read by chip_smoke.py
+render_heatmaps.captured = 0  # calls recorded into CUDA graphs

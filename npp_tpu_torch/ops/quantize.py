@@ -76,7 +76,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from npp_tpu_torch.ops.heatmaps import nvcc_build
+from npp_tpu_torch.ops.heatmaps import count_launch, nvcc_build
 from npp_tpu_torch.parallel.mesh import all_max, multi_rank
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "int8_conv.cu"
@@ -293,17 +293,39 @@ def _quant_plan(numel: int, elem_size: int, layout: str, dynamic: bool,
                      _quant_smem(stash, ring), reread)
 
 
+COUNTER_WORDS = 4096  # the least length of a kernel's counter buffer
+
+
 def _counters(device: torch.device, n: int, kernel: str) -> torch.Tensor:
     """At least ``n`` int32 arrival counters of ``kernel`` on ``device``,
     zero between launches (the last block of a launch resets what it
-    counted). One buffer per kernel and device, for the launches of one
-    stream at a time."""
+    counted, and the quantize's grid barrier leaves its generation word
+    ready for the next launch). One buffer per kernel and device, for the
+    launches of one stream at a time, kept for the process's life: a CUDA
+    graph replays its launches on the buffer it was captured with, so a
+    buffer is never made or regrown while a stream is being captured
+    (``prepare_capture`` makes them before)."""
     key = (kernel, str(device))
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        if (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f"{kernel}: its counter buffer on {device} would be made "
+                f"inside a CUDA graph capture; call prepare_capture first")
+        buf = torch.zeros(max(n, COUNTER_WORDS), dtype=torch.int32,
+                          device=device)
         _COUNTERS[key] = buf
     return buf
+
+
+def prepare_capture(device) -> None:
+    """Make the kernels' counter buffers on ``device`` before a CUDA graph
+    is captured there (``_counters``). A conv that splits K over more
+    tiles than COUNTER_WORDS would still need a larger one: the capture
+    then raises."""
+    for kernel in ("quantize", "absmax", "conv"):
+        _counters(torch.device(device), 1, kernel)
 
 
 def act_absmax(x: torch.Tensor, *, relu: bool = False) -> torch.Tensor:
@@ -337,11 +359,12 @@ def act_absmax(x: torch.Tensor, *, relu: bool = False) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"act_absmax kernel launch failed: cudaError_t "
                            f"{err}")
-    act_absmax.launches += 1
+    count_launch(act_absmax)
     return stats
 
 
 act_absmax.launches = 0  # kernel launches, read by chip_smoke.py
+act_absmax.captured = 0  # calls recorded into CUDA graphs
 
 
 def quantize_act(x: torch.Tensor, act_scale: torch.Tensor | None = None, *,
@@ -393,11 +416,12 @@ def quantize_act(x: torch.Tensor, act_scale: torch.Tensor | None = None, *,
         raise RuntimeError(f"quantize_act kernel launch failed "
                            f"({plan.variant}, grid {plan.grid}): cudaError_t "
                            f"{err}")
-    quantize_act.launches += 1
+    count_launch(quantize_act)
     return q.permute(0, 3, 1, 2), a_scale
 
 
 quantize_act.launches = 0  # kernel launches, read by chip_smoke.py
+quantize_act.captured = 0  # calls recorded into CUDA graphs
 
 
 def grid_quantize(x: torch.Tensor, group, *, relu: bool = False):
@@ -677,11 +701,12 @@ def conv_s8(q_x, qweight, w_scale, a_scale, bias, *, kernel_size,
     if err != 0:
         raise RuntimeError(f"int8_conv kernel launch failed ({plan.name}): "
                            f"error {err}")
-    conv_s8.launches += 1
+    count_launch(conv_s8)
     return out.permute(0, 3, 1, 2)
 
 
 conv_s8.launches = 0  # kernel launches, read by chip_smoke.py
+conv_s8.captured = 0  # calls recorded into CUDA graphs
 
 
 class Int8Conv2d(nn.Conv2d):

@@ -47,6 +47,13 @@ joints), ``masks/<id>.npy`` (Mask-R-CNN instances) and the id lists
 ``train_id.txt`` and ``val_id.txt`` (``PPPDataset``: one sample per
 matched person). ``--synthetic`` trains on synthetic data instead.
 
+``--steps-per-dispatch K`` (npp_tpu's flag, default 1) runs K train
+steps a dispatch (``engine.train_epoch_scanned``, ``core/train.
+make_train_step_scanned``): on the card one CUDA graph replay, captured
+at the first dispatch of each chunk size (a failed capture raises); on
+the CPU the same K steps one after another. One process only: under a
+process group it is refused.
+
 Each epoch: ``engine.train_epoch`` over the shuffled train set (the
 loader renders each batch's targets on the device: the heatmap kernel
 once per step on a card), the flip-TTA validation: ``validate`` for LIP,
@@ -74,6 +81,8 @@ Examples:
       --gt-csv data/LIP/pose_csv/pose_gt.csv
   python -m npp_tpu_torch.tools.augment_lip --synthetic --steps 20 \\
       --epochs 1
+  python -m npp_tpu_torch.tools.augment_lip --synthetic --steps 8 \\
+      --epochs 1 --steps-per-dispatch 4
   python -m npp_tpu_torch.tools.augment_lip --data-root data/LIP \\
       --fast-aug
   python -m npp_tpu_torch.tools.augment_lip --dataset ppp \\
@@ -101,6 +110,7 @@ from npp_tpu_torch.core import evaluate as E
 from npp_tpu_torch.core import train as T
 from npp_tpu_torch.core.checkpoint import (CheckpointManager,
                                            load_pretrained_params)
+from npp_tpu_torch.core.graphs import one_process
 from npp_tpu_torch.data import lip, pascal
 from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
@@ -282,12 +292,13 @@ def resume_from_jax(state, path: str, steps_per_epoch: int,
             float(tree.get("meta/best_pck", 0.0)))
 
 
-def make_train_step(hp: dict, preset=LIP):
-    return T.make_train_step(class_weights=preset.class_weights,
-                             ignore_index=IGNORE,
-                             ohem_thres=hp["ohem_thres"],
-                             ohem_keep=hp["ohem_keep"],
-                             use_target_weight=hp["use_target_weight"])
+def make_train_step(hp: dict, preset=LIP, scanned: bool = False):
+    """The preset's train step; with ``scanned`` K steps a call
+    (``make_train_step_scanned``)."""
+    make = T.make_train_step_scanned if scanned else T.make_train_step
+    return make(class_weights=preset.class_weights, ignore_index=IGNORE,
+                ohem_thres=hp["ohem_thres"], ohem_keep=hp["ohem_keep"],
+                use_target_weight=hp["use_target_weight"])
 
 
 def _eval_kw(hp: dict, preset) -> dict:
@@ -365,6 +376,19 @@ def start_ranks(p: argparse.ArgumentParser, args) -> tuple:
     return mesh.local_device(device), started
 
 
+def refuse_under_group(p: argparse.ArgumentParser, started: bool,
+                       flag: str, missing: str) -> None:
+    """``p.error`` where a process group is up: ``flag`` runs in one
+    process (``core/graphs.one_process``); a group this CLI started is
+    ended first."""
+    try:
+        one_process(flag, missing)
+    except ValueError as err:
+        if started:
+            torch.distributed.destroy_process_group()
+        p.error(str(err))
+
+
 def add_resume_jax_argument(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument("--resume-jax", default="", metavar="STATE.npz",
                    help=f"continue an npp_tpu run from its {what} as a flat "
@@ -412,6 +436,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "data-parallel ranks (parallel/zero.py); frees ~2 "
                         "param copies per card at one parameter broadcast "
                         "per step")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="K train steps a dispatch: one CUDA graph replay on "
+                        "the card (one process only)")
     return p
 
 
@@ -426,7 +453,13 @@ def main(argv=None) -> dict:
     if args.resume and args.resume_jax:
         p.error("--resume and --resume-jax both restore the state: give one")
 
+    if args.steps_per_dispatch < 1:
+        p.error("--steps-per-dispatch must be at least 1")
+
     device, started = start_ranks(p, args)
+    if args.steps_per_dispatch > 1:
+        refuse_under_group(p, started, "--steps-per-dispatch",
+                           "npp_tpu's ZeRO steps_per_dispatch")
     model_kw, hp = preset.train_config(args.tiny)
     logger, out_dir, tb_dir = create_logger(
         args.out, os.path.join(args.out, "log"), preset.name,
@@ -469,17 +502,24 @@ def main(argv=None) -> dict:
             merged = merge_pretrained(state, args.pretrained_encoder,
                                       logger.info)
 
-        train_step = make_train_step(hp, preset)
+        scanned = args.steps_per_dispatch > 1
+        train_step = make_train_step(hp, preset, scanned)
         eval_step = make_eval_step(state.model, hp, preset)
         gt_csv = pose_gt_csv(args, preset, data_root)
         epochs = args.epochs or hp["epochs"]
         gstep, train_loss, result = 0, float("nan"), None
         for epoch in range(begin_epoch, epochs):
             train_loader.set_epoch(epoch)
-            train_loss, gstep = engine.train_epoch(
-                train_step, state, train_loader, epoch=epoch, logger=logger,
-                writer=writer, print_freq=hp["print_freq"],
-                global_step=gstep)
+            if scanned:
+                train_loss, gstep = engine.train_epoch_scanned(
+                    train_step, state, train_loader, epoch=epoch,
+                    steps_per_dispatch=args.steps_per_dispatch,
+                    logger=logger, writer=writer, global_step=gstep)
+            else:
+                train_loss, gstep = engine.train_epoch(
+                    train_step, state, train_loader, epoch=epoch,
+                    logger=logger, writer=writer,
+                    print_freq=hp["print_freq"], global_step=gstep)
             result = validate(
                 state, eval_step, val_loader, preset, logger.info,
                 gt_csv=gt_csv,

@@ -22,7 +22,13 @@ a LIP directory only); the flip is the configuration's
 ``TEST.FLIP_TEST``;
 ``--pred-csv`` writes that CSV, ``--json-out`` the metrics as JSON;
 ``--int8`` runs the forwards with int8 dense convs
-(``make_eval_step(quantize="int8")``).
+(``make_eval_step(quantize="int8")``). ``--scanned`` (npp_tpu's flag)
+evaluates the set in one dispatch: the loader keeps the rendered device
+batches (``cache_on_device``), ``make_eval_epoch`` + ``validate_scanned``
+run them, on the card as one CUDA graph replay (a failed capture raises),
+a short tail batch by the per-batch step; with ``--int8`` the int8
+kernels run inside the graph. One process only: under a process group
+it is refused.
 LIP only, as the JAX CLI is: it fixes LIP's class weights and flip
 pairs. Under ``python -m torch.distributed.run --nproc_per_node=N`` each
 rank evaluates its strided shard of the set and ``validate`` gathers the
@@ -38,6 +44,7 @@ Examples:
   python -m npp_tpu_torch.tools.eval_lip --data-root data/LIP --sample 500
   python -m npp_tpu_torch.tools.eval_lip --synthetic --tiny --batch 2 \\
       --device cpu --dtype float32
+  python -m npp_tpu_torch.tools.eval_lip --synthetic --scanned --int8
   python -m npp_tpu_torch.tools.eval_lip --synthetic \\
       --ckpt output/lip/augment/flagship/checkpoints \\
       --genotype best_genotype.json --pred-csv pred.csv --json-out m.json
@@ -58,8 +65,8 @@ from npp_tpu_torch.data.loader import DataLoader, make_target_renderer
 from npp_tpu_torch.data.synthetic import SyntheticDataset
 from npp_tpu_torch.parallel import mesh
 from npp_tpu_torch.tools.augment_lip import (add_cfg_argument, data_source,
-                                             pose_gt_csv, resolve_preset,
-                                             start_ranks)
+                                             pose_gt_csv, refuse_under_group,
+                                             resolve_preset, start_ranks)
 from npp_tpu_torch.utils.metrics import per_class_table
 
 NUM_CLASSES, NUM_JOINTS = LIP.num_classes, LIP.num_joints
@@ -69,40 +76,46 @@ TINY = LIP.train_config(tiny=True)[0]
 
 def evaluate(model, ds, *, batch: int, crop_size, device,
              pred_csv: str | None = None, gt_csv: str | None = None,
-             quantize: str | None = None, flip_test: bool = True) -> dict:
+             quantize: str | None = None, flip_test: bool = True,
+             scanned: bool = False) -> dict:
     """Flip-TTA validation of ``model`` over the dataset ``ds`` (uint8
     images): the loader renders the targets on ``device`` (the heatmap
     kernel on a card), then ``make_eval_step`` + ``validate`` with the
     initial loss lambdas; ``pred_csv`` writes the LIP pose CSV, and with
     ``gt_csv`` the PCKh against it is added; ``quantize`` and
-    ``flip_test``: as ``make_eval_step``'s."""
+    ``flip_test``: as ``make_eval_step``'s. ``scanned``: the
+    device-cached loader, ``make_eval_epoch`` and ``validate_scanned``
+    (module docstring)."""
     renderer = make_target_renderer(stride=4, sigma=SIGMA,
                                     num_joints=NUM_JOINTS, ignore=IGNORE,
                                     normalize_images=True)
     loader = DataLoader(ds, batch, device=device, num_workers=8,
-                        renderer=renderer)
-    step = E.make_eval_step(model, num_classes=NUM_CLASSES,
-                            class_weights=LIP.class_weights,
-                            flip_test=flip_test, ignore_index=IGNORE,
-                            flip_pairs=LIP.flip_pairs,
-                            decode_hw=(crop_size[1], crop_size[0]),
-                            quantize=quantize)
+                        renderer=renderer, cache_on_device=scanned)
+    kw = dict(num_classes=NUM_CLASSES, class_weights=LIP.class_weights,
+              flip_test=flip_test, ignore_index=IGNORE,
+              flip_pairs=LIP.flip_pairs,
+              decode_hw=(crop_size[1], crop_size[0]), quantize=quantize)
     crit = init_criterion_params(model.refine_layers + 1, device)
-    return E.validate(step, crit, loader, num_classes=NUM_CLASSES,
-                      pred_csv=pred_csv, gt_csv=gt_csv)
+    if scanned:
+        return E.validate_scanned(E.make_eval_epoch(model, **kw), crit,
+                                  loader, num_classes=NUM_CLASSES,
+                                  pred_csv=pred_csv, gt_csv=gt_csv)
+    return E.validate(E.make_eval_step(model, **kw), crit, loader,
+                      num_classes=NUM_CLASSES, pred_csv=pred_csv,
+                      gt_csv=gt_csv)
 
 
 def evaluate_synthetic(model, *, n: int, batch: int, crop_size, device,
                        seed: int = 0, pred_csv: str | None = None,
                        quantize: str | None = None,
-                       flip_test: bool = True) -> dict:
+                       flip_test: bool = True, scanned: bool = False) -> dict:
     """``evaluate`` over ``n`` synthetic images drawn from ``seed``."""
     ds = SyntheticDataset(length=n, crop_size=crop_size,
                           num_joints=NUM_JOINTS, num_classes=NUM_CLASSES,
                           seed=seed, device_normalize=True)
     return evaluate(model, ds, batch=batch, crop_size=crop_size,
                     device=device, pred_csv=pred_csv, quantize=quantize,
-                    flip_test=flip_test)
+                    flip_test=flip_test, scanned=scanned)
 
 
 def result_line(result: dict) -> str:
@@ -132,7 +145,7 @@ def run(args, data_root: str | None, device, preset=LIP) -> dict:
         dtype=getattr(torch, args.dtype), seed=args.seed, preset=preset)
     pred_csv = args.pred_csv or None
     kw = dict(quantize="int8" if args.int8 else None,
-              flip_test=preset.test["flip_test"])
+              flip_test=preset.test["flip_test"], scanned=args.scanned)
     if data_root is None:
         result = evaluate_synthetic(model, n=2 * args.batch,
                                     batch=args.batch, crop_size=crop,
@@ -184,6 +197,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--int8", action="store_true",
                    help="serve the forwards through int8 dense convs")
+    p.add_argument("--scanned", action="store_true",
+                   help="the whole set in one dispatch: device-cached "
+                        "batches, one CUDA graph replay on the card (one "
+                        "process only)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
@@ -199,6 +216,9 @@ def main(argv=None):
     data_root = data_source(p, args, preset)
 
     device, started = start_ranks(p, args)
+    if args.scanned:
+        refuse_under_group(p, started, "--scanned",
+                           "npp_tpu's multi-process validate_scanned")
     try:
         result = run(args, data_root, device, preset)
     finally:

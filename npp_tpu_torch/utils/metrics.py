@@ -35,8 +35,11 @@ def confusion_matrix(label: torch.Tensor, pred: torch.Tensor,
     c = num_classes
     label = label.long()
     valid = (label != ignore) & (label >= 0) & (label < c)
-    idx = torch.where(valid, label * c + pred.long(), c * c)
-    counts = torch.bincount(idx.reshape(-1), minlength=c * c + 1)
+    idx = torch.where(valid, label * c + pred.long(), c * c).reshape(-1)
+    # A scatter-add, not torch.bincount: on a card bincount reads the
+    # largest index on the host, which a CUDA graph cannot capture.
+    counts = torch.zeros(c * c + 1, dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
     return counts[:c * c].reshape(c, c)
 
 
